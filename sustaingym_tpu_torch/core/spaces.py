@@ -1,0 +1,76 @@
+"""Space descriptors: ``Box``, ``DictSpace``, ``flatdim`` and ``flatten``.
+
+Same semantics as ``sustaingym_tpu.core.spaces``: a ``DictSpace`` flattens
+its entries in insertion order (``gymnasium.spaces.flatten`` order), so the
+flat observation layout, and with it the rows of a converted ``trunk1``
+weight, is the same in both packages.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["Space", "Box", "DictSpace", "flatdim", "flatten"]
+
+
+class Space:
+    """Base class for all spaces."""
+
+
+class Box(Space):
+    """Continuous box in R^shape with elementwise bounds."""
+
+    def __init__(self, low, high, shape: tuple[int, ...] | None = None):
+        low = np.asarray(low, dtype=np.float64)
+        high = np.asarray(high, dtype=np.float64)
+        if shape is None:
+            shape = np.broadcast_shapes(low.shape, high.shape)
+        self.shape = tuple(shape)
+        self.low = np.broadcast_to(low, self.shape).astype(np.float64)
+        self.high = np.broadcast_to(high, self.shape).astype(np.float64)
+
+    def __repr__(self) -> str:
+        return f"Box(shape={self.shape})"
+
+
+class DictSpace(Space):
+    """Ordered mapping of named sub-spaces."""
+
+    def __init__(self, spaces: Mapping[str, Space]):
+        self.spaces = dict(spaces)
+        self.shape = None
+
+    def __getitem__(self, name: str) -> Space:
+        return self.spaces[name]
+
+    def items(self):
+        return self.spaces.items()
+
+    def __repr__(self) -> str:
+        inner = ", ".join(f"{k}: {v!r}" for k, v in self.spaces.items())
+        return f"DictSpace({inner})"
+
+
+def flatdim(space: Space) -> int:
+    """Total number of scalar entries in a flattened point of ``space``."""
+    if isinstance(space, Box):
+        return int(np.prod(space.shape, dtype=np.int64)) if space.shape else 1
+    if isinstance(space, DictSpace):
+        return sum(flatdim(sp) for sp in space.spaces.values())
+    raise TypeError(f"unknown space {space}")
+
+
+def flatten(space: Space, x: Any, batch_dims: int = 0) -> torch.Tensor:
+    """Flattens a point of ``space`` to a float32 tensor of shape
+    (*batch, flatdim). The leading ``batch_dims`` axes of every entry are
+    kept; dict entries concatenate in insertion order."""
+    if isinstance(space, Box):
+        x = torch.as_tensor(x, dtype=torch.float32)
+        return x.reshape(x.shape[:batch_dims] + (-1,))
+    if isinstance(space, DictSpace):
+        return torch.cat([flatten(sp, x[name], batch_dims)
+                          for name, sp in space.spaces.items()], dim=-1)
+    raise TypeError(f"unknown space {space}")

@@ -1,0 +1,441 @@
+"""EVChargingEnv in PyTorch — a batched EV charging-network simulation.
+
+The port of ``sustaingym_tpu.envs.evcharging.env``: the same fixed-size
+station-slot state advanced by a step function, with the batch axis written
+out (every state tensor is (B, ...)) instead of vmapped.
+
+Per step (5 simulated minutes):
+ 1. optional action projection onto the network feasible set (dual-FISTA,
+    ``ops/qp.py``);
+ 2. EVSE pilot quantization — AV: {0,8,16,24,32}, CC: {0} U {6..32}
+    (round half to even, like ``np.round``);
+ 3. plug/unplug events from the compiled day table;
+ 4. two-stage battery charging;
+ 5. reward = profit - carbon cost - excess network charge.
+
+Whole episodes run in the CUDA kernels of ``ops/cuda/ev_rollout.py``
+through :meth:`EVChargingEnv.fused_rollout` (simulation tier) and
+:meth:`EVChargingEnv.fused_policy_unroll` (PPO rollouts). Both take the
+reset days explicitly, or draw them from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core import Box, DictSpace, FunctionalEnv, TimeStep, dataclass
+from ...ops import qp
+from .sites import SiteSpec, load_site
+
+# Reward constants (reference env.py:99-114)
+TIMESTEP_DURATION = 5
+ACTION_SCALE_FACTOR = 32.0
+VOLTAGE = 208.0
+MARGINAL_PROFIT_PER_KWH = 0.15 * 0.20
+CO2_COST_PER_METRIC_TON = 30.85
+A_MINS_TO_KWH = (1 / 60) * (VOLTAGE / 1000)
+VIOLATION_WEIGHT = 0.001
+A_PERS_TO_KWH = A_MINS_TO_KWH * TIMESTEP_DURATION
+PROFIT_FACTOR = A_PERS_TO_KWH * MARGINAL_PROFIT_PER_KWH
+VIOLATION_FACTOR = A_PERS_TO_KWH * VIOLATION_WEIGHT
+CARBON_COST_FACTOR = A_PERS_TO_KWH * (CO2_COST_PER_METRIC_TON / 1000)
+
+MAX_TIMESTEP = 288
+
+# Battery constants
+BATTERY_CAPACITY = 100.0
+BATTERY_MAX_POWER = 100.0
+TRANSITION_SOC = 0.8
+
+
+@dataclass
+class EVParams:
+    # data packs
+    moer: torch.Tensor          # (n_days, 289, 37)
+    day_max_profit: torch.Tensor  # (n_days,)
+    day_num_evs: torch.Tensor     # (n_days,) int32
+    # per-(day, t) step table: [plug_dep(n) | plug_est(n) | plug_req(n) |
+    # moer(t+1)(37) | max_profit | num_evs]; the kernels index it directly
+    step_table: torch.Tensor    # (n_days, 289, 3n + 39)
+    # network constants
+    constraint_re: torch.Tensor  # (m, n) Re(A~)
+    constraint_im: torch.Tensor  # (m, n) Im(A~)
+    magnitudes: torch.Tensor     # (m,)
+    min_pilots: torch.Tensor     # (n,)
+    proj: qp.DualSOCProjection
+    n_stations: int
+    n_days: int
+    moer_forecast_steps: int = 36
+    project_action: bool = True
+    site: str = "caltech"
+
+    @property
+    def device(self) -> torch.device:
+        return self.step_table.device
+
+
+@dataclass
+class EVState:
+    day: torch.Tensor       # (B,) int64
+    t: torch.Tensor         # (B,) int64
+    plugged: torch.Tensor   # (B, n) bool
+    dep: torch.Tensor       # (B, n) int64 true departure period
+    est_dep: torch.Tensor   # (B, n) int64 estimated departure period
+    demand: torch.Tensor    # (B, n) float32 remaining demand (kWh)
+
+
+def make_params(site: str = "caltech", date_period="Summer 2021",
+                moer_forecast_steps: int = 36, project_action: bool = True,
+                proj_iters: int | None = None, device="cpu") -> EVParams:
+    """Compiles the packaged real ACN sessions of ``site`` over
+    ``date_period`` into step tables (host NumPy), with the 15-iteration
+    dual-FISTA projection operator, and places every tensor on
+    ``device``."""
+    from ...data.ev_etl import build_moer_pack, build_trace_pack
+    spec: SiteSpec = load_site(site)
+    moer = build_moer_pack(date_period)
+    traces = build_trace_pack(site, date_period)
+    phase = np.exp(1j * np.deg2rad(spec.phase_angles))
+    a_tilde = spec.constraint_matrix * phase[None, :]
+    proj = qp.make_dual_soc_projection(
+        spec.constraint_matrix, spec.phase_angles, spec.magnitudes,
+        action_scale=ACTION_SCALE_FACTOR,
+        iters=15 if proj_iters is None else proj_iters, device=device)
+
+    ev = traces["ev_data"]
+    st = traces["ev_station"]
+    msk = traces["ev_mask"]
+    n_days_tr = ev.shape[0]
+    n = spec.num_stations
+    grid_shape = (n_days_tr, MAX_TIMESTEP + 1, n)
+    plug_dep = np.zeros(grid_shape, np.float32)
+    plug_est = np.zeros(grid_shape, np.float32)
+    plug_req = np.zeros(grid_shape, np.float32)
+    for d in range(n_days_tr):
+        for k in range(ev.shape[1]):
+            if not msk[d, k]:
+                continue
+            t0 = int(ev[d, k, 0])
+            plug_dep[d, t0, st[d, k]] = ev[d, k, 1]
+            plug_est[d, t0, st[d, k]] = ev[d, k, 2]
+            plug_req[d, t0, st[d, k]] = ev[d, k, 3]
+    dur = (ev[..., 1] - ev[..., 0]) * msk
+    max_kwh = np.minimum(ev[..., 3], dur * ACTION_SCALE_FACTOR * A_PERS_TO_KWH)
+    day_max_profit = (max_kwh * msk).sum(axis=1) * MARGINAL_PROFIT_PER_KWH
+    day_num_evs = msk.sum(axis=1).astype(np.int32)
+
+    moer_np = np.asarray(moer, np.float32)
+    moer_next = np.concatenate(
+        [moer_np[:, 1:, :], moer_np[:, -1:, :]], axis=1)  # row t -> moer t+1
+    step_table = np.concatenate([
+        plug_dep, plug_est, plug_req, moer_next,
+        np.broadcast_to(day_max_profit[:, None, None].astype(np.float32),
+                        grid_shape[:2] + (1,)),
+        np.broadcast_to(day_num_evs[:, None, None].astype(np.float32),
+                        grid_shape[:2] + (1,)),
+    ], axis=2)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device)
+
+    return EVParams(
+        moer=f32(moer),
+        day_max_profit=f32(day_max_profit),
+        day_num_evs=torch.as_tensor(day_num_evs, device=device),
+        step_table=f32(step_table).contiguous(),
+        constraint_re=f32(a_tilde.real),
+        constraint_im=f32(a_tilde.imag),
+        magnitudes=f32(spec.magnitudes),
+        min_pilots=f32(spec.min_pilots),
+        proj=proj,
+        n_stations=n,
+        n_days=int(moer.shape[0]),
+        moer_forecast_steps=int(moer_forecast_steps),
+        project_action=bool(project_action),
+        site=site,
+    )
+
+
+def quantize_pilots(norm_action: torch.Tensor, min_pilots: torch.Tensor
+                    ) -> torch.Tensor:
+    """normalized [0,1] action -> pilot signal in amps. ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    amps = norm_action * ACTION_SCALE_FACTOR
+    cc = torch.where(amps >= 6.0, torch.round(amps), 0.0)
+    av = torch.round(amps / 8.0) * 8.0
+    return torch.where(min_pilots == 6.0, cc, av)
+
+
+def battery_charge(pilot_amps: torch.Tensor, demand: torch.Tensor,
+                   plugged: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage battery model, elementwise over stations: every battery
+    has capacity 100 kWh, so soc = 1 - demand / capacity. Returns (actual
+    charging rate in A, energy delivered in kWh)."""
+    pilot_kw = pilot_amps * VOLTAGE / 1000.0
+    soc = 1.0 - demand / BATTERY_CAPACITY
+    taper_kw = BATTERY_MAX_POWER * (1.0 - soc) / (1.0 - TRANSITION_SOC)
+    cap_kw = torch.where(soc < TRANSITION_SOC, BATTERY_MAX_POWER, taper_kw)
+    power = torch.minimum(pilot_kw, cap_kw)
+    # cannot exceed remaining capacity within one period
+    power = torch.minimum(power, demand * (60.0 / TIMESTEP_DURATION))
+    power = torch.where(plugged, torch.clamp(power, min=0.0), 0.0)
+    energy = power * (TIMESTEP_DURATION / 60.0)
+    rate_amps = power * 1000.0 / VOLTAGE
+    return rate_amps, energy
+
+
+def advance(params: EVParams, state: EVState, action: torch.Tensor, row: torch.Tensor
+            ) -> tuple[EVState, torch.Tensor, dict[str, torch.Tensor]]:
+    """One batched env step given the packed (day, t) table rows (B, W):
+    projection, quantization, events, battery, reward. The env and the
+    plain versions of the kernels share this code. Returns
+    (next state, reward (B,), {profit, carbon_cost, excess_charge})."""
+    n = params.n_stations
+    action = torch.clamp(action, 0.0, 1.0)
+    if params.project_action:
+        # upper bound from the demands the agent observed (pre-event)
+        demands_obs = torch.where(state.plugged, state.demand, 0.0)
+        ub = torch.clamp(demands_obs / A_PERS_TO_KWH / ACTION_SCALE_FACTOR,
+                         max=1.0)
+        action = qp.project(params.proj, action, ub)
+    pilots = quantize_pilots(action, params.min_pilots)
+
+    # events at step t: unplug (departure == t), then arrivals take the slot
+    dep_row = row[:, :n]
+    plugged = state.plugged & (state.dep != state.t[:, None])
+    arrive = dep_row > 0
+    plugged = plugged | arrive
+    dep = torch.where(arrive, dep_row.long(), state.dep)
+    est_dep = torch.where(arrive, row[:, n:2 * n].long(), state.est_dep)
+    demand = torch.where(arrive, row[:, 2 * n:3 * n], state.demand)
+
+    rates, energy = battery_charge(pilots, demand, plugged)
+    demand = demand - energy
+
+    # reward: carbon is priced at the post-increment row moer(t+1)[0]
+    total_rate = torch.sum(rates, -1)
+    profit = PROFIT_FACTOR * total_rate
+    agg = (pilots @ params.proj.C.T).reshape(pilots.shape[0], -1, 2)
+    current_mag = torch.sqrt(torch.sum(agg * agg, -1))
+    # padded cones (none in the packaged sites) add exactly 0
+    excess = torch.sum(torch.where(
+        params.magnitudes > 0.0,
+        torch.clamp(current_mag - params.magnitudes, min=0.0), 0.0), -1)
+    excess_charge = excess * VIOLATION_FACTOR
+    carbon_cost = CARBON_COST_FACTOR * total_rate * row[:, 3 * n]
+    reward = profit - carbon_cost - excess_charge
+    new_state = EVState(day=state.day, t=state.t + 1, plugged=plugged,
+                        dep=dep, est_dep=est_dep, demand=demand)
+    return new_state, reward, {"profit": profit, "carbon_cost": carbon_cost,
+                               "excess_charge": excess_charge}
+
+
+class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
+    name = "evcharging"
+
+    # ---- batched API ----------------------------------------------------
+    def reset(self, params: EVParams, generator: torch.Generator,
+              batch: int) -> tuple[EVState, TimeStep]:
+        """``batch`` envs on uniform days drawn from ``generator``."""
+        day = torch.randint(params.n_days, (batch,), generator=generator,
+                            device=generator.device)
+        return self.reset_at_day(params, day)
+
+    def reset_at_day(self, params: EVParams, day) -> tuple[EVState, TimeStep]:
+        dev = params.device
+        day = torch.as_tensor(day, dtype=torch.long, device=dev).reshape(-1)
+        B, n = day.shape[0], params.n_stations
+        state = EVState(
+            day=day,
+            t=torch.zeros(B, dtype=torch.long, device=dev),
+            plugged=torch.zeros((B, n), dtype=torch.bool, device=dev),
+            dep=torch.zeros((B, n), dtype=torch.long, device=dev),
+            est_dep=torch.zeros((B, n), dtype=torch.long, device=dev),
+            demand=torch.zeros((B, n), dtype=torch.float32, device=dev))
+        zero = torch.zeros(B, dtype=torch.float32, device=dev)
+        ts = TimeStep(
+            obs=self._obs(params, state), reward=zero,
+            terminated=torch.zeros(B, dtype=torch.bool, device=dev),
+            truncated=torch.zeros(B, dtype=torch.bool, device=dev),
+            info=self._info(params, state, zero, zero, zero))
+        return state, ts
+
+    def step(self, params: EVParams, state: EVState, action: torch.Tensor
+             ) -> tuple[EVState, TimeStep]:
+        """One step of every env; ``action`` is (B, n) in [0, 1]."""
+        row = params.step_table[state.day, state.t]
+        action = torch.as_tensor(action, dtype=torch.float32,
+                                 device=params.device)
+        new_state, reward, terms = advance(params, state, action, row)
+        ts = TimeStep(
+            obs=self._obs(params, new_state), reward=reward,
+            terminated=new_state.t >= MAX_TIMESTEP,
+            truncated=torch.zeros_like(new_state.t, dtype=torch.bool),
+            info=self._info(params, state, terms["profit"],
+                            terms["carbon_cost"], terms["excess_charge"]))
+        return new_state, ts
+
+    def episode_steps(self, params: EVParams) -> int:
+        return MAX_TIMESTEP
+
+    # ---- whole-episode kernels -------------------------------------------
+    @staticmethod
+    def _episode_days(params: EVParams, batch: int, episodes: int, days,
+                      generator) -> torch.Tensor:
+        """(episodes, batch) reset days: ``days`` as given ((batch,) for one
+        episode), else uniform draws from ``generator``."""
+        if days is None:
+            if generator is None:
+                raise ValueError("pass reset `days` or a torch.Generator")
+            days = torch.randint(params.n_days, (episodes, batch),
+                                 generator=generator, device=generator.device)
+        days = torch.as_tensor(days, dtype=torch.long,
+                               device=params.device).reshape(-1, batch)
+        if days.shape[0] != episodes:
+            raise ValueError(f"need reset days for {episodes} episodes, "
+                             f"got {days.shape[0]}")
+        return days
+
+    @staticmethod
+    def _seed(generator) -> int:
+        if generator is None:
+            raise ValueError("in-kernel draws need a torch.Generator")
+        return int(torch.randint(2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+
+    def fused_rollout(self, params: EVParams, batch: int, num_steps: int,
+                      days=None, generator: torch.Generator | None = None,
+                      actions: torch.Tensor | None = None) -> TimeStep:
+        """Simulation tier: whole episodes in one kernel launch per episode
+        (``ops/cuda/ev_rollout.py::ev_segment``), station state in
+        registers. Returns rewards + info per step; ``obs`` is an empty dict.
+
+        ``days``: (episodes, batch) or (batch,) reset days, else drawn from
+        ``generator``. ``actions``: (num_steps, batch, n) prescribed
+        actions; if None the kernel draws U[0, 1) actions from a Philox
+        stream seeded from ``generator``."""
+        from ...ops.cuda.ev_rollout import ev_segment
+
+        L = MAX_TIMESTEP
+        episodes = -(-num_steps // L)
+        days = self._episode_days(params, batch, episodes, days, generator)
+        parts = []
+        for ep in range(episodes):
+            t0 = ep * L
+            seg = min(L, num_steps - t0)
+            if actions is None:
+                acts, seed = None, self._seed(generator)
+            else:
+                acts, seed = actions[t0:t0 + seg], 0
+            out, _ = ev_segment(params, days[ep], seg, actions=acts,
+                                seed=seed)
+            done = torch.zeros((seg, batch), dtype=torch.bool,
+                               device=params.device)
+            if seg == L:
+                done[-1] = True
+            parts.append(TimeStep(
+                obs={}, reward=out[..., 0], terminated=done,
+                truncated=torch.zeros_like(done),
+                info={"profit": out[..., 1], "carbon_cost": out[..., 2],
+                      "excess_charge": out[..., 3],
+                      "max_profit": params.day_max_profit[days[ep]].expand(
+                          seg, batch),
+                      "num_evs": params.day_num_evs[days[ep]].expand(
+                          seg, batch)}))
+        if len(parts) == 1:
+            return parts[0]
+        return TimeStep(
+            obs={}, reward=torch.cat([p.reward for p in parts]),
+            terminated=torch.cat([p.terminated for p in parts]),
+            truncated=torch.cat([p.truncated for p in parts]),
+            info={k: torch.cat([p.info[k] for p in parts])
+                  for k in parts[0].info})
+
+    def fused_layout(self, params: EVParams) -> dict:
+        """Learner-block layout of :meth:`fused_policy_unroll`."""
+        from ...ops.cuda.ev_rollout import ev_fused_layout
+        return ev_fused_layout(params.n_stations, params.moer_forecast_steps)
+
+    def fused_policy_unroll(self, params: EVParams, policy, batch: int,
+                            num_steps: int, days=None,
+                            generator: torch.Generator | None = None,
+                            noise: torch.Tensor | None = None) -> dict:
+        """PPO rollout with the actor inside the episode kernel
+        (``ops/cuda/ev_rollout.py::ev_policy_segment``): obs assembly, the
+        2-layer tanh actor in bf16, Gaussian sampling, tanh squash to
+        Box(0, 1), projection and env step. ``policy`` is a
+        ``parallel.ppo.ActorCritic``; ``num_steps`` is a multiple of 288.
+
+        Returns ``lrn`` (T, B, obs_dim + n) bf16 — the obs the policy saw in
+        canonical flat order, then the pre-squash draws u (see
+        :meth:`fused_layout`) — plus ``reward``/``done``/info (T, B) and
+        the reset ``days`` (episodes, B). ``noise`` (T, B, n) prescribes
+        the normal draws; otherwise the kernel draws Box–Muller normals
+        from a Philox stream seeded from ``generator``."""
+        from ...ops.cuda.ev_rollout import (ev_policy_segment,
+                                            pack_policy_weights)
+
+        L = MAX_TIMESTEP
+        if num_steps % L != 0:
+            raise ValueError(f"num_steps must be a multiple of {L}")
+        episodes = num_steps // L
+        days = self._episode_days(params, batch, episodes, days, generator)
+        weights = pack_policy_weights(policy)
+        outs, lrns = [], []
+        for ep in range(episodes):
+            if noise is None:
+                nz, seed = None, self._seed(generator)
+            else:
+                nz, seed = noise[ep * L:(ep + 1) * L], 0
+            out, lrn = ev_policy_segment(params, weights, days[ep], L,
+                                         noise=nz, seed=seed)
+            outs.append(out)
+            lrns.append(lrn)
+        out = torch.cat(outs)
+        done = torch.zeros((num_steps, batch), dtype=torch.bool,
+                           device=params.device)
+        done[L - 1::L] = True
+        return {"lrn": torch.cat(lrns), "reward": out[..., 0], "done": done,
+                "profit": out[..., 1], "carbon_cost": out[..., 2],
+                "excess_charge": out[..., 3], "days": days}
+
+    # ---- obs/info -------------------------------------------------------
+    def _obs(self, params: EVParams, state: EVState) -> dict:
+        t = state.t
+        k = params.moer_forecast_steps
+        est = torch.where(state.plugged,
+                          (state.est_dep - t[:, None]).float(), 0.0)
+        demands = torch.where(state.plugged, state.demand, 0.0)
+        moer_row = params.moer[state.day, t]
+        return {
+            "timestep": (t.float() / MAX_TIMESTEP)[:, None],
+            "est_departures": est,
+            "demands": demands,
+            "prev_moer": moer_row[:, 0:1],
+            "forecasted_moer": moer_row[:, 1:1 + k],
+        }
+
+    def _info(self, params: EVParams, state: EVState, profit, carbon,
+              excess) -> dict:
+        return {
+            "profit": profit,
+            "carbon_cost": carbon,
+            "excess_charge": excess,
+            "max_profit": params.day_max_profit[state.day],
+            "num_evs": params.day_num_evs[state.day],
+        }
+
+    # ---- metadata -------------------------------------------------------
+    def observation_space(self, params: EVParams) -> DictSpace:
+        n = params.n_stations
+        return DictSpace({
+            "timestep": Box(0, 1, (1,)),
+            "est_departures": Box(-288, 288, (n,)),
+            "demands": Box(0, 100, (n,)),
+            "prev_moer": Box(0, 1, (1,)),
+            "forecasted_moer": Box(0, 1, (params.moer_forecast_steps,)),
+        })
+
+    def action_space(self, params: EVParams) -> Box:
+        return Box(0.0, 1.0, (params.n_stations,))

@@ -1,0 +1,506 @@
+// Whole EVChargingEnv episode segments on an NVIDIA Hopper card (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of
+// sustaingym_tpu/ops/pallas/ev_rollout.py:
+//   ev_segment_kernel        <- fused_ev_segment (_kernel), the simulation tier
+//   ev_policy_segment_kernel <- fused_ev_policy_segment (_policy_kernel), the
+//                               PPO rollout with the 2-layer tanh actor inside
+//
+// What bounds them. Per env step the dual-FISTA projection runs `iters`
+// (15) dependent iterations of two skinny mat-vecs (C' y over <= 32 cone
+// rows, C xbar over <= 64 stations); the reward adds one more C mat-vec.
+// That is a latency chain of warp-synchronous FMAs, not a bandwidth
+// problem: one day-table row (~0.7 KB, L2-resident: the whole table is
+// ~37 MB) and 16 bytes of output per env step. The policy kernel adds the
+// actor MLP, ~2*(D*H + H*H + H*n) = 234 kFLOP per env step at H = 256,
+// whose weights (~233 KB bf16) are the one large operand.
+//
+// Design.
+//  * One warp per env. Lane l owns stations l and l + 32 (n <= 64) and cone
+//    row l (2m <= 32 rows, interleaved Re/Im per cone as in ops/qp.py), so
+//    a cone's (Re, Im) pair sits in lanes (2c, 2c+1) and its norm is one
+//    __shfl_xor. Station state (plugged, departure, est. departure, demand)
+//    stays in registers for the whole segment.
+//  * The cone operator C lives in shared memory twice: station-major for
+//    C xbar (lane = cone row reads consecutive words) and cone-major for
+//    C' y (lane = station reads consecutive words), so neither mat-vec has
+//    bank conflicts. Mat-vec operands go through a per-warp shared buffer.
+//  * The day table is indexed directly, table[day_b, t], instead of the TPU
+//    kernel's one-hot matmul day select.
+//  * Policy kernel: a CTA owns a tile of kTile envs (one warp each). The obs
+//    and hidden tiles live in shared memory, so the bf16 weights are read
+//    from L2 once per tile per step, not once per env (~16x fewer bytes).
+//    The MLP is plain FMA loops; bf16 rounding happens exactly where the
+//    JAX kernel casts (obs, h1, h2), with f32 accumulation.
+//  * Random draws: counter-based Philox4x32-10 keyed by the caller's seed
+//    and counted by (lane, step, env, stream), so the draws do not depend on
+//    launch geometry.
+//  * No fast-math: rintf (round half to even, like jnp.round), IEEE sqrtf
+//    and division.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxStations = 64;
+constexpr int kMaxConeRows = 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// env constants, evaluated in double exactly as envs/evcharging/env.py does
+constexpr double kVoltage = 208.0;
+constexpr double kAPersToKwh = (1.0 / 60.0) * (kVoltage / 1000.0) * 5.0;
+constexpr double kProfitFactor = kAPersToKwh * (0.15 * 0.20);
+constexpr double kViolationFactor = kAPersToKwh * 0.001;
+constexpr double kCarbonCostFactor = kAPersToKwh * (30.85 / 1000.0);
+constexpr double kMaxTimestep = 288.0;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// U[0, 1) from the top 23 bits, as the TPU kernel's _uniform01
+__device__ __forceinline__ float uniform01(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+struct Operators {
+  const float* C;      // (m2, n) interleaved Re/Im cone rows
+  const float* radii;  // (m)
+  const float* step;   // (m) dual step sizes
+  const float* mags;   // (m) cone limits (amps)
+  const float* minp;   // (n) min pilots (6 = CC, 8 = AV)
+  int n, m2, iters, restart, project;
+};
+
+// Shared-memory copies of C; see the file comment.
+struct SharedC {
+  float* cjk;  // [kMaxStations][kMaxConeRows]
+  float* ckj;  // [kMaxConeRows][kMaxStations]
+};
+
+__device__ void load_operator(const Operators& op, SharedC sc) {
+  for (int i = threadIdx.x; i < kMaxStations * kMaxConeRows; i += blockDim.x) {
+    const int k = i / kMaxStations, j = i % kMaxStations;
+    const float v = (k < op.m2 && j < op.n) ? op.C[k * op.n + j] : 0.0f;
+    sc.ckj[k * kMaxStations + j] = v;
+    sc.cjk[j * kMaxConeRows + k] = v;
+  }
+}
+
+// Per-lane view of one env: two station slots and one cone row.
+struct Lane {
+  int lane, s0, s1;
+  bool v0, v1, crow;
+  float minp0, minp1;
+  float t2, tr, mag_lim;  // cone row constants (0 outside the cones)
+};
+
+__device__ Lane make_lane(const Operators& op) {
+  Lane L;
+  L.lane = threadIdx.x & 31;
+  L.s0 = L.lane;
+  L.s1 = L.lane + 32;
+  L.v0 = L.s0 < op.n;
+  L.v1 = L.s1 < op.n;
+  L.crow = L.lane < op.m2;
+  L.minp0 = L.v0 ? op.minp[L.s0] : 0.0f;
+  L.minp1 = L.v1 ? op.minp[L.s1] : 0.0f;
+  const int c = L.lane >> 1;
+  L.t2 = L.crow ? op.step[c] : 0.0f;
+  L.tr = L.crow ? op.step[c] * op.radii[c] : 0.0f;
+  L.mag_lim = L.crow ? op.mags[c] : 0.0f;
+  return L;
+}
+
+// C' y for this lane's two stations; y[k] in ys[0:m2].
+__device__ __forceinline__ void ct_y(const Operators& op, SharedC sc,
+                                     const float* ys, const Lane& L,
+                                     float& d0, float& d1) {
+  d0 = 0.0f;
+  d1 = 0.0f;
+  for (int k = 0; k < op.m2; ++k) {
+    const float yk = ys[k];
+    d0 += sc.ckj[k * kMaxStations + L.s0] * yk;
+    d1 += sc.ckj[k * kMaxStations + L.s1] * yk;
+  }
+}
+
+// (C x)[lane] for this lane's cone row; x[j] in xs[0:n].
+__device__ __forceinline__ float c_x(const Operators& op, SharedC sc,
+                                     const float* xs, const Lane& L) {
+  float acc = 0.0f;
+  if (L.crow)
+    for (int j = 0; j < op.n; ++j) acc += sc.cjk[j * kMaxConeRows + L.lane] * xs[j];
+  return acc;
+}
+
+// Norm of this lane's cone pair (Re in the even lane, Im in the odd one).
+__device__ __forceinline__ float pair_norm_sq(float v, int lane) {
+  const float p = __shfl_xor_sync(kFull, v, 1);
+  const float re = (lane & 1) ? p : v;
+  const float im = (lane & 1) ? v : p;
+  return re * re + im * im;
+}
+
+// Preconditioned dual-FISTA with gradient restart (ops/qp.py::project);
+// a and ub are this lane's two stations, xs/ys the warp's scratch.
+__device__ void fista(const Operators& op, SharedC sc, const Lane& L,
+                      float* xs, float* ys, float a0, float a1, float ub0,
+                      float ub1, float& x0, float& x1) {
+  float lam = 0.0f, lam_prev = 0.0f, tk = 1.0f;
+  float d0, d1;
+  for (int it = 0; it < op.iters; ++it) {
+    float tk1 = 0.5f * (1.0f + sqrtf(1.0f + 4.0f * tk * tk));
+    const float beta = (tk - 1.0f) / tk1;
+    const float y = lam + beta * (lam - lam_prev);
+    __syncwarp();
+    ys[L.lane] = y;
+    __syncwarp();
+    ct_y(op, sc, ys, L, d0, d1);
+    xs[L.s0] = fminf(fmaxf(a0 - d0, 0.0f), ub0);
+    xs[L.s1] = fminf(fmaxf(a1 - d1, 0.0f), ub1);
+    __syncwarp();
+    const float w = y + L.t2 * c_x(op, sc, xs, L);
+    const float nr = sqrtf(pair_norm_sq(w, L.lane) + 1e-12f);
+    const float lam_new = L.crow ? w * fmaxf(0.0f, 1.0f - L.tr / nr) : 0.0f;
+    if (op.restart) {
+      const float prog = warp_sum((lam_new - lam) * (lam - lam_prev));
+      if (prog < 0.0f) tk1 = 1.0f;
+    }
+    lam_prev = lam;
+    lam = lam_new;
+    tk = tk1;
+  }
+  __syncwarp();
+  ys[L.lane] = lam;
+  __syncwarp();
+  ct_y(op, sc, ys, L, d0, d1);
+  x0 = fminf(fmaxf(a0 - d0, 0.0f), ub0);
+  x1 = fminf(fmaxf(a1 - d1, 0.0f), ub1);
+}
+
+// Station state of one env, in this lane's registers.
+struct Stations {
+  bool pl0, pl1;
+  int dep0, dep1, est0, est1;
+  float dem0, dem1;
+};
+
+__device__ __forceinline__ float quantize(float a, float minp) {
+  const float amps = a * 32.0f;
+  const float cc = amps >= 6.0f ? rintf(amps) : 0.0f;
+  const float av = rintf(amps / 8.0f) * 8.0f;
+  return minp == 6.0f ? cc : av;
+}
+
+// Two-stage battery (env.py battery_charge); returns the rate in A and
+// lowers the demand by the energy delivered.
+__device__ __forceinline__ float charge(float pilot, bool plugged, float& dem) {
+  const float pilot_kw = pilot * (float)kVoltage / 1000.0f;
+  const float soc = 1.0f - dem / 100.0f;
+  const float taper = 100.0f * (1.0f - soc) / 0.2f;
+  const float cap_kw = soc < 0.8f ? 100.0f : taper;
+  float power = fminf(pilot_kw, cap_kw);
+  power = fminf(power, dem * 12.0f);
+  power = plugged ? fmaxf(power, 0.0f) : 0.0f;
+  dem = dem - power * (float)(5.0 / 60.0);
+  return power * 1000.0f / (float)kVoltage;
+}
+
+// One env step after the action is known: projection, quantization,
+// events, battery, reward. Writes (reward, profit, carbon, excess) to out4
+// from lane 0. `row` is table[day, t]: plug_dep | plug_est | plug_req |
+// moer(t+1) | ...
+__device__ void env_step(const Operators& op, SharedC sc, const Lane& L,
+                         float* xs, float* ys, Stations& st, float a0,
+                         float a1, const float* row, int t, float* out4) {
+  const int n = op.n;
+  a0 = L.v0 ? fminf(fmaxf(a0, 0.0f), 1.0f) : 0.0f;
+  a1 = L.v1 ? fminf(fmaxf(a1, 0.0f), 1.0f) : 0.0f;
+  if (op.project) {
+    // upper bound from the pre-event demands the agent observed
+    const float kub = (float)kAPersToKwh;
+    const float ub0 = fminf(1.0f, (st.pl0 ? st.dem0 : 0.0f) / kub / 32.0f);
+    const float ub1 = fminf(1.0f, (st.pl1 ? st.dem1 : 0.0f) / kub / 32.0f);
+    fista(op, sc, L, xs, ys, a0, a1, L.v0 ? ub0 : 0.0f, L.v1 ? ub1 : 0.0f,
+          a0, a1);
+  }
+  const float p0 = L.v0 ? quantize(a0, L.minp0) : 0.0f;
+  const float p1 = L.v1 ? quantize(a1, L.minp1) : 0.0f;
+
+  // events at step t: unplug at departure, then arrivals take the slot
+  const float dep_in0 = L.v0 ? row[L.s0] : 0.0f;
+  const float dep_in1 = L.v1 ? row[L.s1] : 0.0f;
+  st.pl0 = st.dep0 == t ? false : st.pl0;
+  st.pl1 = st.dep1 == t ? false : st.pl1;
+  if (dep_in0 > 0.0f) {
+    st.pl0 = true;
+    st.dep0 = (int)dep_in0;
+    st.est0 = (int)row[n + L.s0];
+    st.dem0 = row[2 * n + L.s0];
+  }
+  if (dep_in1 > 0.0f) {
+    st.pl1 = true;
+    st.dep1 = (int)dep_in1;
+    st.est1 = (int)row[n + L.s1];
+    st.dem1 = row[2 * n + L.s1];
+  }
+  const float r0 = L.v0 ? charge(p0, st.pl0, st.dem0) : 0.0f;
+  const float r1 = L.v1 ? charge(p1, st.pl1, st.dem1) : 0.0f;
+  const float total_rate = warp_sum(r0 + r1);
+
+  // per-cone aggregate current magnitudes at the quantized pilots
+  __syncwarp();
+  xs[L.s0] = p0;
+  xs[L.s1] = p1;
+  __syncwarp();
+  const float agg = c_x(op, sc, xs, L);
+  const float mag = sqrtf(pair_norm_sq(agg, L.lane));
+  // padded cone rows add exactly 0
+  const bool cone_head = L.crow && !(L.lane & 1) && L.mag_lim > 0.0f;
+  const float excess = warp_sum(cone_head ? fmaxf(mag - L.mag_lim, 0.0f) : 0.0f);
+
+  if (L.lane == 0) {
+    const float moer_next0 = row[3 * n];
+    const float profit = (float)kProfitFactor * total_rate;
+    const float carbon = (float)kCarbonCostFactor * total_rate * moer_next0;
+    const float excess_charge = excess * (float)kViolationFactor;
+    *reinterpret_cast<float4*>(out4) =
+        make_float4(profit - carbon - excess_charge, profit, carbon, excess_charge);
+  }
+}
+
+constexpr int kSimWarps = 8;
+
+__global__ void __launch_bounds__(kSimWarps * 32)
+ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
+                  int rows_per_day, const int64_t* __restrict__ days, int B,
+                  int T, const float* __restrict__ acts, uint64_t seed,
+                  float* __restrict__ out, float* __restrict__ acts_out) {
+  extern __shared__ float smem[];
+  SharedC sc{smem, smem + kMaxStations * kMaxConeRows};
+  load_operator(op, sc);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  float* xs = smem + 2 * kMaxStations * kMaxConeRows + warp * 96;
+  float* ys = xs + kMaxStations;
+  const int e = blockIdx.x * kSimWarps + warp;
+  if (e >= B) return;  // whole warps only: no block-wide sync follows
+  const Lane L = make_lane(op);
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const float* day_rows = table + (size_t)days[e] * rows_per_day * table_w;
+  Stations st{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
+  for (int t = 0; t < T; ++t) {
+    float a0, a1;
+    if (acts != nullptr) {
+      const float* at = acts + ((size_t)t * B + e) * op.n;
+      a0 = L.v0 ? at[L.s0] : 0.0f;
+      a1 = L.v1 ? at[L.s1] : 0.0f;
+    } else {
+      const uint4 r = philox4x32_10(make_uint4(L.lane, t, e, 0u), key);
+      a0 = uniform01(r.x);
+      a1 = uniform01(r.y);
+    }
+    if (acts_out != nullptr) {
+      float* ao = acts_out + ((size_t)t * B + e) * op.n;
+      if (L.v0) ao[L.s0] = fminf(fmaxf(a0, 0.0f), 1.0f);
+      if (L.v1) ao[L.s1] = fminf(fmaxf(a1, 0.0f), 1.0f);
+    }
+    env_step(op, sc, L, xs, ys, st, a0, a1, day_rows + (size_t)t * table_w, t,
+             out + ((size_t)t * B + e) * 4);
+  }
+}
+
+constexpr int kTile = 16;  // envs (= warps) per CTA in the policy kernel
+constexpr int kEpt = 8;    // envs per thread in the MLP loops
+
+struct Actor {
+  const __nv_bfloat16* w1;  // (D, H) = trunk1 (din, dout)
+  const float* b1;          // (H)
+  const __nv_bfloat16* w2;  // (H, H)
+  const float* b2;          // (H)
+  const __nv_bfloat16* wm;  // (H, n)
+  const float* bm;          // (n)
+  const float* sigma;       // (n) exp(log_std)
+  int D, H;
+};
+
+// out[e][j] = act(bias[j] + sum_i in[e][i] * w[i][j]) for the tile's envs;
+// `round` rounds the tanh output to bf16 (the next matmul's operand).
+__device__ void tile_dense(const float* in, int ld_in, int din,
+                           const __nv_bfloat16* __restrict__ w, int dout,
+                           const float* __restrict__ bias, float* out,
+                           int ld_out, bool act_tanh) {
+  for (int item = threadIdx.x; item < dout * (kTile / kEpt); item += blockDim.x) {
+    const int j = item % dout, g = item / dout;
+    const float* x = in + g * kEpt * ld_in;
+    float acc[kEpt];
+#pragma unroll
+    for (int q = 0; q < kEpt; ++q) acc[q] = 0.0f;
+    for (int i = 0; i < din; ++i) {
+      const float wv = __bfloat162float(w[(size_t)i * dout + j]);
+#pragma unroll
+      for (int q = 0; q < kEpt; ++q) acc[q] += x[q * ld_in + i] * wv;
+    }
+    const float b = bias[j];
+#pragma unroll
+    for (int q = 0; q < kEpt; ++q) {
+      const float v = acc[q] + b;
+      out[(g * kEpt + q) * ld_out + j] = act_tanh ? bf16_round(tanhf(v)) : v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTile * 32)
+ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table,
+                         int table_w, int rows_per_day,
+                         const float* __restrict__ moer, int moer_w, int k_fc,
+                         const int64_t* __restrict__ days, int B, int T,
+                         const float* __restrict__ noise, uint64_t seed,
+                         float* __restrict__ out, __nv_bfloat16* __restrict__ lrn) {
+  extern __shared__ float smem[];
+  const int n = op.n, D = ac.D, H = ac.H;
+  SharedC sc{smem, smem + kMaxStations * kMaxConeRows};
+  float* obs_s = smem + 2 * kMaxStations * kMaxConeRows;  // [kTile][D]
+  float* h1_s = obs_s + kTile * D;                         // [kTile][H]
+  float* h2_s = h1_s + kTile * H;                          // [kTile][H]
+  float* mu_s = h2_s + kTile * H;                          // [kTile][64]
+  float* scratch = mu_s + kTile * kMaxStations;            // [kTile][96]
+  load_operator(op, sc);
+  const int warp = threadIdx.x >> 5;
+  float* xs = scratch + warp * 96;
+  float* ys = xs + kMaxStations;
+  const int e = blockIdx.x * kTile + warp;
+  const bool live = e < B;
+  const Lane L = make_lane(op);
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const int64_t day = live ? days[e] : 0;
+  const float* day_rows = table + (size_t)day * rows_per_day * table_w;
+  const float* day_moer = moer + (size_t)day * rows_per_day * moer_w;
+  const int lw = D + n;  // learner row: obs (canonical flat order) | u
+  float* my_obs = obs_s + warp * D;
+  Stations st{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    // ---- obs of the pre-event state, bf16-rounded, in flat order:
+    // timestep | est_departures | demands | prev_moer | forecast
+    const float* mrow = day_moer + (size_t)t * moer_w;
+    if (L.v0) {
+      my_obs[1 + L.s0] = bf16_round(st.pl0 ? (float)(st.est0 - t) : 0.0f);
+      my_obs[1 + n + L.s0] = bf16_round(st.pl0 ? st.dem0 : 0.0f);
+    }
+    if (L.v1) {
+      my_obs[1 + L.s1] = bf16_round(st.pl1 ? (float)(st.est1 - t) : 0.0f);
+      my_obs[1 + n + L.s1] = bf16_round(st.pl1 ? st.dem1 : 0.0f);
+    }
+    for (int i = L.lane; i < 1 + k_fc; i += 32)
+      my_obs[1 + 2 * n + i] = bf16_round(mrow[i]);
+    if (L.lane == 0) my_obs[0] = bf16_round((float)t / (float)kMaxTimestep);
+    __syncthreads();
+    // ---- actor MLP over the tile
+    tile_dense(obs_s, D, D, ac.w1, H, ac.b1, h1_s, H, true);
+    __syncthreads();
+    tile_dense(h1_s, H, H, ac.w2, H, ac.b2, h2_s, H, true);
+    __syncthreads();
+    tile_dense(h2_s, H, H, ac.wm, n, ac.bm, mu_s, kMaxStations, false);
+    __syncthreads();
+    if (live) {
+      __nv_bfloat16* lrow = lrn + ((size_t)t * B + e) * lw;
+      for (int i = L.lane; i < D; i += 32) lrow[i] = __float2bfloat16_rn(my_obs[i]);
+      float z0, z1;
+      if (noise != nullptr) {
+        const float* nz = noise + ((size_t)t * B + e) * n;
+        z0 = L.v0 ? nz[L.s0] : 0.0f;
+        z1 = L.v1 ? nz[L.s1] : 0.0f;
+      } else {
+        // Box-Muller; log1p(-u1) keeps u1 = 0 finite
+        const uint4 r = philox4x32_10(make_uint4(L.lane, t, e, 1u), key);
+        const float tau = (float)(2.0 * 3.14159265358979323846);
+        z0 = sqrtf(-2.0f * log1pf(-uniform01(r.x))) * cosf(tau * uniform01(r.y));
+        z1 = sqrtf(-2.0f * log1pf(-uniform01(r.z))) * cosf(tau * uniform01(r.w));
+      }
+      float a0 = 0.0f, a1 = 0.0f;
+      if (L.v0) {
+        const float u = mu_s[warp * kMaxStations + L.s0] + ac.sigma[L.s0] * z0;
+        lrow[D + L.s0] = __float2bfloat16_rn(u);
+        a0 = tanhf(u) * 0.5f + 0.5f;
+      }
+      if (L.v1) {
+        const float u = mu_s[warp * kMaxStations + L.s1] + ac.sigma[L.s1] * z1;
+        lrow[D + L.s1] = __float2bfloat16_rn(u);
+        a1 = tanhf(u) * 0.5f + 0.5f;
+      }
+      env_step(op, sc, L, xs, ys, st, a0, a1, day_rows + (size_t)t * table_w, t,
+               out + ((size_t)t * B + e) * 4);
+    }
+  }
+}
+
+size_t policy_smem_bytes(int D, int H) {
+  return sizeof(float) * (2 * kMaxStations * kMaxConeRows +
+                          kTile * (D + 2 * H + kMaxStations + 96));
+}
+
+}  // namespace
+
+// ---- plain C interface (loaded with ctypes; returns a cudaError_t) ----
+
+extern "C" int ev_segment_launch(
+    const float* C, const float* radii, const float* step, const float* mags,
+    const float* minp, int n, int m2, int iters, int restart, int project,
+    const float* table, int table_w, int rows_per_day, const int64_t* days,
+    int B, int T, const float* acts, uint64_t seed, float* out,
+    float* acts_out, void* stream) {
+  if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
+  Operators op{C, radii, step, mags, minp, n, m2, iters, restart, project};
+  const size_t smem = sizeof(float) * (2 * kMaxStations * kMaxConeRows + kSimWarps * 96);
+  const int grid = (B + kSimWarps - 1) / kSimWarps;
+  ev_segment_kernel<<<grid, kSimWarps * 32, smem, (cudaStream_t)stream>>>(
+      op, table, table_w, rows_per_day, days, B, T, acts, seed, out, acts_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ev_policy_segment_launch(
+    const float* C, const float* radii, const float* step, const float* mags,
+    const float* minp, int n, int m2, int iters, int restart, int project,
+    const __nv_bfloat16* w1, const float* b1, const __nv_bfloat16* w2,
+    const float* b2, const __nv_bfloat16* wm, const float* bm,
+    const float* sigma, int D, int H, const float* table, int table_w,
+    int rows_per_day, const float* moer, int moer_w, int k_fc,
+    const int64_t* days, int B, int T, const float* noise, uint64_t seed,
+    float* out, __nv_bfloat16* lrn, void* stream) {
+  if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0 ||
+      D != 2 + 2 * n + k_fc || 1 + k_fc > moer_w)
+    return (int)cudaErrorInvalidValue;
+  Operators op{C, radii, step, mags, minp, n, m2, iters, restart, project};
+  Actor ac{w1, b1, w2, b2, wm, bm, sigma, D, H};
+  const size_t smem = policy_smem_bytes(D, H);
+  cudaError_t err = cudaFuncSetAttribute(
+      ev_policy_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + kTile - 1) / kTile;
+  ev_policy_segment_kernel<<<grid, kTile * 32, smem, (cudaStream_t)stream>>>(
+      op, ac, table, table_w, rows_per_day, moer, moer_w, k_fc, days, B, T,
+      noise, seed, out, lrn);
+  return (int)cudaGetLastError();
+}

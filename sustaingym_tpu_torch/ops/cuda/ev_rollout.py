@@ -1,0 +1,332 @@
+"""Whole EV-charging episode segments: the two hand-written Hopper kernels
+of ``csrc/ev_rollout.cu``, their host packing, and a plain PyTorch version
+of each.
+
+``ev_segment`` replaces ``sustaingym_tpu/ops/pallas/ev_rollout.py::
+fused_ev_segment`` (the simulation tier) and ``ev_policy_segment`` replaces
+``::fused_ev_policy_segment`` (PPO rollouts with the actor in the kernel).
+What bounds each kernel and how it is laid out is in the ``.cu`` file.
+
+The kernels read an ``EVParams``' tensors as they are: the (n_days, 289,
+3n + 39) step table indexed by (day, t), the interleaved cone operator C
+and the per-cone/per-station constants, so only the actor's weights need
+packing (``pack_policy_weights``, bf16 (din, dout)).
+
+Dispatch goes by device: CUDA params always run the kernel (a build or
+launch failure raises), CPU params run the plain version
+(``ev_segment_ref`` / ``ev_policy_segment_ref``). The plain versions are
+the oracle for the kernels; they compute the same step with the shared
+``envs.evcharging.env.advance`` and cast to bf16 at the kernel's points.
+
+Each wrapper counts its kernel launches in its ``launches`` attribute.
+
+Random draws: the kernels use a Philox4x32-10 stream keyed by ``seed``;
+the plain versions draw from a ``torch.Generator`` seeded with ``seed``.
+Both are U[0, 1) actions / standard normals, but not the same numbers.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core import dataclass
+from ...envs.evcharging.env import EVParams, EVState, MAX_TIMESTEP, advance
+
+__all__ = ["PolicyWeights", "pack_policy_weights", "ev_fused_layout",
+           "ev_segment", "ev_segment_ref", "ev_policy_segment",
+           "ev_policy_segment_ref"]
+
+_MAX_STATIONS = 64
+_MAX_CONE_ROWS = 32
+
+
+@dataclass
+class PolicyWeights:
+    """Actor weights in the kernel's operand layout: dense weights are
+    (din, dout) bf16, biases and sigma = exp(log_std) f32."""
+    w1: torch.Tensor   # (D, H)
+    b1: torch.Tensor   # (H,)
+    w2: torch.Tensor   # (H, H)
+    b2: torch.Tensor   # (H,)
+    wm: torch.Tensor   # (H, n)
+    bm: torch.Tensor   # (n,)
+    sigma: torch.Tensor  # (n,)
+
+
+@torch.no_grad()
+def pack_policy_weights(policy) -> PolicyWeights:
+    """Re-lays a ``parallel.ppo.ActorCritic`` into the kernel's operands."""
+    def dense(layer):
+        return (layer.weight.detach().t().to(torch.bfloat16).contiguous(),
+                layer.bias.detach().float().contiguous())
+
+    w1, b1 = dense(policy.trunk1)
+    w2, b2 = dense(policy.trunk2)
+    wm, bm = dense(policy.mu)
+    return PolicyWeights(w1=w1, b1=b1, w2=w2, b2=b2, wm=wm, bm=bm,
+                         sigma=torch.exp(policy.log_std.detach().float()))
+
+
+def ev_fused_layout(n: int, k: int = 36) -> dict:
+    """Learner block of ``ev_policy_segment``: (T, B, width) bf16 rows,
+    columns [0:obs_cols] the canonical flat obs (timestep | est_departures
+    | demands | prev_moer | forecast), [u_lo:u_lo + n] the pre-squash u."""
+    d = 2 + 2 * n + k
+    return {"width": d + n, "obs_cols": d, "u_lo": d}
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _zero_state(days: torch.Tensor, n: int) -> EVState:
+    B, dev = days.shape[0], days.device
+    return EVState(
+        day=days, t=torch.zeros(B, dtype=torch.long, device=dev),
+        plugged=torch.zeros((B, n), dtype=torch.bool, device=dev),
+        dep=torch.zeros((B, n), dtype=torch.long, device=dev),
+        est_dep=torch.zeros((B, n), dtype=torch.long, device=dev),
+        demand=torch.zeros((B, n), dtype=torch.float32, device=dev))
+
+
+def _generator(device, seed: int) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def ev_segment_ref(params: EVParams, days: torch.Tensor, T: int,
+                   actions: torch.Tensor | None = None, seed: int = 0,
+                   record_actions: bool = False):
+    """Plain version of :func:`ev_segment`. Returns (out (T, B, 4) rows
+    reward | profit | carbon_cost | excess_charge, the actions used
+    (T, B, n) if ``record_actions`` else None)."""
+    n, B, dev = params.n_stations, days.shape[0], params.device
+    gen = _generator(dev, seed) if actions is None else None
+    st = _zero_state(days, n)
+    out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
+    acts_out = (torch.empty((T, B, n), dtype=torch.float32, device=dev)
+                if record_actions else None)
+    for t in range(T):
+        a = (actions[t] if actions is not None else
+             torch.rand((B, n), generator=gen, device=dev))
+        a = torch.clamp(a, 0.0, 1.0)
+        if acts_out is not None:
+            acts_out[t] = a
+        st, reward, terms = advance(params, st, a,
+                                    params.step_table[days, t])
+        out[t] = torch.stack([reward, terms["profit"], terms["carbon_cost"],
+                              terms["excess_charge"]], -1)
+    return out, acts_out
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    """Rounds to bf16 and back to f32 (the kernel's cast points)."""
+    return x.to(torch.bfloat16).float()
+
+
+def _actor_ref(w: PolicyWeights, obs_bf16: torch.Tensor) -> torch.Tensor:
+    """mu from bf16 obs: bf16 operands, f32 accumulation, f32 bias/tanh."""
+    h = _bf(torch.tanh(obs_bf16.float() @ w.w1.float() + w.b1))
+    h = _bf(torch.tanh(h @ w.w2.float() + w.b2))
+    return h @ w.wm.float() + w.bm
+
+
+def _policy_obs(st: EVState, moer_row: torch.Tensor, t: int, k: int
+                ) -> torch.Tensor:
+    """Flat obs of the pre-event state at step t (canonical order)."""
+    B, dev = st.day.shape[0], st.day.device
+    est = torch.where(st.plugged, (st.est_dep - t).float(), 0.0)
+    dem = torch.where(st.plugged, st.demand, 0.0)
+    tstep = torch.full((B, 1), t, dtype=torch.float32, device=dev) / float(
+        MAX_TIMESTEP)
+    return torch.cat([tstep, est, dem, moer_row[:, 0:1],
+                      moer_row[:, 1:1 + k]], -1)
+
+
+def ev_policy_segment_ref(params: EVParams, weights: PolicyWeights,
+                          days: torch.Tensor, T: int,
+                          noise: torch.Tensor | None = None, seed: int = 0):
+    """Plain version of :func:`ev_policy_segment`. Returns (out (T, B, 4),
+    learner block (T, B, D + n) bf16)."""
+    n, B, dev = params.n_stations, days.shape[0], params.device
+    k = params.moer_forecast_steps
+    gen = _generator(dev, seed) if noise is None else None
+    st = _zero_state(days, n)
+    out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
+    lrn = torch.empty((T, B, ev_fused_layout(n, k)["width"]),
+                      dtype=torch.bfloat16, device=dev)
+    for t in range(T):
+        obs = _policy_obs(st, params.moer[days, t], t, k).to(torch.bfloat16)
+        mu = _actor_ref(weights, obs)
+        z = (noise[t] if noise is not None else
+             torch.randn((B, n), generator=gen, device=dev))
+        u = mu + weights.sigma * z
+        lrn[t] = torch.cat([obs, u.to(torch.bfloat16)], -1)
+        st, reward, terms = advance(params, st, torch.tanh(u) * 0.5 + 0.5,
+                                    params.step_table[days, t])
+        out[t] = torch.stack([reward, terms["profit"], terms["carbon_cost"],
+                              terms["excess_charge"]], -1)
+    return out, lrn
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+_OP_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+_SIGNATURES = {
+    "ev_segment_launch": _OP_ARGS + [_P, _I, _I, _P, _I, _I, _P, _U64, _P,
+                                     _P, _P],
+    "ev_policy_segment_launch": _OP_ARGS + [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
+        _I, _P, _U64, _P, _P, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    from .build import load_library
+    lib = load_library("ev_rollout")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or x.device != device or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {x.dtype} {tuple(x.shape)} on {x.device} "
+            f"(contiguous={x.is_contiguous()})")
+
+
+def _check_common(params: EVParams, days: torch.Tensor, T: int):
+    table, proj, dev = params.step_table, params.proj, params.device
+    n, m2 = params.n_stations, int(proj.C.shape[0])
+    if n > _MAX_STATIONS or m2 > _MAX_CONE_ROWS:
+        raise ValueError(f"the EV kernels hold <= {_MAX_STATIONS} stations "
+                         f"and <= {_MAX_CONE_ROWS // 2} cones")
+    if table.ndim != 3 or table.shape[2] < 3 * n + 1 \
+            or not 0 < T <= table.shape[1]:
+        raise ValueError(f"bad day table {tuple(table.shape)} for T={T}")
+    _check("step_table", table, torch.float32, table.shape, dev)
+    _check("days", days, torch.long, (days.shape[0],), dev)
+    if days.numel() and (int(days.min()) < 0
+                         or int(days.max()) >= table.shape[0]):
+        raise ValueError("reset days out of range")
+    _check("C", proj.C, torch.float32, (m2, n), dev)
+    for name, x, size in (("radii", proj.radii, m2 // 2),
+                          ("step", proj.step, m2 // 2),
+                          ("magnitudes", params.magnitudes, m2 // 2),
+                          ("min_pilots", params.min_pilots, n)):
+        _check(name, x, torch.float32, (size,), dev)
+    return dev, n, m2
+
+
+def _op_args(params: EVParams, n: int, m2: int) -> list:
+    proj = params.proj
+    return [proj.C.data_ptr(), proj.radii.data_ptr(), proj.step.data_ptr(),
+            params.magnitudes.data_ptr(), params.min_pilots.data_ptr(), n,
+            m2, int(proj.iters), int(proj.restart),
+            int(params.project_action)]
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"the EV kernels run on CUDA or CPU, got {x.device}")
+    return True
+
+
+def ev_segment(params: EVParams, days: torch.Tensor, T: int,
+               actions: torch.Tensor | None = None, seed: int = 0,
+               record_actions: bool = False):
+    """One episode segment of B = len(days) envs from reset, T <= 288
+    steps; ``days`` (B,) int64. ``actions`` (T, B, n) prescribed, else
+    U[0, 1) draws seeded by ``seed``. Returns (out (T, B, 4) f32 rows
+    reward | profit | carbon_cost | excess_charge, the actions used (T, B,
+    n) if ``record_actions`` else None)."""
+    if not _on_card(params.step_table):
+        return ev_segment_ref(params, days, T, actions, seed, record_actions)
+    dev, n, m2 = _check_common(params, days, T)
+    table = params.step_table
+    B = days.shape[0]
+    if actions is not None:
+        _check("actions", actions, torch.float32, (T, B, n), dev)
+    out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
+    acts_out = (torch.empty((T, B, n), dtype=torch.float32, device=dev)
+                if record_actions else None)
+    with torch.cuda.device(dev):
+        err = _lib().ev_segment_launch(
+            *_op_args(params, n, m2), table.data_ptr(), table.shape[2],
+            table.shape[1], days.data_ptr(), B, T, _ptr(actions),
+            seed % 2 ** 64, out.data_ptr(), _ptr(acts_out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ev_segment kernel launch failed: CUDA error {err}")
+    ev_segment.launches += 1
+    return out, acts_out
+
+
+ev_segment.launches = 0
+
+
+def ev_policy_segment(params: EVParams, weights: PolicyWeights,
+                      days: torch.Tensor, T: int,
+                      noise: torch.Tensor | None = None, seed: int = 0):
+    """One episode segment with the actor in the kernel; the obs channels
+    come from the MOER pack ``params.moer``. ``noise`` (T, B, n) prescribed
+    normals, else Box–Muller draws seeded by ``seed``. Returns (out
+    (T, B, 4) f32, learner block (T, B, D + n) bf16; see
+    :func:`ev_fused_layout`)."""
+    if not _on_card(params.step_table):
+        return ev_policy_segment_ref(params, weights, days, T, noise, seed)
+    dev, n, m2 = _check_common(params, days, T)
+    table, moer, k = params.step_table, params.moer, params.moer_forecast_steps
+    B = days.shape[0]
+    D = ev_fused_layout(n, k)["obs_cols"]
+    H = weights.w1.shape[1]
+    if moer.ndim != 3 or moer.shape[:2] != table.shape[:2] \
+            or moer.shape[2] < 1 + k:
+        raise ValueError(f"bad moer pack {tuple(moer.shape)}")
+    _check("moer", moer, torch.float32, moer.shape, dev)
+    for name, x, shape, dt in (
+            ("w1", weights.w1, (D, H), torch.bfloat16),
+            ("b1", weights.b1, (H,), torch.float32),
+            ("w2", weights.w2, (H, H), torch.bfloat16),
+            ("b2", weights.b2, (H,), torch.float32),
+            ("wm", weights.wm, (H, n), torch.bfloat16),
+            ("bm", weights.bm, (n,), torch.float32),
+            ("sigma", weights.sigma, (n,), torch.float32)):
+        _check(name, x, dt, shape, dev)
+    if noise is not None:
+        _check("noise", noise, torch.float32, (T, B, n), dev)
+    out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
+    lrn = torch.empty((T, B, D + n), dtype=torch.bfloat16, device=dev)
+    w = weights
+    with torch.cuda.device(dev):
+        err = _lib().ev_policy_segment_launch(
+            *_op_args(params, n, m2), w.w1.data_ptr(), w.b1.data_ptr(),
+            w.w2.data_ptr(), w.b2.data_ptr(), w.wm.data_ptr(),
+            w.bm.data_ptr(), w.sigma.data_ptr(), D, H, table.data_ptr(),
+            table.shape[2], table.shape[1], moer.data_ptr(), moer.shape[2],
+            k, days.data_ptr(), B, T, _ptr(noise), seed % 2 ** 64,
+            out.data_ptr(), lrn.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"ev_policy_segment kernel launch failed: CUDA error {err}")
+    ev_policy_segment.launches += 1
+    return out, lrn
+
+
+ev_policy_segment.launches = 0

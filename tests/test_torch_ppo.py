@@ -1,0 +1,210 @@
+"""PyTorch port of the PPO learner (sustaingym_tpu_torch.parallel) against
+the JAX package's parallel.ppo and optax, plus the port's lr=0 exact-ratio
+invariant, its train CLI and its import boundary."""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from sustaingym_tpu.parallel import ppo as jppo
+from sustaingym_tpu_torch import make
+from sustaingym_tpu_torch.parallel import (PPOConfig, from_jax,
+                                           make_train_step, policy_apply,
+                                           to_jax)
+from sustaingym_tpu_torch.parallel import ppo as tppo
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+D, N, H = 146, 54, 64
+
+
+def _jax_policy(seed=0):
+    tree = jppo.init_policy(jax.random.PRNGKey(seed), D, N, H,
+                            dtype=jnp.float32)
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
+    # non-zero biases and log_std so every leaf is exercised
+    rng = np.random.default_rng(seed)
+    for k in ("trunk1", "trunk2", "mu", "value"):
+        tree[k]["b"] = rng.normal(0, 0.1, tree[k]["b"].shape).astype(
+            np.float32)
+    tree["log_std"] = rng.normal(-0.5, 0.2, (N,)).astype(np.float32)
+    return tree
+
+
+def test_convert_roundtrip():
+    tree = _jax_policy()
+    policy = from_jax(tree)
+    assert policy.trunk1.weight.shape == (H, D)
+    back = to_jax(policy)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_policy_apply_and_logp_match_jax():
+    tree = _jax_policy(1)
+    rng = np.random.default_rng(2)
+    obs = rng.normal(0, 1, (32, D)).astype(np.float32)
+    u = rng.normal(0, 1, (32, N)).astype(np.float32)
+    jmu, jls, jv = jppo.policy_apply(jax.tree.map(jnp.asarray, tree),
+                                     jnp.asarray(obs))
+    tmu, tls, tv = policy_apply(from_jax(tree), torch.from_numpy(obs))
+    for t, j in ((tmu, jmu), (tls, jls), (tv, jv)):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                   rtol=1e-5, atol=1e-5)
+    jl = jppo._gauss_logp(jmu, jls, jnp.asarray(u))
+    tl = tppo._gauss_logp(tmu, tls, torch.from_numpy(u))
+    np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_default_act_transform_matches_jax():
+    from sustaingym_tpu import make as jmake
+    jenv, jp = jmake("evcharging", project_action=False)
+    env, params = make("evcharging", project_action=False)
+    u = np.random.default_rng(6).normal(0, 2, (8, N)).astype(np.float32)
+    a = tppo.default_act_transform(env, params)(torch.from_numpy(u))
+    ja = jppo.default_act_transform(jenv, jp)(jnp.asarray(u))
+    np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=1e-6,
+                               atol=1e-6)
+
+
+def _jax_gae(cfg, value, reward, done, last_value):
+    """parallel/ppo.py's GAE scan (a closure inside make_train_step)."""
+    def body(carry, x):
+        adv_next, v_next = carry
+        value, reward, done = x
+        nonterm = 1.0 - done.astype(reward.dtype)
+        delta = reward + cfg.gamma * v_next * nonterm - value
+        adv = delta + cfg.gamma * cfg.lam * nonterm * adv_next
+        return (adv, value), adv
+
+    (_, _), advs = jax.lax.scan(
+        body, (jnp.zeros_like(last_value), last_value),
+        (value, reward, done), reverse=True)
+    return advs, advs + value
+
+
+def test_gae_matches_jax():
+    cfg = PPOConfig()
+    rng = np.random.default_rng(3)
+    T, B = 40, 16
+    value = rng.normal(0, 1, (T, B)).astype(np.float32)
+    reward = rng.normal(0, 1, (T, B)).astype(np.float32)
+    done = rng.uniform(size=(T, B)) < 0.1
+    last = rng.normal(0, 1, (B,)).astype(np.float32)
+    ja, jr = _jax_gae(cfg, *(jnp.asarray(x) for x in (value, reward, done,
+                                                      last)))
+    ta, tr = tppo.gae(cfg, *(torch.from_numpy(x) for x in (value, reward,
+                                                           done, last)))
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("grad_scale", [1.0, 1e-3])
+def test_clip_adam_update_matches_optax(grad_scale):
+    """Global-norm clip + Adam: three updates equal optax's chain, with the
+    clip active (norm >> 0.5) and inactive."""
+    tree = _jax_policy(4)
+    rng = np.random.default_rng(5)
+    grads = [jax.tree.map(lambda x: (rng.normal(0, 1, x.shape) * grad_scale
+                                     ).astype(np.float32), tree)
+             for _ in range(3)]
+    opt = optax.chain(optax.clip_by_global_norm(0.5), optax.adam(3e-4))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    state = opt.init(jparams)
+    policy = from_jax(tree)
+    topt = torch.optim.Adam(policy.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8)
+    for g in grads:
+        upd, state = opt.update(jax.tree.map(jnp.asarray, g), state, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        gp = from_jax(g)
+        for p, q in zip(policy.parameters(), gp.parameters()):
+            p.grad = q.detach().clone()
+        tppo.clip_by_global_norm(policy.parameters(), 0.5)
+        topt.step()
+    for a, b in zip(jax.tree.leaves(jparams), jax.tree.leaves(to_jax(policy))):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=0, atol=1e-6)
+
+
+def test_train_step_lr0_exact_ratio():
+    """lr=0: the stored behaviour logp equals every re-scored logp, so each
+    ratio is exactly 1 and pg_loss vanishes (the JAX package's
+    test_fused_policy_rollout_lr0_and_learns invariant), on the CPU plain
+    version of the policy kernel with the projection on."""
+    env, params = make("evcharging", site="caltech")
+    cfg = PPOConfig(num_envs=128, hidden=H, minibatches=4, epochs=1, lr=0.0)
+    init_state, train_step = make_train_step(env, params, cfg)
+    gen = torch.Generator().manual_seed(0)
+    carry = init_state(gen)
+    w0 = carry["policy"].trunk1.weight.detach().clone()
+    carry, metrics = train_step(carry, gen)
+    m = {k: float(v) for k, v in metrics.items()}
+    assert abs(m["pg_loss"]) < 1e-5, m
+    assert np.isfinite(m["vf_loss"]) and m["vf_loss"] > 0
+    assert m["episode_done_frac"] == pytest.approx(1.0 / 288)
+    assert torch.equal(carry["policy"].trunk1.weight, w0)
+
+
+def test_make_train_step_rejects_unported_paths(tmp_path):
+    """Only whole-episode rollouts through an env's fused_policy_unroll are
+    ported: a generic env and a partial-episode rollout length are
+    refused."""
+    from sustaingym_tpu_torch import train
+    env, params = make("evcharging", site="caltech", project_action=False)
+
+    class GenericEnv:
+        def episode_steps(self, params):
+            return env.episode_steps(params)
+
+    with pytest.raises(ValueError):
+        make_train_step(GenericEnv(), params, PPOConfig())
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", "--rollout-len", "64",
+                    "--log-dir", str(tmp_path)])
+
+
+def test_package_imports_no_jax():
+    code = ("import sys, sustaingym_tpu_torch, sustaingym_tpu_torch.train, "
+            "sustaingym_tpu_torch.parallel, sustaingym_tpu_torch.ops.cuda."
+            "ev_rollout, sustaingym_tpu_torch.ops.cuda.build; "
+            "sustaingym_tpu_torch.make('evcharging'); "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'sustaingym_tpu.')) or m == 'sustaingym_tpu']; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_train_cli_cpu(tmp_path):
+    from sustaingym_tpu_torch import train
+    args = ["--env", "evcharging", "--algo", "ppo", "--device", "cpu",
+            "--num-envs", "16", "--hidden", "16", "--minibatches", "2",
+            "--epochs", "1", "--iterations", "2", "--save-every", "1",
+            "--obs-bf16", "--log-dir", str(tmp_path),
+            "--env-kwargs", '{"project_action": false}']
+    train.main(args)
+    rows = (tmp_path / "train_results.csv").read_text().splitlines()
+    assert len(rows) == 3 and "pg_loss" in rows[0]
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == [
+        "step_1.pt", "step_2.pt"]
+    train.main(args + ["--restore", str(tmp_path / "checkpoints"),
+                       "--iterations", "1"])
+    rows = (tmp_path / "train_results.csv").read_text().splitlines()
+    assert rows[-1].split(",")[rows[0].split(",").index("iteration")] == "2"
+
+
+def test_train_cli_refuses_missing_cuda(tmp_path):
+    from sustaingym_tpu_torch import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(SystemExit):
+        train.main(["--env", "evcharging", "--device", "cuda", "--obs-bf16",
+                    "--log-dir", str(tmp_path)])
