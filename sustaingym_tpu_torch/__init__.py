@@ -1,15 +1,22 @@
-"""SustainGym on PyTorch + CUDA: the EV-charging PPO path of ``sustaingym_tpu``
-ported to PyTorch, with its two episode kernels written by hand for Hopper
-(``ops/cuda/csrc/ev_rollout.cu``).
+"""SustainGym on PyTorch + CUDA: the EV-charging and cogeneration paths of
+``sustaingym_tpu`` ported to PyTorch, with their TPU kernels written by hand
+for Hopper (``ops/cuda/csrc/``): the EV episode kernels, the episode
+slice-gather and the cogen episode kernel.
 
 The JAX package ``sustaingym_tpu`` is the reference; this package imports
 neither it nor JAX. The packed data files are read from
 ``sustaingym_tpu/data/packed/`` by path (see ``data/paths.py``).
 
+Every entry point builds its tensors on the card (``device="cuda"``) unless
+the caller asks for the CPU; without a card that default is an error.
 Quick start::
 
     import torch
     from sustaingym_tpu_torch import make
+
+    env, params = make("cogen")                  # on the card
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    roll = env.fused_rollout(params, 4096, 96, generator=gen)
 
     env, params = make("evcharging", device="cpu")
     state, ts = env.reset_at_day(params, torch.tensor([0, 1]))
@@ -31,7 +38,8 @@ def register(name: str, factory) -> None:
 
 def make(name: str, **kwargs):
     """Creates (env, params) for a registered environment. Registered
-    names: 'evcharging' (the other environments are not ported yet)."""
+    names: 'evcharging' and 'cogen' (the other environments are not ported
+    yet). ``kwargs`` go to the env's ``make_params``."""
     if not _REGISTRY:
         _populate_registry()
     if name not in _REGISTRY:
@@ -40,5 +48,6 @@ def make(name: str, **kwargs):
 
 
 def _populate_registry() -> None:
-    from .envs import evcharging
+    from .envs import cogen, evcharging
     register("evcharging", evcharging.make_env)
+    register("cogen", cogen.make_env)

@@ -1,7 +1,12 @@
-"""Core runtime: dataclass helpers, spaces and the env protocol."""
-from .env import FunctionalEnv, TimeStep
+"""Core runtime: dataclass helpers, spaces, the env protocol and rollouts."""
+from .env import (FunctionalEnv, TimeStep, autoreset_step, kernel_seed,
+                  resolve_device)
+from .rollout import batch_reset, batch_rollout, episode_return, random_policy
 from .spaces import Box, DictSpace, Space, flatdim, flatten
-from .struct import dataclass, replace
+from .struct import dataclass, replace, tree_map, tree_select, tree_stack
 
-__all__ = ["FunctionalEnv", "TimeStep", "Box", "DictSpace", "Space",
-           "flatdim", "flatten", "dataclass", "replace"]
+__all__ = ["FunctionalEnv", "TimeStep", "autoreset_step", "kernel_seed",
+           "resolve_device", "batch_reset", "batch_rollout",
+           "episode_return", "random_policy", "Box", "DictSpace", "Space",
+           "flatdim", "flatten", "dataclass", "replace", "tree_map",
+           "tree_select", "tree_stack"]

@@ -32,6 +32,20 @@ class Box(Space):
         self.low = np.broadcast_to(low, self.shape).astype(np.float64)
         self.high = np.broadcast_to(high, self.shape).astype(np.float64)
 
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        """One uniform point, float32, on the generator's device."""
+        return self.sample_batch(generator, 1)[0]
+
+    def sample_batch(self, generator: torch.Generator, batch: int
+                     ) -> torch.Tensor:
+        """(batch, *shape) uniform points: ``low + u * (high - low)`` in
+        float32, u ~ U[0, 1) from ``generator``."""
+        dev = generator.device
+        u = torch.rand((batch,) + self.shape, generator=generator, device=dev)
+        low = torch.as_tensor(self.low, dtype=torch.float32, device=dev)
+        high = torch.as_tensor(self.high, dtype=torch.float32, device=dev)
+        return low + u * (high - low)
+
     def __repr__(self) -> str:
         return f"Box(shape={self.shape})"
 

@@ -23,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...core import Box, DictSpace, FunctionalEnv, TimeStep, dataclass
+from ...core import (Box, DictSpace, FunctionalEnv, TimeStep, dataclass,
+                     kernel_seed, resolve_device)
 from ...ops import qp
 from .sites import SiteSpec, load_site
 
@@ -86,11 +87,12 @@ class EVState:
 
 def make_params(site: str = "caltech", date_period="Summer 2021",
                 moer_forecast_steps: int = 36, project_action: bool = True,
-                proj_iters: int | None = None, device="cpu") -> EVParams:
+                proj_iters: int | None = None, device="cuda") -> EVParams:
     """Compiles the packaged real ACN sessions of ``site`` over
     ``date_period`` into step tables (host NumPy), with the 15-iteration
     dual-FISTA projection operator, and places every tensor on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     from ...data.ev_etl import build_moer_pack, build_trace_pack
     spec: SiteSpec = load_site(site)
     moer = build_moer_pack(date_period)
@@ -261,9 +263,11 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
             info=self._info(params, state, zero, zero, zero))
         return state, ts
 
-    def step(self, params: EVParams, state: EVState, action: torch.Tensor
+    def step(self, params: EVParams, state: EVState, action: torch.Tensor,
+             generator: torch.Generator | None = None
              ) -> tuple[EVState, TimeStep]:
-        """One step of every env; ``action`` is (B, n) in [0, 1]."""
+        """One step of every env; ``action`` is (B, n) in [0, 1]. The step
+        draws nothing: ``generator`` is accepted for the env protocol."""
         row = params.step_table[state.day, state.t]
         action = torch.as_tensor(action, dtype=torch.float32,
                                  device=params.device)
@@ -297,13 +301,6 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
                              f"got {days.shape[0]}")
         return days
 
-    @staticmethod
-    def _seed(generator) -> int:
-        if generator is None:
-            raise ValueError("in-kernel draws need a torch.Generator")
-        return int(torch.randint(2 ** 62, (1,), generator=generator,
-                                 device=generator.device))
-
     def fused_rollout(self, params: EVParams, batch: int, num_steps: int,
                       days=None, generator: torch.Generator | None = None,
                       actions: torch.Tensor | None = None) -> TimeStep:
@@ -325,7 +322,7 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
             t0 = ep * L
             seg = min(L, num_steps - t0)
             if actions is None:
-                acts, seed = None, self._seed(generator)
+                acts, seed = None, kernel_seed(generator)
             else:
                 acts, seed = actions[t0:t0 + seg], 0
             out, _ = ev_segment(params, days[ep], seg, actions=acts,
@@ -385,7 +382,7 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         outs, lrns = [], []
         for ep in range(episodes):
             if noise is None:
-                nz, seed = None, self._seed(generator)
+                nz, seed = None, kernel_seed(generator)
             else:
                 nz, seed = noise[ep * L:(ep + 1) * L], 0
             out, lrn = ev_policy_segment(params, weights, days[ep], L,

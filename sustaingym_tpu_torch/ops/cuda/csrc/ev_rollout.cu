@@ -32,15 +32,17 @@
 //    from L2 once per tile per step, not once per env (~16x fewer bytes).
 //    The MLP is plain FMA loops; bf16 rounding happens exactly where the
 //    JAX kernel casts (obs, h1, h2), with f32 accumulation.
-//  * Random draws: counter-based Philox4x32-10 keyed by the caller's seed
-//    and counted by (lane, step, env, stream), so the draws do not depend on
-//    launch geometry.
+//  * Random draws: counter-based Philox4x32-10 (philox.cuh) keyed by the
+//    caller's seed and counted by (lane, step, env, stream), so the draws do
+//    not depend on launch geometry.
 //  * No fast-math: rintf (round half to even, like jnp.round), IEEE sqrtf
 //    and division.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -59,22 +61,6 @@ constexpr double kMaxTimestep = 288.0;
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// U[0, 1) from the top 23 bits, as the TPU kernel's _uniform01
-__device__ __forceinline__ float uniform01(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -305,7 +291,7 @@ ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
   const int e = blockIdx.x * kSimWarps + warp;
   if (e >= B) return;  // whole warps only: no block-wide sync follows
   const Lane L = make_lane(op);
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const uint2 key = philox_key(seed);
   const float* day_rows = table + (size_t)days[e] * rows_per_day * table_w;
   Stations st{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
   for (int t = 0; t < T; ++t) {
@@ -391,7 +377,7 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
   const int e = blockIdx.x * kTile + warp;
   const bool live = e < B;
   const Lane L = make_lane(op);
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const uint2 key = philox_key(seed);
   const int64_t day = live ? days[e] : 0;
   const float* day_rows = table + (size_t)day * rows_per_day * table_w;
   const float* day_moer = moer + (size_t)day * rows_per_day * moer_w;

@@ -32,6 +32,8 @@ import torch
 
 from ...core import dataclass
 from ...envs.evcharging.env import EVParams, EVState, MAX_TIMESTEP, advance
+from .wrap import (I, P, U64, bind, check, on_card, ptr, raise_on,
+                   seeded)
 
 __all__ = ["PolicyWeights", "pack_policy_weights", "ev_fused_layout",
            "ev_segment", "ev_segment_ref", "ev_policy_segment",
@@ -90,12 +92,6 @@ def _zero_state(days: torch.Tensor, n: int) -> EVState:
         demand=torch.zeros((B, n), dtype=torch.float32, device=dev))
 
 
-def _generator(device, seed: int) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    return g
-
-
 def ev_segment_ref(params: EVParams, days: torch.Tensor, T: int,
                    actions: torch.Tensor | None = None, seed: int = 0,
                    record_actions: bool = False):
@@ -103,7 +99,7 @@ def ev_segment_ref(params: EVParams, days: torch.Tensor, T: int,
     reward | profit | carbon_cost | excess_charge, the actions used
     (T, B, n) if ``record_actions`` else None)."""
     n, B, dev = params.n_stations, days.shape[0], params.device
-    gen = _generator(dev, seed) if actions is None else None
+    gen = seeded(dev, seed) if actions is None else None
     st = _zero_state(days, n)
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     acts_out = (torch.empty((T, B, n), dtype=torch.float32, device=dev)
@@ -152,7 +148,7 @@ def ev_policy_segment_ref(params: EVParams, weights: PolicyWeights,
     learner block (T, B, D + n) bf16)."""
     n, B, dev = params.n_stations, days.shape[0], params.device
     k = params.moer_forecast_steps
-    gen = _generator(dev, seed) if noise is None else None
+    gen = seeded(dev, seed) if noise is None else None
     st = _zero_state(days, n)
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, ev_fused_layout(n, k)["width"]),
@@ -175,37 +171,17 @@ def ev_policy_segment_ref(params: EVParams, weights: PolicyWeights,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
-_OP_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+_OP_ARGS = [P, P, P, P, P, I, I, I, I, I]
 _SIGNATURES = {
-    "ev_segment_launch": _OP_ARGS + [_P, _I, _I, _P, _I, _I, _P, _U64, _P,
-                                     _P, _P],
+    "ev_segment_launch": _OP_ARGS + [P, I, I, P, I, I, P, U64, P, P, P],
     "ev_policy_segment_launch": _OP_ARGS + [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I,
-        _I, _P, _U64, _P, _P, _P],
+        P, P, P, P, P, P, P, I, I, P, I, I, P, I, I, P, I, I, P, U64, P, P,
+        P],
 }
 
 
 def _lib() -> ctypes.CDLL:
-    from .build import load_library
-    lib = load_library("ev_rollout")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
-
-
-def _ptr(x: torch.Tensor | None) -> int | None:
-    return None if x is None else x.data_ptr()
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or x.device != device or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
-            f"got {x.dtype} {tuple(x.shape)} on {x.device} "
-            f"(contiguous={x.is_contiguous()})")
+    return bind("ev_rollout", _SIGNATURES)
 
 
 def _check_common(params: EVParams, days: torch.Tensor, T: int):
@@ -217,17 +193,17 @@ def _check_common(params: EVParams, days: torch.Tensor, T: int):
     if table.ndim != 3 or table.shape[2] < 3 * n + 1 \
             or not 0 < T <= table.shape[1]:
         raise ValueError(f"bad day table {tuple(table.shape)} for T={T}")
-    _check("step_table", table, torch.float32, table.shape, dev)
-    _check("days", days, torch.long, (days.shape[0],), dev)
+    check("step_table", table, torch.float32, table.shape, dev)
+    check("days", days, torch.long, (days.shape[0],), dev)
     if days.numel() and (int(days.min()) < 0
                          or int(days.max()) >= table.shape[0]):
         raise ValueError("reset days out of range")
-    _check("C", proj.C, torch.float32, (m2, n), dev)
+    check("C", proj.C, torch.float32, (m2, n), dev)
     for name, x, size in (("radii", proj.radii, m2 // 2),
                           ("step", proj.step, m2 // 2),
                           ("magnitudes", params.magnitudes, m2 // 2),
                           ("min_pilots", params.min_pilots, n)):
-        _check(name, x, torch.float32, (size,), dev)
+        check(name, x, torch.float32, (size,), dev)
     return dev, n, m2
 
 
@@ -239,14 +215,6 @@ def _op_args(params: EVParams, n: int, m2: int) -> list:
             int(params.project_action)]
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"the EV kernels run on CUDA or CPU, got {x.device}")
-    return True
-
-
 def ev_segment(params: EVParams, days: torch.Tensor, T: int,
                actions: torch.Tensor | None = None, seed: int = 0,
                record_actions: bool = False):
@@ -255,24 +223,23 @@ def ev_segment(params: EVParams, days: torch.Tensor, T: int,
     U[0, 1) draws seeded by ``seed``. Returns (out (T, B, 4) f32 rows
     reward | profit | carbon_cost | excess_charge, the actions used (T, B,
     n) if ``record_actions`` else None)."""
-    if not _on_card(params.step_table):
+    if not on_card(params.step_table, "the EV kernels"):
         return ev_segment_ref(params, days, T, actions, seed, record_actions)
     dev, n, m2 = _check_common(params, days, T)
     table = params.step_table
     B = days.shape[0]
     if actions is not None:
-        _check("actions", actions, torch.float32, (T, B, n), dev)
+        check("actions", actions, torch.float32, (T, B, n), dev)
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     acts_out = (torch.empty((T, B, n), dtype=torch.float32, device=dev)
                 if record_actions else None)
     with torch.cuda.device(dev):
         err = _lib().ev_segment_launch(
             *_op_args(params, n, m2), table.data_ptr(), table.shape[2],
-            table.shape[1], days.data_ptr(), B, T, _ptr(actions),
-            seed % 2 ** 64, out.data_ptr(), _ptr(acts_out),
+            table.shape[1], days.data_ptr(), B, T, ptr(actions),
+            seed % 2 ** 64, out.data_ptr(), ptr(acts_out),
             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"ev_segment kernel launch failed: CUDA error {err}")
+    raise_on(err, "ev_segment")
     ev_segment.launches += 1
     return out, acts_out
 
@@ -288,7 +255,7 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
     normals, else Box–Muller draws seeded by ``seed``. Returns (out
     (T, B, 4) f32, learner block (T, B, D + n) bf16; see
     :func:`ev_fused_layout`)."""
-    if not _on_card(params.step_table):
+    if not on_card(params.step_table, "the EV kernels"):
         return ev_policy_segment_ref(params, weights, days, T, noise, seed)
     dev, n, m2 = _check_common(params, days, T)
     table, moer, k = params.step_table, params.moer, params.moer_forecast_steps
@@ -298,7 +265,7 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
     if moer.ndim != 3 or moer.shape[:2] != table.shape[:2] \
             or moer.shape[2] < 1 + k:
         raise ValueError(f"bad moer pack {tuple(moer.shape)}")
-    _check("moer", moer, torch.float32, moer.shape, dev)
+    check("moer", moer, torch.float32, moer.shape, dev)
     for name, x, shape, dt in (
             ("w1", weights.w1, (D, H), torch.bfloat16),
             ("b1", weights.b1, (H,), torch.float32),
@@ -307,9 +274,9 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
             ("wm", weights.wm, (H, n), torch.bfloat16),
             ("bm", weights.bm, (n,), torch.float32),
             ("sigma", weights.sigma, (n,), torch.float32)):
-        _check(name, x, dt, shape, dev)
+        check(name, x, dt, shape, dev)
     if noise is not None:
-        _check("noise", noise, torch.float32, (T, B, n), dev)
+        check("noise", noise, torch.float32, (T, B, n), dev)
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, D + n), dtype=torch.bfloat16, device=dev)
     w = weights
@@ -319,12 +286,10 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
             w.w2.data_ptr(), w.b2.data_ptr(), w.wm.data_ptr(),
             w.bm.data_ptr(), w.sigma.data_ptr(), D, H, table.data_ptr(),
             table.shape[2], table.shape[1], moer.data_ptr(), moer.shape[2],
-            k, days.data_ptr(), B, T, _ptr(noise), seed % 2 ** 64,
+            k, days.data_ptr(), B, T, ptr(noise), seed % 2 ** 64,
             out.data_ptr(), lrn.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"ev_policy_segment kernel launch failed: CUDA error {err}")
+    raise_on(err, "ev_policy_segment")
     ev_policy_segment.launches += 1
     return out, lrn
 

@@ -1,0 +1,64 @@
+"""What every kernel wrapper of ``ops/cuda`` does around a launch: decide
+by device (a CPU tensor runs the plain version, a CUDA tensor launches the
+kernel), check operands, bind the ``ctypes`` signatures and raise on a
+launch error."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["on_card", "check", "ptr", "seeded", "bind", "raise_on"]
+
+P, I, U64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
+
+
+def on_card(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU, got {x.device}")
+    return True
+
+
+def check(name: str, x: torch.Tensor, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or x.device != device or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {x.dtype} {tuple(x.shape)} on {x.device} "
+            f"(contiguous={x.is_contiguous()})")
+
+
+def ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def seeded(device, seed: int) -> torch.Generator:
+    """The plain versions' generator for ``seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+_BOUND: dict[str, ctypes.CDLL] = {}
+
+
+def bind(name: str, signatures: dict) -> ctypes.CDLL:
+    """Builds or loads ``csrc/<name>.cu`` and declares its functions'
+    argument types (once); each returns a cudaError_t."""
+    if name not in _BOUND:
+        from .build import load_library
+        lib = load_library(name)
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _BOUND[name] = lib
+    return _BOUND[name]
+
+
+def raise_on(err: int, kernel: str):
+    if err:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.env import resolve_device
 from ..core.struct import dataclass
 
 __all__ = ["DualSOCProjection", "make_dual_soc_projection", "project"]
@@ -54,9 +55,10 @@ def make_dual_soc_projection(constraint_matrix: np.ndarray,
                              iters: int = 20,
                              step_scale: float | None = 2.0,
                              restart: bool = True,
-                             device="cpu") -> DualSOCProjection:
+                             device="cuda") -> DualSOCProjection:
     """Builds the preconditioned dual-FISTA operator (host NumPy, float64,
-    stored float32).
+    stored float32 on ``device``; the card unless the caller asks for the
+    CPU).
 
     Per-cone base steps t_k = 1 / max-row block sum of |C C'|;
     ``step_scale`` multiplies them (2.0, the default, is validated
@@ -82,7 +84,7 @@ def make_dual_soc_projection(constraint_matrix: np.ndarray,
         t = t / (np.linalg.norm(sqT[:, None] * C, 2) ** 2)
     else:
         t = t * float(step_scale)
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
     return DualSOCProjection(
         C=torch.as_tensor(C, **f32), radii=torch.as_tensor(radii, **f32),
         step=torch.as_tensor(t, **f32), n=int(C.shape[1]), m=int(m),

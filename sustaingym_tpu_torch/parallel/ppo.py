@@ -1,15 +1,24 @@
-"""PPO learner, the fused episodic path of ``sustaingym_tpu.parallel.ppo``.
+"""PPO learner: the episodic paths of ``sustaingym_tpu.parallel.ppo``.
 
-One train step = one rollout of whole episodes through the env's
-policy-in-kernel rollout (``EVChargingEnv.fused_policy_unroll``), a
-re-scoring of (logp, value) from the kernel's learner block, GAE, and
-clipped-PPO epochs over ``torch.randperm`` minibatches of all T×B samples.
+One train step = one rollout of whole episodes, a re-scoring of (logp,
+value) in one batched pass, GAE on ``reward * reward_scale``, and
+clipped-PPO epochs over ``torch.randperm`` minibatches of all T x B
+samples. The rollout goes one of two ways, as in the JAX package:
 
-The rollout and the learner score the SAME bf16 obs with the same bf16
-operands (:func:`policy_apply_bf16`), so with lr=0 every ratio is exactly 1
-(the exact-ratio invariant of the JAX package's tests).
+- **fused** (EVChargingEnv with ``obs_bf16``): the actor runs inside the
+  env's policy-in-kernel rollout (``fused_policy_unroll``); the rollout and
+  the learner score the SAME bf16 obs with the same bf16 operands
+  (:func:`policy_apply_bf16`);
+- **episodic** (an env with a lockstep ``batch_unroll``, e.g. CogenEnv): the
+  sampling policy applies the f32 :func:`policy_apply` to the flat obs,
+  draws a Gaussian ``u`` from the generator and squashes it into the Box
+  action space; the obs it saw (bf16 if ``obs_bf16``) and ``u`` are
+  recorded and re-scored afterwards.
 
-Not ported yet: the generic and lockstep rollouts, A2C, the multi-agent
+Either way, with lr=0 every ratio is exactly 1 (the exact-ratio invariant
+of the JAX package's tests).
+
+Not ported yet: the generic (non-episodic) rollout, A2C, the multi-agent
 and per-agent paths, categorical heads and sharding.
 """
 from __future__ import annotations
@@ -20,7 +29,7 @@ import warnings
 import torch
 from torch import nn
 
-from ..core import dataclass, flatdim
+from ..core import dataclass, flatdim, flatten
 
 __all__ = ["PPOConfig", "ActorCritic", "init_policy", "policy_apply",
            "policy_apply_bf16", "default_act_transform", "gae", "loss_fn",
@@ -30,8 +39,7 @@ __all__ = ["PPOConfig", "ActorCritic", "init_policy", "policy_apply",
 @dataclass
 class PPOConfig:
     """Each rollout is one whole episode per env (the env's
-    ``episode_steps``) and its learner block is bf16: both are properties of
-    the fused episodic path, not options."""
+    ``episode_steps``)."""
     num_envs: int = 256
     hidden: int = 256
     epochs: int = 4
@@ -43,6 +51,15 @@ class PPOConfig:
     vf_coef: float = 0.5
     ent_coef: float = 0.0
     max_grad_norm: float = 0.5
+    # multiplies rewards before GAE/returns (reported metrics stay
+    # unscaled); envs with |reward| >> 1 (cogen's 1e4-1e5 penalty scale)
+    # need ~1/|r| here, or the value-loss gradient drowns the policy
+    # gradient under the shared global-norm clip
+    reward_scale: float = 1.0
+    # store observations in bfloat16: the rollout, the behaviour logp and
+    # every update epoch score the SAME bf16 values. Required by the fused
+    # EV path, whose kernel writes a bf16 learner block
+    obs_bf16: bool = False
 
 
 class ActorCritic(nn.Module):
@@ -141,10 +158,17 @@ def gae(cfg: PPOConfig, value, reward, done, last_value):
     return advs, advs + value
 
 
-def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig):
-    """Clipped-PPO loss on one minibatch of the learner block; returns
-    (loss, {pg_loss, vf_loss, entropy})."""
-    mu, log_std, value = policy_apply_bf16(policy, batch["obs"])
+def _apply_f32(policy: ActorCritic, obs: torch.Tensor):
+    """:func:`policy_apply` on obs stored as f32 or bf16."""
+    return policy_apply(policy, obs.float())
+
+
+def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig,
+            apply=policy_apply_bf16):
+    """Clipped-PPO loss on one minibatch, scored by ``apply`` (the same
+    function that scored the rollout); returns (loss, {pg_loss, vf_loss,
+    entropy})."""
+    mu, log_std, value = apply(policy, batch["obs"])
     logp = _gauss_logp(mu, log_std, batch["u"])
     adv = batch["adv"]
     # population std, as jnp.std
@@ -180,18 +204,66 @@ def make_train_step(env, env_params, cfg: PPOConfig):
     (no host synchronisation). Its three phases are also attributes of
     ``train_step``, for timing them apart: ``rollout(policy, generator) ->
     out``, ``score(policy, out) -> samples`` (re-scoring and GAE) and
-    ``update(policy, opt, samples, generator) -> summed metrics``."""
-    if not hasattr(env, "fused_policy_unroll"):
-        raise ValueError("the PyTorch port runs the fused episodic PPO path "
-                         "only: the env needs fused_policy_unroll")
+    ``update(policy, opt, samples, generator) -> summed metrics``.
+
+    The rollout is the fused path when ``cfg.obs_bf16`` and the env has a
+    ``fused_policy_unroll``, else the episodic path when the env has a
+    lockstep ``batch_unroll`` (module docstring); anything else raises."""
+    fused = cfg.obs_bf16 and hasattr(env, "fused_policy_unroll")
+    if not fused and hasattr(env, "fused_policy_unroll"):
+        raise ValueError(
+            f"{type(env).__name__} with float32 obs needs its lockstep "
+            f"batch_unroll, which is not ported yet (ROADMAP Queue 1, 'EV "
+            f"lockstep rollouts'); set obs_bf16 for the fused "
+            f"policy-in-kernel path")
+    if not fused and not hasattr(env, "batch_unroll"):
+        raise ValueError(
+            "PPO in the port needs an env with a lockstep batch_unroll "
+            "(episodic path) or a fused_policy_unroll (fused path, obs_bf16); "
+            "the generic rollout is not ported yet (ROADMAP Queue 1, 'EV "
+            "lockstep rollouts')")
     device = env_params.device
     ep_len = env.episode_steps(env_params)
-    obs_dim = flatdim(env.observation_space(env_params))
+    obs_space = env.observation_space(env_params)
+    obs_dim = flatdim(obs_space)
     act_dim = flatdim(env.action_space(env_params))
-    layout = env.fused_layout(env_params)
-    D, u_lo = layout["obs_cols"], layout["u_lo"]
-    if D != obs_dim:
-        raise ValueError(f"learner block obs width {D} != obs dim {obs_dim}")
+    if fused:
+        apply = policy_apply_bf16
+        layout = env.fused_layout(env_params)
+        D, u_lo = layout["obs_cols"], layout["u_lo"]
+        if D != obs_dim:
+            raise ValueError(f"learner block obs width {D} != obs dim "
+                             f"{obs_dim}")
+
+        def unroll(policy, generator):
+            out = env.fused_policy_unroll(env_params, policy, cfg.num_envs,
+                                          ep_len, generator=generator)
+            lrn = out["lrn"]                        # (T, B, D + n) bf16
+            return {"obs": lrn[..., :D],
+                    "u": lrn[..., u_lo:u_lo + act_dim].float(),
+                    "reward": out["reward"], "done": out["done"]}
+    else:
+        apply = _apply_f32
+        act = default_act_transform(env, env_params)
+
+        def unroll(policy, generator):
+            seen, drawn = [], []
+
+            def sampling_policy(p, obs_raw, gen):
+                obs = flatten(obs_space, obs_raw, batch_dims=1)
+                if cfg.obs_bf16:
+                    obs = obs.to(torch.bfloat16)
+                mu, log_std, _ = apply(p, obs)
+                u = mu + torch.exp(log_std) * torch.randn(
+                    mu.shape, generator=gen, device=gen.device)
+                seen.append(obs)
+                drawn.append(u)
+                return act(u)
+
+            ts = env.batch_unroll(env_params, sampling_policy, policy,
+                                  cfg.num_envs, ep_len, generator)
+            return {"obs": torch.stack(seen), "u": torch.stack(drawn),
+                    "reward": ts.reward, "done": ts.done}
 
     def init_state(generator: torch.Generator) -> dict:
         policy = init_policy(obs_dim, act_dim, cfg.hidden, generator, device)
@@ -201,21 +273,18 @@ def make_train_step(env, env_params, cfg: PPOConfig):
 
     @torch.no_grad()
     def rollout(policy: ActorCritic, generator: torch.Generator) -> dict:
-        return env.fused_policy_unroll(env_params, policy, cfg.num_envs,
-                                       ep_len, generator=generator)
+        return unroll(policy, generator)
 
     @torch.no_grad()
     def score(policy: ActorCritic, out: dict) -> dict:
-        lrn = out["lrn"]                            # (T, B, D + n) bf16
-        obs = lrn[..., :D]
-        u = lrn[..., u_lo:u_lo + act_dim].float()
-        mu, log_std, value = policy_apply_bf16(policy, obs)
+        obs, u = out["obs"], out["u"]
+        mu, log_std, value = apply(policy, obs)
         logp = _gauss_logp(mu, log_std, u)
         # episodes terminate on the last step: no bootstrap value
-        advs, rets = gae(cfg, value, out["reward"], out["done"],
-                         torch.zeros_like(value[0]))
+        advs, rets = gae(cfg, value, out["reward"] * cfg.reward_scale,
+                         out["done"], torch.zeros_like(value[0]))
         n = logp.numel()
-        return {"obs": obs.reshape(n, D), "u": u.reshape(n, act_dim),
+        return {"obs": obs.reshape(n, obs_dim), "u": u.reshape(n, act_dim),
                 "logp": logp.reshape(n), "adv": advs.reshape(n),
                 "ret": rets.reshape(n)}
 
@@ -236,7 +305,7 @@ def make_train_step(env, env_params, cfg: PPOConfig):
             for k in range(cfg.minibatches):
                 idx = perm[k * mb:(k + 1) * mb]
                 batch = {key: v[idx] for key, v in flat.items()}
-                loss, metrics = loss_fn(policy, batch, cfg)
+                loss, metrics = loss_fn(policy, batch, cfg, apply)
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
                 clip_by_global_norm(policy.parameters(), cfg.max_grad_norm)

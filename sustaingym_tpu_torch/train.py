@@ -1,14 +1,16 @@
-"""Training CLI of the PyTorch port: PPO on EVChargingEnv.
+"""Training CLI of the PyTorch port: PPO on EVChargingEnv or CogenEnv.
 
     python -m sustaingym_tpu_torch.train --env evcharging --algo ppo \
-        --device cuda --num-envs 8192 --rollout-len 288 --minibatches 96 \
-        --obs-bf16
+        --num-envs 8192 --rollout-len 288 --minibatches 96 --obs-bf16
+    python -m sustaingym_tpu_torch.train --env cogen --num-envs 8192 \
+        --rollout-len 96 --minibatches 24
 
 Writes per-iteration metrics to ``<log-dir>/train_results.csv``, saves the
 policy, optimizer and generator state with ``torch.save`` every
 ``--save-every`` iterations (``<log-dir>/checkpoints/step_<i>.pt``), and
-resumes from the newest checkpoint of ``--restore``. ``--device`` is
-required: asking for ``cuda`` without a CUDA device is an error.
+resumes from the newest checkpoint of ``--restore``. Runs on the card
+(``--device cuda``, the default) unless ``--device cpu`` is given; asking
+for ``cuda`` without a CUDA device is an error.
 """
 from __future__ import annotations
 
@@ -47,26 +49,32 @@ def restore_checkpoint(path: str, carry: dict, generator) -> int:
 
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--env", default="evcharging", choices=["evcharging"])
+    parser.add_argument("--env", default="evcharging",
+                        choices=["evcharging", "cogen"])
     parser.add_argument("--env-kwargs", default=None,
                         help="JSON dict forwarded to make(env, **kwargs), "
                              "e.g. '{\"site\": \"jpl\"}'")
     parser.add_argument("--algo", default="ppo", choices=["ppo"])
-    parser.add_argument("--device", required=True,
-                        help="torch device, e.g. cuda or cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device, e.g. cuda (default) or cpu")
     parser.add_argument("--iterations", type=int, default=50)
     parser.add_argument("--num-envs", type=int, default=1024)
-    parser.add_argument("--rollout-len", type=int, default=288,
-                        help="must equal the episode length (288): each "
-                             "rollout is one whole episode per env")
+    parser.add_argument("--rollout-len", type=int, default=None,
+                        help="must equal the episode length (evcharging "
+                             "288, cogen 96; the default): each rollout is "
+                             "one whole episode per env")
     parser.add_argument("--hidden", type=int, default=256)
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--gamma", type=float, default=0.99)
     parser.add_argument("--epochs", type=int, default=4)
     parser.add_argument("--minibatches", type=int, default=8)
+    parser.add_argument("--reward-scale", type=float, default=None,
+                        help="multiplies rewards before GAE (default 1e-4 "
+                             "for cogen, 1.0 otherwise)")
     parser.add_argument("--obs-bf16", action="store_true",
-                        help="accepted for the JAX CLI's command line; the "
-                             "rollout kernel's learner block is always bf16")
+                        help="store observations in bfloat16 (evcharging "
+                             "needs it: its fused rollout kernel writes a "
+                             "bf16 learner block)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--log-dir", default="runs/default")
     parser.add_argument("--save-every", type=int, default=10)
@@ -88,12 +96,16 @@ def main(argv: list[str] | None = None) -> None:
     env_kwargs = json.loads(args.env_kwargs) if args.env_kwargs else {}
     env, env_params = make(args.env, device=device, **env_kwargs)
     ep_len = env.episode_steps(env_params)
-    if args.rollout_len != ep_len:
+    if args.rollout_len not in (None, ep_len):
         raise SystemExit(f"--rollout-len must equal the episode length "
                          f"({ep_len}): each rollout is one whole episode")
+    reward_scale = args.reward_scale
+    if reward_scale is None:
+        reward_scale = 1e-4 if args.env == "cogen" else 1.0
     cfg = PPOConfig(num_envs=args.num_envs, hidden=args.hidden, lr=args.lr,
                     gamma=args.gamma, epochs=args.epochs,
-                    minibatches=args.minibatches)
+                    minibatches=args.minibatches, reward_scale=reward_scale,
+                    obs_bf16=args.obs_bf16)
     init_state, train_step = make_train_step(env, env_params, cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

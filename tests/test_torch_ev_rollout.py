@@ -34,7 +34,7 @@ def test_ev_segment_ref_matches_jax(site):
     jp = jp.replace(proj=jqp.make_dual_soc_projection(
         spec.constraint_matrix, spec.phase_angles, spec.magnitudes,
         action_scale=32.0, iters=15, inner_bf16=False))
-    tenv, tp = tev.make_env(site=site, project_action=True)
+    tenv, tp = tev.make_env(site=site, project_action=True, device="cpu")
     n = tp.n_stations
     batch, steps = 128, 12
     key = jax.random.PRNGKey(11)
@@ -79,7 +79,8 @@ def test_ev_segment_ref_matches_jax(site):
 def test_fused_rollout_multi_episode_and_rng():
     """Episodes past 288 steps restart from the next row of days;
     generator-driven rollouts are reproducible and U[0, 1)-driven."""
-    tenv, tp = tev.make_env(site="caltech", project_action=False)
+    tenv, tp = tev.make_env(site="caltech", project_action=False,
+                            device="cpu")
     batch, steps = 8, 300
     days = np.array([[0, 1, 2, 3, 4, 5, 6, 7], [7, 6, 5, 4, 3, 2, 1, 0]])
     rng = np.random.default_rng(2)
@@ -116,7 +117,7 @@ def test_ev_policy_segment_ref_matches_jax_reference(site):
     rare pilot-quantization flips from reassociation drift are bounded by
     quantiles, not the max."""
     jenv, jp = jev.make_env(site=site, project_action=False)
-    tenv, tp = tev.make_env(site=site, project_action=False)
+    tenv, tp = tev.make_env(site=site, project_action=False, device="cpu")
     n = tp.n_stations
     batch, T, H = 128, 288, 64
     D = 2 + 2 * n + 36

@@ -23,7 +23,7 @@ def both(request):
     jp = jp.replace(proj=jqp.make_dual_soc_projection(
         spec.constraint_matrix, spec.phase_angles, spec.magnitudes,
         action_scale=32.0, iters=15, inner_bf16=False))
-    tenv, tp = tev.make_env(site=site)
+    tenv, tp = tev.make_env(site=site, device="cpu")
     return site, (jenv, jp), (tenv, tp)
 
 

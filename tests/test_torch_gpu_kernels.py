@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels of sustaingym_tpu_torch.ops.cuda.ev_rollout
-against their plain PyTorch versions on the card, at a small size. Marked
-``gpu``; each test skips when no CUDA device is present. On a card:
+"""The hand-written CUDA kernels of sustaingym_tpu_torch.ops.cuda
+(ev_rollout, exog_gather, cogen_rollout) against their plain PyTorch
+versions on the card, at a small size. Marked ``gpu``; each test skips
+when no CUDA device is present. On a card:
 
     python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu
 """
@@ -9,7 +10,9 @@ import pytest
 import torch
 
 from sustaingym_tpu_torch import make
+from sustaingym_tpu_torch.ops.cuda import cogen_rollout as KB
 from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
+from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
 from sustaingym_tpu_torch.parallel import init_policy
 
 pytestmark = pytest.mark.gpu
@@ -102,3 +105,70 @@ def test_kernel_wrappers_validate_inputs(cuda):
                      actions=torch.zeros((12, 3, 54), device=cuda))
     with pytest.raises(ValueError):
         K.ev_segment(p, days + p.n_days, 12)
+
+
+@pytest.mark.parametrize("rows,cols,batch,length", [
+    (27400, 7, 300, 100),    # the cogen ambient pack, one padded day each
+    (2890, 201, 100, 96),    # a wide table (the JAX hbm_slice_gather case)
+    (513, 1, 37, 17),        # ragged: a batch that fills no CTA
+])
+def test_slice_gather_kernel_bit_equal(cuda, rows, cols, batch, length):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    table = torch.rand((rows, cols), generator=g, device=cuda)
+    starts = torch.randint(rows - length + 1, (batch,), generator=g,
+                           device=cuda)
+    before = KA.episode_slice_gather.launches
+    out = KA.episode_slice_gather(table, starts, length)
+    torch.cuda.synchronize()
+    assert KA.episode_slice_gather.launches == before + 1
+    assert torch.equal(out, KA.episode_slice_gather_ref(table, starts, length))
+    with pytest.raises(ValueError):
+        KA.episode_slice_gather(table, starts + rows, length)
+
+
+def _cogen(dev, batch):
+    env, p = make("cogen", device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    days = torch.randint(p.n_days - 1, (batch,), generator=g, device=dev)
+    return env, p, days, env.sample_action(p, g, batch), g
+
+
+def test_cogen_segment_kernel_matches_plain(cuda):
+    """Prescribed actions drawn uniformly over the box, then RNG mode with
+    the plain version replaying the kernel's action rows: reward and info
+    at rtol 2e-5 / atol 0.2, action rows bit-equal."""
+    env, p, days, prev, g = _cogen(cuda, 300)
+    T = 96
+    low = torch.as_tensor(env.action_space(p).low, dtype=torch.float32,
+                          device=cuda)
+    high = torch.as_tensor(env.action_space(p).high, dtype=torch.float32,
+                           device=cuda)
+    acts = low + torch.rand((T, 300, 15), generator=g, device=cuda) * (
+        high - low)
+    before = KB.cogen_segment.launches
+    ko = KB.cogen_segment(p, days, prev, T, actions=acts)
+    torch.cuda.synchronize()
+    assert KB.cogen_segment.launches == before + 1
+    torch.testing.assert_close(ko, KB.cogen_segment_ref(p, days, prev, T,
+                                                        actions=acts),
+                               rtol=2e-5, atol=0.2)
+    assert torch.equal(ko[:15], acts.permute(2, 0, 1))
+    ko = KB.cogen_segment(p, days, prev, T, seed=9)
+    a = ko[:15].permute(1, 2, 0).contiguous()
+    ro = KB.cogen_segment_ref(p, days, prev, T, actions=a)
+    assert torch.equal(ko[:15], ro[:15])
+    torch.testing.assert_close(ko, ro, rtol=2e-5, atol=0.2)
+    assert set(a[..., 14].unique().tolist()) <= set(range(1, 13))
+
+
+def test_cogen_fused_rollout_on_card(cuda):
+    """The simulation tier launches the gather and the episode kernel once
+    per episode; across the boundary the obs splice in the next reset."""
+    env, p, _, _, g = _cogen(cuda, 1)
+    counts = (KA.episode_slice_gather.launches, KB.cogen_segment.launches)
+    roll = env.fused_rollout(p, 512, 98, generator=g)
+    assert (KA.episode_slice_gather.launches - counts[0],
+            KB.cogen_segment.launches - counts[1]) == (2, 2)
+    assert roll.reward.shape == (98, 512)
+    assert bool(torch.isfinite(roll.reward).all())
+    assert bool(roll.obs["Time"][95].eq(0).all())

@@ -65,7 +65,7 @@ def test_policy_apply_and_logp_match_jax():
 def test_default_act_transform_matches_jax():
     from sustaingym_tpu import make as jmake
     jenv, jp = jmake("evcharging", project_action=False)
-    env, params = make("evcharging", project_action=False)
+    env, params = make("evcharging", project_action=False, device="cpu")
     u = np.random.default_rng(6).normal(0, 2, (8, N)).astype(np.float32)
     a = tppo.default_act_transform(env, params)(torch.from_numpy(u))
     ja = jppo.default_act_transform(jenv, jp)(jnp.asarray(u))
@@ -139,8 +139,9 @@ def test_train_step_lr0_exact_ratio():
     ratio is exactly 1 and pg_loss vanishes (the JAX package's
     test_fused_policy_rollout_lr0_and_learns invariant), on the CPU plain
     version of the policy kernel with the projection on."""
-    env, params = make("evcharging", site="caltech")
-    cfg = PPOConfig(num_envs=128, hidden=H, minibatches=4, epochs=1, lr=0.0)
+    env, params = make("evcharging", site="caltech", device="cpu")
+    cfg = PPOConfig(num_envs=128, hidden=H, minibatches=4, epochs=1, lr=0.0,
+                    obs_bf16=True)
     init_state, train_step = make_train_step(env, params, cfg)
     gen = torch.Generator().manual_seed(0)
     carry = init_state(gen)
@@ -154,11 +155,13 @@ def test_train_step_lr0_exact_ratio():
 
 
 def test_make_train_step_rejects_unported_paths(tmp_path):
-    """Only whole-episode rollouts through an env's fused_policy_unroll are
-    ported: a generic env and a partial-episode rollout length are
+    """Only whole-episode rollouts are ported, through an env's
+    fused_policy_unroll (bf16 obs) or its lockstep batch_unroll: a generic
+    env, EV with float32 obs and a partial-episode rollout length are
     refused."""
     from sustaingym_tpu_torch import train
-    env, params = make("evcharging", site="caltech", project_action=False)
+    env, params = make("evcharging", site="caltech", project_action=False,
+                       device="cpu")
 
     class GenericEnv:
         def episode_steps(self, params):
@@ -166,6 +169,8 @@ def test_make_train_step_rejects_unported_paths(tmp_path):
 
     with pytest.raises(ValueError):
         make_train_step(GenericEnv(), params, PPOConfig())
+    with pytest.raises(ValueError, match="batch_unroll"):
+        make_train_step(env, params, PPOConfig(obs_bf16=False))
     with pytest.raises(SystemExit):
         train.main(["--device", "cpu", "--rollout-len", "64",
                     "--log-dir", str(tmp_path)])
@@ -174,8 +179,12 @@ def test_make_train_step_rejects_unported_paths(tmp_path):
 def test_package_imports_no_jax():
     code = ("import sys, sustaingym_tpu_torch, sustaingym_tpu_torch.train, "
             "sustaingym_tpu_torch.parallel, sustaingym_tpu_torch.ops.cuda."
-            "ev_rollout, sustaingym_tpu_torch.ops.cuda.build; "
-            "sustaingym_tpu_torch.make('evcharging'); "
+            "ev_rollout, sustaingym_tpu_torch.ops.cuda.cogen_rollout, "
+            "sustaingym_tpu_torch.ops.cuda.exog_gather, "
+            "sustaingym_tpu_torch.ops.cuda.build, "
+            "sustaingym_tpu_torch.core.rollout; "
+            "sustaingym_tpu_torch.make('evcharging', device='cpu'); "
+            "sustaingym_tpu_torch.make('cogen', device='cpu'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'sustaingym_tpu.')) or m == 'sustaingym_tpu']; "
             "assert not bad, bad")
@@ -208,3 +217,20 @@ def test_train_cli_refuses_missing_cuda(tmp_path):
     with pytest.raises(SystemExit):
         train.main(["--env", "evcharging", "--device", "cuda", "--obs-bf16",
                     "--log-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("name", ["evcharging", "cogen"])
+def test_entry_points_default_to_the_card(name, tmp_path):
+    """make(), make_params() and the CLI build on the card unless asked for
+    the CPU; without a card the default raises instead of moving to the
+    CPU."""
+    from sustaingym_tpu_torch import train
+    from sustaingym_tpu_torch.envs import cogen, evcharging
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(name)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        {"evcharging": evcharging, "cogen": cogen}[name].make_params()
+    with pytest.raises(SystemExit):
+        train.main(["--env", name, "--obs-bf16", "--log-dir", str(tmp_path)])

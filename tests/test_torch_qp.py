@@ -19,7 +19,7 @@ def _ops(site, inner_bf16=False, **kw):
     tspec = tsites.load_site(site)
     top = tqp.make_dual_soc_projection(
         tspec.constraint_matrix, tspec.phase_angles, tspec.magnitudes,
-        action_scale=32.0, iters=15, **kw)
+        action_scale=32.0, iters=15, device="cpu", **kw)
     return jop, top
 
 
