@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two slices through their public entry points, after
+Drives the port's three slices through their public entry points, after
 checking each hand-written kernel against its plain PyTorch version on the
 card. Slice 1, PPO on EVChargingEnv with the action projection on:
 
@@ -20,9 +20,11 @@ card. Slice 1, PPO on EVChargingEnv with the action projection on:
 4. in-kernel draws: U[0, 1) action mean (the 32768 x 288 run's draws),
    N(0, 1) mean and variance;
 5. simulation tier: ``EVChargingEnv.fused_rollout`` at 32768 x 288,
-   projection on, kernel and plain version timed with CUDA events;
+   projection on;
 6. trainer: two PPO train steps at 8192 envs x 288 steps, H = 256, bf16
-   obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check.
+   obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check; then
+   the kernels' device time (``torch.profiler``), the whole
+   simulation-tier call and the plain versions (CUDA events).
 
 Slice 2, CogenEnv:
 
@@ -42,6 +44,39 @@ Slice 2, CogenEnv:
     1e-4) and the lr=0 step at 1024 envs (|pg_loss| < 1e-5); then the
     kernels, the whole simulation-tier call and the plain version timed.
 
+Slice 3, DataCenterEnv and ElectricityMarketEnv:
+
+11. ``dc_segment`` vs its plain version, bit-equal on every row: 4096 x 672
+    on prescribed VCCs in [-0.1, 1.1), 262144 x 672 in RNG mode with the
+    plain version replaying the kernel's VCC row; the draws' mean 0.5 +-
+    0.005, min >= 0, max < 1;
+12. the datacenter main path with its counts from 0: the simulation tier
+    (``DataCenterEnv.fused_rollout`` at 262144 x 672), two PPO train steps
+    at 4096 x 672 (H = 256, 84 minibatches, 4 epochs, f32 obs) and the
+    lr=0 step at 1024 envs; then the kernel, the whole call and the plain
+    version timed;
+13. ``pdhg_solve_paired`` vs its plain version on the SCED operator at
+    B = 4096 (``check_solve``: the share of each output's entries outside
+    rtol 1e-4 / atol 2e-3 and max |d| over its largest value each at most
+    1% or twice those of the plain version against itself summing in
+    float64, the solve's own sensitivity to its sums): problems
+    drawn as ``tests/test_ops_pallas.py:496-505`` at 50 iterations; the
+    market's own problems (reset envs, bids uniform over the action box)
+    at the cold budget of 200, with price and battery dispatch q99 |d| <
+    0.05 and max < 2.0, and at the warm budget of 40; then
+    ``batch_unroll`` at 4096 x 288 on the same prescribed bids and days,
+    kernel against plain, clearing price mean |d| < 0.25 and q99 < 2.0
+    $/MWh (the bounds of ``tests/test_electricitymarket.py:324-346``),
+    max |d| within 2.0 or twice that of the plain version against itself
+    summing in float64;
+14. the market main path with its count from 0: the simulation tier
+    (``batch_unroll`` with the random policy at 4096 x 288: one launch per
+    step), two PPO train steps at 4096 x 288 (H = 256, 36 minibatches, 4
+    epochs, f32 obs) and the lr=0 step at 1024 envs; then the kernel's
+    time per warm and per cold solve (CUDA events over back-to-back
+    launches, which its wrapper never separates by a host wait) and the
+    plain warm solve.
+
 ``python3 chip_smoke.py --profile`` adds each trainer's phases (rollout,
 re-scoring + GAE, minibatch updates) on the host clock with
 ``torch.cuda.synchronize()`` between them, and the device's busy time over
@@ -49,7 +84,8 @@ one whole train step from ``torch.profiler``.
 
 Every phase raises on failure (exit code 1). The line before the last is
 a JSON object with, for each kernel, its launches in its slice's main-path
-run (phases 5-6 and 10), its largest difference from the plain version,
+run (phases 5-6, 10, 12 and 14; the slice gather's in 10 and 12), its
+largest difference from the plain version,
 its time, the plain version's and the library call's, and its bound (the
 least time the card could take: the larger of its bytes over the memory
 rate and its operations over the peak rate for their type); the last line
@@ -58,6 +94,7 @@ without one.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -69,6 +106,8 @@ import numpy as np
 SIM_BATCH, TRAIN_ENVS, STEPS, HIDDEN = 32768, 8192, 288, 256
 CHECK_BATCH = 1024
 COGEN_SIM, COGEN_TRAIN, COGEN_STEPS, COGEN_CHECK = 262144, 8192, 96, 4096
+DC_SIM, DC_TRAIN, DC_STEPS, DC_CHECK = 262144, 4096, 672, 4096
+MKT_BATCH, MKT_STEPS = 4096, 288
 # NVIDIA H100 SXM peaks (data sheet, dense, 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -101,24 +140,34 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time per call of the CUDA kernels whose name holds
-    ``kernel``, from ``torch.profiler`` over ``reps`` calls after one
-    warm-up call: the kernel alone, without the host time of its wrapper's
-    checks."""
+    """Mean device time per call of the CUDA kernel whose name holds
+    ``kernel``, launched once per call of ``fn``, from ``torch.profiler``
+    over ``reps`` calls after one warm-up call: the kernel alone, without
+    the host time of its wrapper's checks. Fails unless the trace holds
+    every launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the trace drops device events outside its window on the host's
+        # clock, to which the device's is aligned only roughly, and later
+        # in a long process the two drift apart: keep the window open well
+        # before and after the launches
+        time.sleep(0.2)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    if us == 0:
-        fail(f"the profiler saw no device time of {kernel}")
-    return us / reps / 1e3
+        time.sleep(0.2)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in events)
+    if count != reps:
+        fail(f"the profiler saw {count} launches of {kernel} in {reps} "
+             f"calls")
+    return sum(_dev_us(e) for e in events) / reps / 1e3
 
 
 def _dev_us(e) -> float:
@@ -243,6 +292,37 @@ def profile_train_step(train_step, carry, generator, cfg, tag: str):
               f"{e.key[:90]}")
 
 
+def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str):
+    """Two PPO train steps at ``cfg`` (host clock, synchronised around
+    each), then the lr=0 exact-ratio check at ``cfg0`` (|pg_loss| < 1e-5).
+    Returns (train_step, carry, generator)."""
+    import torch
+    from sustaingym_tpu_torch.parallel import make_train_step
+    init_state, train_step = make_train_step(env, p, cfg)
+    tgen = torch.Generator(device=p.device).manual_seed(seed)
+    carry = init_state(tgen)
+    steps = cfg.num_envs * env.episode_steps(p)
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, metrics = train_step(carry, tgen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        m = {key: float(v) for key, v in metrics.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"{label} train step {i}: non-finite metrics {m}")
+        print(f"{label} train step {i}: {dt:.3f} s = {steps / dt:.0f} "
+              f"env-steps/s; {json.dumps(m)} {tag}", flush=True)
+    init0, step0 = make_train_step(env, p, cfg0)
+    _, m0 = step0(init0(tgen), tgen)
+    pg0 = float(m0["pg_loss"])
+    print(f"{label} lr=0 train step at {cfg0.num_envs} envs: pg_loss "
+          f"{pg0:.3e} {tag}", flush=True)
+    if not abs(pg0) < 1e-5:
+        fail(f"{label} lr=0 exact-ratio invariant broken: pg_loss {pg0}")
+    return train_step, carry, tgen
+
+
 def check_cogen(case: str, ko, ro, tag: str) -> float:
     """``cogen_segment`` (30, T, B) rows against its plain version: action
     rows bit-equal, reward and info rows at rtol 2e-5 / atol 0.2 (relus at
@@ -300,7 +380,7 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
     from sustaingym_tpu_torch import make
     from sustaingym_tpu_torch.ops.cuda import cogen_rollout as KB
     from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
-    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    from sustaingym_tpu_torch.parallel import PPOConfig
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -386,30 +466,10 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
     del roll
     cfg = PPOConfig(num_envs=COGEN_TRAIN, hidden=HIDDEN, minibatches=24,
                     epochs=4, reward_scale=1e-4)
-    init_state, train_step = make_train_step(env, p, cfg)
-    tgen = torch.Generator(device=dev).manual_seed(34)
-    carry = init_state(tgen)
-    for i in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        carry, metrics = train_step(carry, tgen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        m = {key: float(v) for key, v in metrics.items()}
-        if not all(np.isfinite(v) for v in m.values()):
-            fail(f"cogen train step {i}: non-finite metrics {m}")
-        print(f"cogen train step {i}: {dt:.3f} s = "
-              f"{COGEN_TRAIN * T / dt:.0f} env-steps/s; {json.dumps(m)} "
-              f"{tag}", flush=True)
-    cfg0 = PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN, minibatches=4,
-                     epochs=1, lr=0.0, reward_scale=1e-4)
-    init0, step0 = make_train_step(env, p, cfg0)
-    _, m0 = step0(init0(tgen), tgen)
-    pg0 = float(m0["pg_loss"])
-    print(f"cogen lr=0 train step at {CHECK_BATCH} envs: pg_loss {pg0:.3e} "
-          f"{tag}", flush=True)
-    if not abs(pg0) < 1e-5:
-        fail(f"cogen lr=0 exact-ratio invariant broken: pg_loss {pg0}")
+    train_step, carry, tgen = run_trainer(
+        "cogen", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
+                                        minibatches=4, epochs=1, lr=0.0,
+                                        reward_scale=1e-4), 34, tag)
     launches = {"episode_slice_gather": KA.episode_slice_gather.launches,
                 "cogen_segment": KB.cogen_segment.launches}
     if min(launches.values()) == 0:
@@ -453,6 +513,349 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
     ]
 
 
+DC_ROWS = ("a", "executed", "queue", "reward", "carbon_cost",
+           "delay_penalty")
+
+
+def check_dc(case: str, ko, ro, tag: str) -> float:
+    """``dc_segment`` (6, T, B) rows against its plain version: bit for
+    bit on every row. Returns max |d|."""
+    import torch
+    d = (ko - ro).abs().amax(dim=(1, 2)).tolist()
+    print(f"dc_segment {case}: max|d| per row "
+          f"{dict(zip(DC_ROWS, d))}; bit-equal {torch.equal(ko, ro)} {tag}",
+          flush=True)
+    if not torch.equal(ko, ro):
+        fail(f"dc_segment {case}: differs from its plain version")
+    return max(d)
+
+
+def dc_slice(tag: str, want_profile: bool) -> tuple[list, int]:
+    """Phases 11-12 (module docstring); returns the kernel's entry of the
+    ``kernels`` line and the slice-gather launches of its main path."""
+    import torch
+    from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.ops.cuda import dc_rollout as K8
+    from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
+    from sustaingym_tpu_torch.parallel import PPOConfig
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    env, p = make("datacenter", device=dev)
+    B, T = DC_SIM, DC_STEPS
+
+    # ---- 11. dc_segment vs plain, bit-equal ------------------------------
+    months = torch.randint(p.n_months, (DC_CHECK,), generator=gen, device=dev)
+    acts = torch.rand((T, DC_CHECK), generator=gen, device=dev) * 1.2 - 0.1
+    seg_err = check_dc(f"{DC_CHECK}x{T} prescribed VCCs in [-0.1, 1.1)",
+                       K8.dc_segment(p, months, T, actions=acts),
+                       K8.dc_segment_ref(p, months, T, actions=acts), tag)
+    months = torch.randint(p.n_months, (B,), generator=gen, device=dev)
+    ko = K8.dc_segment(p, months, T, seed=42)
+    a = ko[0].contiguous()
+    seg_err = max(seg_err, check_dc(
+        f"{B}x{T} in-kernel draws", ko,
+        K8.dc_segment_ref(p, months, T, actions=a), tag))
+    del ko
+    a_mean, a_min, a_max = float(a.mean()), float(a.min()), float(a.max())
+    print(f"dc draws: {a.numel()} VCCs mean {a_mean:.6f} min {a_min:.3e} max "
+          f"{a_max:.6f} {tag}", flush=True)
+    if not (abs(a_mean - 0.5) <= 0.005 and a_min >= 0.0 and a_max < 1.0):
+        fail("dc in-kernel draws off")
+    del a
+
+    # ---- 12. the datacenter main path: counts from 0 ------------------------
+    KA.episode_slice_gather.launches = 0
+    K8.dc_segment.launches = 0
+    sim_gen = torch.Generator(device=dev).manual_seed(43)
+    roll = env.fused_rollout(p, B, T, generator=sim_gen)
+    if roll.reward.shape != (T, B) or roll.obs.shape != (T, B, 27) \
+            or not bool(torch.isfinite(roll.reward).all()):
+        fail("datacenter simulation tier: bad rewards or obs")
+    mean_reward = float(roll.reward.mean())
+    del roll
+    cfg = PPOConfig(num_envs=DC_TRAIN, hidden=HIDDEN, minibatches=84,
+                    epochs=4)
+    train_step, carry, tgen = run_trainer(
+        "datacenter", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH,
+                                             hidden=HIDDEN, minibatches=4,
+                                             epochs=1, lr=0.0), 44, tag)
+    launches = {"episode_slice_gather": KA.episode_slice_gather.launches,
+                "dc_segment": K8.dc_segment.launches}
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the datacenter main path never launched: "
+             f"{launches}")
+    if want_profile:
+        profile_train_step(train_step, carry, tgen, cfg, tag)
+    del carry, train_step
+
+    seg_ms = device_ms(lambda: K8.dc_segment(p, months, T, seed=45),
+                       "dc_segment_kernel", 10)
+    seg_call_ms = cuda_ms(lambda: K8.dc_segment(p, months, T, seed=45), 10)
+    seg_plain_ms = cuda_ms(lambda: K8.dc_segment_ref(p, months, T, seed=45),
+                           1)
+    sim_ms = cuda_ms(lambda: env.fused_rollout(p, B, T, generator=sim_gen), 2)
+    seg_bound = bound(4 * K8.OUT_ROWS * T * B + nbytes(p.table, months),
+                      f32_ops=K8.OPS_PER_STEP * T * B)
+    # the card's write rate on the same bytes: PyTorch's fill of a tensor
+    # of the kernel's output shape (no host check between launches)
+    rows = torch.empty((K8.OUT_ROWS, T, B), device=dev)
+    fill_ms = cuda_ms(lambda: rows.fill_(1.0), 10)
+    print(f"write-rate yardstick: fill_ of a {nbytes(rows) / 1e9:.3f} GB "
+          f"float32 tensor {fill_ms:.4f} ms (CUDA events) = "
+          f"{nbytes(rows) / fill_ms / 1e9:.3f} TB/s {tag}", flush=True)
+    del rows
+    steps = B * T
+    print(f"datacenter simulation tier {B}x{T}: whole fused_rollout call "
+          f"{sim_ms:.3f} ms = {steps / sim_ms * 1e3:.0f} env-steps/s; "
+          f"dc_segment kernel {seg_ms:.4f} ms (device) = "
+          f"{steps / seg_ms * 1e3:.0f} env-steps/s, wrapper call "
+          f"{seg_call_ms:.4f} ms, bound {seg_bound[0]:.4f} ms "
+          f"({seg_bound[1]}); plain {seg_plain_ms:.3f} ms = "
+          f"{steps / seg_plain_ms * 1e3:.0f} env-steps/s; mean reward "
+          f"{mean_reward:.6f}; launches {launches} {tag}", flush=True)
+    return [
+        {"name": "dc_segment", "route": "cuda",
+         "source": "sustaingym_tpu_torch/ops/cuda/csrc/dc_rollout.cu",
+         "replaces": "sustaingym_tpu/ops/pallas/dc_rollout.py:84",
+         "launches": launches["dc_segment"], "max_abs_err": seg_err,
+         "ms": seg_ms, "plain_ms": seg_plain_ms, "bound_ms": seg_bound[0],
+         "bound_by": seg_bound[1], "library_ms": None},
+    ], launches["episode_slice_gather"]
+
+
+def solve_diffs(got, want, rtol=1e-4, atol=2e-3) -> dict:
+    """For each of (x, y, zp, zm): the share of entries outside rtol / atol
+    (the JAX package's bound for its kernel against its solver,
+    ``tests/test_ops_pallas.py:512-517``), max |d| and max |d| over the
+    largest |value| of ``want``."""
+    out = {}
+    for name, g, w in zip(("x", "y", "zp", "zm"), got, want):
+        d = (g.double() - w.double()).abs()
+        out[name] = (float((d > atol + rtol * w.abs()).double().mean()),
+                     float(d.max()),
+                     float(d.max()) / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def f64_operands(kops):
+    """``kops`` with its operator's matrices and steps in float64: the
+    plain version then sums the same bf16-rounded products in float64."""
+    from sustaingym_tpu_torch.core import replace
+    op = kops.op
+    return replace(kops, op=replace(op, **{
+        f: getattr(op, f).double()
+        for f in ("A", "S", "G", "tau", "sigma_a", "sigma_s", "sigma_g")}))
+
+
+def check_solve(case: str, kops, args, iters: int, tag: str) -> float:
+    """``pdhg_solve_paired`` against its plain version. A float32 sum in
+    another order can flip the bf16 rounding of an iterate, which the
+    following iterations carry on, so some entries of a large batch leave
+    any elementwise bound. The yardstick is the same solve's sensitivity to
+    its sums: the plain version in float32 against the plain version
+    summing in float64. The gate, for each output: the share of entries
+    outside rtol 1e-4 / atol 2e-3 and max |d| over the output's largest
+    |value| each at most 1% or twice the yardstick's. Returns max |d|."""
+    from sustaingym_tpu_torch.ops.cuda import lp_solve as K9
+    got = K9.pdhg_solve_paired(kops, *args, iters)
+    plain = K9.pdhg_solve_paired_ref(kops, *args, iters)
+    wide = K9.pdhg_solve_paired_ref(f64_operands(kops),
+                                    *(a.double() for a in args), iters)
+    diffs, yard = solve_diffs(got, plain), solve_diffs(plain, wide)
+    print(f"pdhg_solve_paired {case} {iters} iterations: kernel vs plain "
+          f"(share outside, max|d|, max|d| / max|plain|) {diffs}; plain "
+          f"float32 vs float64 sums {yard} {tag}", flush=True)
+    if not all(share <= max(0.01, 2 * yard[k][0])
+               and rel <= max(0.01, 2 * yard[k][2])
+               for k, (share, _, rel) in diffs.items()):
+        fail(f"pdhg_solve_paired {case}: kernel off its plain version")
+    return max(mx for _, mx, _ in diffs.values())
+
+
+@contextlib.contextmanager
+def plain_solves(float64: bool = False):
+    """Context in which the market's lockstep solves run the kernel's plain
+    version, summing in float32 or, with ``float64``, in float64 (results
+    rounded back to float32): the kernel's yardstick inside
+    ``batch_unroll``, and the trajectory's own sensitivity to its sums."""
+    from sustaingym_tpu_torch.ops.cuda import lp_solve as K9
+
+    def wide(kops, *args):
+        *arrays, iters = args
+        return tuple(o.float() for o in K9.pdhg_solve_paired_ref(
+            f64_operands(kops), *(a.double() for a in arrays), iters))
+
+    kernel = K9.pdhg_solve_paired
+    K9.pdhg_solve_paired = wide if float64 else K9.pdhg_solve_paired_ref
+    try:
+        yield
+    finally:
+        K9.pdhg_solve_paired = kernel
+
+
+def market_slice(tag: str, want_profile: bool) -> list:
+    """Phases 13-14 (module docstring); returns the kernel's entry of the
+    ``kernels`` line."""
+    import torch
+    from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.core import random_policy
+    from sustaingym_tpu_torch.envs.electricitymarket import uses_solve_kernel
+    from sustaingym_tpu_torch.envs.electricitymarket.env import MAX_BID
+    from sustaingym_tpu_torch.ops.cuda import lp_solve as K9
+    from sustaingym_tpu_torch.parallel import PPOConfig
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(51)
+    env, p = make("electricitymarket", device=dev)
+    if not uses_solve_kernel(p):
+        fail("the card's default market does not solve through the kernel")
+    op, B, T = p.op, MKT_BATCH, MKT_STEPS
+    n, me, ms = op.n, op.me, op.ms
+    kops = K9.pack_pdhg_operands(op)
+
+    # ---- 13. pdhg_solve_paired vs plain ------------------------------------
+    rng = np.random.default_rng(0)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    h = rng.uniform(10, 500, (B, 2 * ms))
+    z0 = np.abs(rng.normal(0, 1, (B, 2 * ms)))
+    drawn = (t(rng.uniform(-50, 50, (B, n))), t(rng.uniform(100, 2000, (B, me))),
+             t(h[:, :ms]), t(h[:, ms:]), p.ub, t(rng.uniform(0, 1, (B, n))),
+             t(rng.normal(0, 5, (B, me))), t(z0[:, :ms]), t(z0[:, ms:]))
+    solve_err = check_solve(f"drawn problems B={B}", kops, drawn, 50, tag)
+
+    # the market's own problems: reset envs, bids over the action box
+    state, _ = env.reset(p, gen, B)
+    bids = torch.rand((B, 2 * p.horizon), generator=gen, device=dev) * MAX_BID
+    c, b, hh, init, _ = env._sced_problem(p, state, bids)
+    market = (c, b, hh[:, :ms].contiguous(), hh[:, ms:].contiguous(), p.ub,
+              init.x, init.y, init.z[:, :ms].contiguous(),
+              init.z[:, ms:].contiguous())
+
+    def cleared(sol):
+        x, y = sol[0].double(), sol[1].double()
+        return {"price": y[:, 0], "charge": x[:, p.ic],
+                "discharge": x[:, p.id]}
+
+    for iters in (op.iters, p.lp_warm_iters):
+        solve_err = max(solve_err, check_solve(
+            f"market problems B={B}, cold start,", kops, market, iters, tag))
+        got = cleared(K9.pdhg_solve_paired(kops, *market, iters))
+        plain = cleared(K9.pdhg_solve_paired_ref(kops, *market, iters))
+        wide = cleared(K9.pdhg_solve_paired_ref(
+            f64_operands(kops), *(a.double() for a in market), iters))
+        stats = {k: (q((got[k] - plain[k]).abs(), 0.99),
+                     float((got[k] - plain[k]).abs().max())) for k in got}
+        yard = {k: (q((plain[k] - wide[k]).abs(), 0.99),
+                    float((plain[k] - wide[k]).abs().max())) for k in got}
+        print(f"pdhg_solve_paired market problems B={B} {iters} iterations: "
+              f"price and battery dispatch (q99, max) |d| kernel vs plain "
+              f"{stats}; plain float32 vs float64 sums {yard} {tag}",
+              flush=True)
+        if iters == op.iters and not all(q99 < 0.05 and mx < 2.0
+                                         for q99, mx in stats.values()):
+            fail("pdhg_solve_paired: cold-budget price or dispatch off")
+
+    # batch_unroll with the kernel against its plain version, same bids
+    days = torch.randint(p.n_days, (2, B), generator=gen, device=dev)
+    bid_rows = torch.rand((T, B, 2 * p.horizon), generator=gen,
+                          device=dev) * MAX_BID
+
+    def replay():
+        rows = iter(bid_rows)
+        return lambda _, obs, g: next(rows)
+
+    kroll = env.batch_unroll(p, replay(), None, B, T, days=days)
+    with plain_solves():
+        rroll = env.batch_unroll(p, replay(), None, B, T, days=days)
+    with plain_solves(float64=True):
+        wroll = env.batch_unroll(p, replay(), None, B, T, days=days)
+
+    def price_diffs(a, b):
+        d = (a.info["price"] - b.info["price"]).abs()
+        return float(d.mean()), q(d, 0.99), float(d.max())
+
+    dp, yard = price_diffs(kroll, rroll), price_diffs(rroll, wroll)
+    print(f"market batch_unroll {B}x{T} on the same bids and days: clearing "
+          f"price |d| (mean, q99, max) $/MWh kernel vs plain {dp}; plain "
+          f"float32 vs float64 sums {yard} {tag}", flush=True)
+    # a bf16 flip that changes one dispatch moves the battery's energy and
+    # with it every later problem of that env: the max over 1.2 M prices
+    # is held to the trajectory's own sensitivity, the mean to the bound
+    if not (dp[0] < 0.25 and dp[1] < 2.0 and dp[2] <= max(2.0, 2 * yard[2])):
+        fail("market batch_unroll: kernel prices off the plain version's")
+    del kroll, rroll, wroll, bid_rows
+    solve_err = max(solve_err, dp[2])
+
+    # ---- 14. the market main path: counts from 0 ----------------------------
+    K9.pdhg_solve_paired.launches = 0
+    sim_gen = torch.Generator(device=dev).manual_seed(52)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roll = env.batch_unroll(p, random_policy(env, p, B), None, B, T, sim_gen)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    if roll.reward.shape != (T, B) \
+            or not bool(torch.isfinite(roll.reward).all()):
+        fail("market simulation tier: bad rewards")
+    per_episode = K9.pdhg_solve_paired.launches
+    mean_reward = float(roll.reward.mean())
+    del roll
+    cfg = PPOConfig(num_envs=B, hidden=HIDDEN, minibatches=36, epochs=4)
+    train_step, carry, tgen = run_trainer(
+        "market", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
+                                         minibatches=4, epochs=1, lr=0.0),
+        53, tag)
+    launches = K9.pdhg_solve_paired.launches
+    if per_episode != T or launches == 0:
+        fail(f"pdhg_solve_paired launches: {per_episode} in a {T}-step "
+             f"episode, {launches} on the main path")
+    if want_profile:
+        profile_train_step(train_step, carry, tgen, cfg, tag)
+    del carry, train_step
+
+    warm, cold = p.lp_warm_iters, op.iters
+    # device time by CUDA events over back-to-back launches: the wrapper
+    # never waits on the host, so the card runs them without gaps (late in
+    # this long process the profiler's trace lost some of these launches)
+    warm_ms = cuda_ms(lambda: K9.pdhg_solve_paired(kops, *market, warm), 10)
+    cold_ms = cuda_ms(lambda: K9.pdhg_solve_paired(kops, *market, cold), 3)
+    plain_ms = cuda_ms(lambda: K9.pdhg_solve_paired_ref(kops, *market, warm),
+                       3)
+    io_bytes = (nbytes(*market, kops.K, kops.tau, kops.sig)
+                + 4 * B * (n + me + 2 * ms))
+
+    def solve_bound(iters, peak_type):
+        return bound(io_bytes, **{peak_type: 4 * n * (me + ms) * iters * B})
+
+    warm_bound, cold_bound = (solve_bound(warm, "bf16_ops"),
+                              solve_bound(cold, "bf16_ops"))
+    print(f"pdhg_solve_paired B={B}: warm solve ({warm} iterations) "
+          f"{warm_ms:.4f} ms (CUDA events, back-to-back launches), bound "
+          f"{warm_bound[0]:.4f} ms ({warm_bound[1]}, bf16 peak; "
+          f"{solve_bound(warm, 'f32_ops')[0]:.4f} ms at the f32 peak); cold "
+          f"solve ({cold} iterations) {cold_ms:.4f} ms, bound "
+          f"{cold_bound[0]:.4f} ms; plain warm solve {plain_ms:.3f} ms; "
+          f"launches {per_episode} per {T}-step episode, {launches} on the "
+          f"main path {tag}", flush=True)
+    steps = B * T
+    print(f"market simulation tier {B}x{T}: whole batch_unroll "
+          f"{sim_s * 1e3:.1f} ms = {steps / sim_s:.0f} env-steps/s, of which "
+          f"the kernel ~{cold_ms + (T - 1) * warm_ms:.1f} ms; mean reward "
+          f"{mean_reward:.6f} {tag}", flush=True)
+    return [
+        {"name": "pdhg_solve_paired", "route": "cuda",
+         "source": "sustaingym_tpu_torch/ops/cuda/csrc/lp_solve.cu",
+         "replaces": "sustaingym_tpu/ops/pallas/lp_solve.py:110",
+         "launches": launches, "max_abs_err": solve_err, "ms": warm_ms,
+         "plain_ms": plain_ms, "bound_ms": warm_bound[0],
+         "bound_by": warm_bound[1], "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -463,8 +866,7 @@ def main() -> int:
     from sustaingym_tpu_torch import make
     from sustaingym_tpu_torch.ops.cuda import build
     from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
-    from sustaingym_tpu_torch.parallel import (PPOConfig, init_policy,
-                                               make_train_step)
+    from sustaingym_tpu_torch.parallel import PPOConfig, init_policy
 
     # plain versions are the oracle: full-f32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -479,7 +881,8 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("ev_rollout", "exog_gather", "cogen_rollout")
+    sources = ("ev_rollout", "exog_gather", "cogen_rollout", "dc_rollout",
+               "lp_solve")
     build.load_libraries(sources, verbose=True)
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.3f} s {tag}", flush=True)
@@ -543,12 +946,17 @@ def main() -> int:
                      tag)
     err["ev_policy_segment"] = max(err["ev_policy_segment"], e)
     del noise
-    pol_ms = cuda_ms(lambda: K.ev_policy_segment(p, w, days, STEPS, seed=3),
-                     3)
+    pol_ms = device_ms(lambda: K.ev_policy_segment(p, w, days, STEPS, seed=3),
+                       "ev_policy_segment_kernel", 3)
+    pol_call_ms = cuda_ms(lambda: K.ev_policy_segment(p, w, days, STEPS,
+                                                      seed=3), 3)
     pol_plain_ms = cuda_ms(lambda: K.ev_policy_segment_ref(
         p, w, days, STEPS, seed=3), 1)
     print(f"ev_policy_segment {TRAIN_ENVS}x{STEPS} H={HIDDEN}: kernel "
-          f"{pol_ms:.3f} ms, plain {pol_plain_ms:.3f} ms {tag}", flush=True)
+          f"{pol_ms:.3f} ms (device), plain {pol_plain_ms:.3f} ms {tag}",
+          flush=True)
+    print(f"ev_policy_segment {TRAIN_ENVS}x{STEPS}: whole wrapper call "
+          f"{pol_call_ms:.3f} ms (CUDA events) {tag}", flush=True)
 
     days = torch.randint(p.n_days, (B,), generator=gen, device=dev)
     zero = init_policy(D, n, HIDDEN, torch.Generator().manual_seed(4), dev)
@@ -574,44 +982,16 @@ def main() -> int:
     if roll.reward.shape != (STEPS, SIM_BATCH) \
             or not bool(torch.isfinite(roll.reward).all()):
         fail("simulation tier: bad rewards")
-    seg_ms = cuda_ms(lambda: env.fused_rollout(p, SIM_BATCH, STEPS,
-                                               generator=sim_gen), 3)
-    days = torch.randint(p.n_days, (SIM_BATCH,), generator=gen, device=dev)
-    seg_plain_ms = cuda_ms(lambda: K.ev_segment_ref(p, days, STEPS,
-                                                    seed=12), 1)
-    steps = SIM_BATCH * STEPS
-    print(f"simulation tier {SIM_BATCH}x{STEPS} projection on: kernel "
-          f"{seg_ms:.3f} ms = {steps / seg_ms * 1e3:.0f} env-steps/s; plain "
-          f"{seg_plain_ms:.3f} ms = {steps / seg_plain_ms * 1e3:.0f} "
-          f"env-steps/s; mean reward {float(roll.reward.mean()):.6f} {tag}",
-          flush=True)
+    ev_mean_reward = float(roll.reward.mean())
+    del roll
 
     # ---- 6. trainer --------------------------------------------------------
     cfg = PPOConfig(num_envs=TRAIN_ENVS, hidden=HIDDEN, minibatches=96,
                     epochs=4, obs_bf16=True)
-    init_state, train_step = make_train_step(env, p, cfg)
-    tgen = torch.Generator(device=dev).manual_seed(21)
-    carry = init_state(tgen)
-    for i in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        carry, metrics = train_step(carry, tgen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        m = {key: float(v) for key, v in metrics.items()}
-        if not all(np.isfinite(v) for v in m.values()):
-            fail(f"train step {i}: non-finite metrics {m}")
-        print(f"train step {i}: {dt:.3f} s = "
-              f"{TRAIN_ENVS * STEPS / dt:.0f} env-steps/s; "
-              f"{json.dumps(m)} {tag}", flush=True)
-    cfg0 = PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN, minibatches=4,
-                     epochs=1, lr=0.0, obs_bf16=True)
-    init0, step0 = make_train_step(env, p, cfg0)
-    _, m0 = step0(init0(tgen), tgen)
-    pg0 = float(m0["pg_loss"])
-    print(f"lr=0 train step at {CHECK_BATCH} envs: pg_loss {pg0:.3e} {tag}")
-    if not abs(pg0) < 1e-5:
-        fail(f"lr=0 exact-ratio invariant broken: pg_loss {pg0}")
+    train_step, carry, tgen = run_trainer(
+        "EV", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
+                                     minibatches=4, epochs=1, lr=0.0,
+                                     obs_bf16=True), 21, tag)
 
     launches = {"ev_segment": K.ev_segment.launches,
                 "ev_policy_segment": K.ev_policy_segment.launches}
@@ -619,6 +999,24 @@ def main() -> int:
         fail(f"a kernel of the main path never launched: {launches}")
     if want_profile:
         profile_train_step(train_step, carry, tgen, cfg, tag)
+
+    # simulation-tier times, after the counts were read
+    sim_ms = cuda_ms(lambda: env.fused_rollout(p, SIM_BATCH, STEPS,
+                                               generator=sim_gen), 3)
+    days = torch.randint(p.n_days, (SIM_BATCH,), generator=gen, device=dev)
+    seg_ms = device_ms(lambda: K.ev_segment(p, days, STEPS, seed=12),
+                       "ev_segment_kernel", 3)
+    seg_plain_ms = cuda_ms(lambda: K.ev_segment_ref(p, days, STEPS,
+                                                    seed=12), 1)
+    steps = SIM_BATCH * STEPS
+    print(f"simulation tier {SIM_BATCH}x{STEPS} projection on: kernel "
+          f"{seg_ms:.3f} ms (device) = {steps / seg_ms * 1e3:.0f} "
+          f"env-steps/s; plain {seg_plain_ms:.3f} ms = "
+          f"{steps / seg_plain_ms * 1e3:.0f} env-steps/s; mean reward "
+          f"{ev_mean_reward:.6f}; launches {launches} {tag}", flush=True)
+    print(f"simulation tier {SIM_BATCH}x{STEPS}: whole fused_rollout call "
+          f"{sim_ms:.3f} ms (CUDA events) = {steps / sim_ms * 1e3:.0f} "
+          f"env-steps/s {tag}", flush=True)
 
     # bounds at the main path's shapes (caltech, projection on)
     m2, iters = int(p.proj.C.shape[0]), int(p.proj.iters)
@@ -649,6 +1047,10 @@ def main() -> int:
          "bound_by": pol_bound[1], "library_ms": None},
     ]
     kernels += cogen_slice(tag, want_profile)
+    dc_kernels, dc_gathers = dc_slice(tag, want_profile)
+    kernels[2]["launches"] += dc_gathers     # the gather serves both slices
+    kernels += dc_kernels
+    kernels += market_slice(tag, want_profile)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""SustainGym on PyTorch + CUDA: the EV-charging and cogeneration paths of
-``sustaingym_tpu`` ported to PyTorch, with their TPU kernels written by hand
-for Hopper (``ops/cuda/csrc/``): the EV episode kernels, the episode
-slice-gather and the cogen episode kernel.
+"""SustainGym on PyTorch + CUDA: the EV-charging, cogeneration, datacenter
+and electricity-market paths of ``sustaingym_tpu`` ported to PyTorch, with
+their TPU kernels written by hand for Hopper (``ops/cuda/csrc/``): the EV
+episode kernels, the episode slice-gather, the cogen and datacenter episode
+kernels and the whole-solve PDHG kernel of the market's SCED clearing.
 
 The JAX package ``sustaingym_tpu`` is the reference; this package imports
 neither it nor JAX. The packed data files are read from
@@ -38,8 +39,9 @@ def register(name: str, factory) -> None:
 
 def make(name: str, **kwargs):
     """Creates (env, params) for a registered environment. Registered
-    names: 'evcharging' and 'cogen' (the other environments are not ported
-    yet). ``kwargs`` go to the env's ``make_params``."""
+    names: 'evcharging', 'cogen', 'datacenter' and 'electricitymarket'
+    (building is not ported yet). ``kwargs`` go to the env's
+    ``make_params``."""
     if not _REGISTRY:
         _populate_registry()
     if name not in _REGISTRY:
@@ -48,6 +50,8 @@ def make(name: str, **kwargs):
 
 
 def _populate_registry() -> None:
-    from .envs import cogen, evcharging
+    from .envs import cogen, datacenter, electricitymarket, evcharging
     register("evcharging", evcharging.make_env)
     register("cogen", cogen.make_env)
+    register("datacenter", datacenter.make_env)
+    register("electricitymarket", electricitymarket.make_env)

@@ -1,8 +1,9 @@
-"""Space descriptors: ``Box``, ``DictSpace``, ``flatdim`` and ``flatten``.
+"""Space descriptors: ``Box``, ``Discrete``, ``DictSpace``, ``flatdim`` and
+``flatten``.
 
 Same semantics as ``sustaingym_tpu.core.spaces``: a ``DictSpace`` flattens
-its entries in insertion order (``gymnasium.spaces.flatten`` order), so the
-flat observation layout, and with it the rows of a converted ``trunk1``
+its entries in insertion order (``gymnasium.spaces.flatten`` order) and a
+``Discrete`` point one-hot, so the flat observation layout, and with it the rows of a converted ``trunk1``
 weight, is the same in both packages.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["Space", "Box", "DictSpace", "flatdim", "flatten"]
+__all__ = ["Space", "Box", "Discrete", "DictSpace", "flatdim", "flatten"]
 
 
 class Space:
@@ -50,6 +51,28 @@ class Box(Space):
         return f"Box(shape={self.shape})"
 
 
+class Discrete(Space):
+    """The integers {start, ..., start + n - 1}."""
+
+    def __init__(self, n: int, start: int = 0):
+        self.n = int(n)
+        self.start = int(start)
+        self.shape = ()
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        """One uniform point, int64, on the generator's device."""
+        return self.sample_batch(generator, 1)[0]
+
+    def sample_batch(self, generator: torch.Generator, batch: int
+                     ) -> torch.Tensor:
+        """(batch,) uniform integers from ``generator``."""
+        return torch.randint(self.n, (batch,), generator=generator,
+                             device=generator.device) + self.start
+
+    def __repr__(self) -> str:
+        return f"Discrete({self.n}, start={self.start})"
+
+
 class DictSpace(Space):
     """Ordered mapping of named sub-spaces."""
 
@@ -72,6 +95,8 @@ def flatdim(space: Space) -> int:
     """Total number of scalar entries in a flattened point of ``space``."""
     if isinstance(space, Box):
         return int(np.prod(space.shape, dtype=np.int64)) if space.shape else 1
+    if isinstance(space, Discrete):
+        return space.n                     # one-hot
     if isinstance(space, DictSpace):
         return sum(flatdim(sp) for sp in space.spaces.values())
     raise TypeError(f"unknown space {space}")
@@ -84,6 +109,11 @@ def flatten(space: Space, x: Any, batch_dims: int = 0) -> torch.Tensor:
     if isinstance(space, Box):
         x = torch.as_tensor(x, dtype=torch.float32)
         return x.reshape(x.shape[:batch_dims] + (-1,))
+    if isinstance(space, Discrete):
+        x = torch.as_tensor(x).long()
+        return torch.nn.functional.one_hot(
+            x.reshape(x.shape[:batch_dims]) - space.start,
+            space.n).to(torch.float32)
     if isinstance(space, DictSpace):
         return torch.cat([flatten(sp, x[name], batch_dims)
                           for name, sp in space.spaces.items()], dim=-1)

@@ -44,10 +44,11 @@ def _parse_range(date_period) -> tuple[dt.date, dt.date]:
     return start, end
 
 
-def build_moer_pack(date_period) -> np.ndarray:
-    """(n_days, 289, 37) float32 MOER pack for all days in the range."""
+def build_moer_pack(date_period, ba: str = MOER_BA) -> np.ndarray:
+    """(n_days, 289, 37) float32 MOER pack of balancing authority ``ba``
+    for all days in the range."""
     start, end = _parse_range(date_period)
-    return np.load(packed_path(f"moer_{MOER_BA}_{start}_{end}.npz"))["moer"]
+    return np.load(packed_path(f"moer_{ba}_{start}_{end}.npz"))["moer"]
 
 
 def build_trace_pack(site: str, date_period) -> dict[str, np.ndarray]:

@@ -10,8 +10,9 @@ per source, all at once.
 Flags: ``-O3 -gencode=arch=compute_90a,code=sm_90a``, and deliberately no
 ``--use_fast_math``: the parity with the plain PyTorch versions relies on
 IEEE ``tanhf``, ``sqrtf``, ``powf``, division and ``rintf``.
-``cogen_rollout`` also builds with ``-fmad=false``, so its float32
-arithmetic rounds after every operation as its plain version's does.
+``cogen_rollout`` and ``dc_rollout`` also build with ``-fmad=false``, so
+their float32 arithmetic rounds after every operation as their plain
+versions' does.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
-_EXTRA_FLAGS = {"cogen_rollout": ("-fmad=false",)}
+_EXTRA_FLAGS = {"cogen_rollout": ("-fmad=false",),
+                "dc_rollout": ("-fmad=false",)}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -9,7 +9,8 @@ samples. The rollout goes one of two ways, as in the JAX package:
   env's policy-in-kernel rollout (``fused_policy_unroll``); the rollout and
   the learner score the SAME bf16 obs with the same bf16 operands
   (:func:`policy_apply_bf16`);
-- **episodic** (an env with a lockstep ``batch_unroll``, e.g. CogenEnv): the
+- **episodic** (an env with a lockstep ``batch_unroll``: CogenEnv,
+  DataCenterEnv, ElectricityMarketEnv): the
   sampling policy applies the f32 :func:`policy_apply` to the flat obs,
   draws a Gaussian ``u`` from the generator and squashes it into the Box
   action space; the obs it saw (bf16 if ``obs_bf16``) and ``u`` are
@@ -29,7 +30,7 @@ import warnings
 import torch
 from torch import nn
 
-from ..core import dataclass, flatdim, flatten
+from ..core import Discrete, dataclass, flatdim, flatten
 
 __all__ = ["PPOConfig", "ActorCritic", "init_policy", "policy_apply",
            "policy_apply_bf16", "default_act_transform", "gae", "loss_fn",
@@ -222,6 +223,11 @@ def make_train_step(env, env_params, cfg: PPOConfig):
             "(episodic path) or a fused_policy_unroll (fused path, obs_bf16); "
             "the generic rollout is not ported yet (ROADMAP Queue 1, 'EV "
             "lockstep rollouts')")
+    if isinstance(env.action_space(env_params), Discrete):
+        raise ValueError(
+            f"{type(env).__name__} has a Discrete action space (the market's "
+            f"discrete=True), which needs the categorical PPO head; it is not "
+            f"ported yet (ROADMAP Queue 1, 'categorical PPO head')")
     device = env_params.device
     ep_len = env.episode_steps(env_params)
     obs_space = env.observation_space(env_params)

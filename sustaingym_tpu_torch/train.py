@@ -1,9 +1,14 @@
-"""Training CLI of the PyTorch port: PPO on EVChargingEnv or CogenEnv.
+"""Training CLI of the PyTorch port: PPO on EVChargingEnv, CogenEnv,
+DataCenterEnv or ElectricityMarketEnv.
 
     python -m sustaingym_tpu_torch.train --env evcharging --algo ppo \
         --num-envs 8192 --rollout-len 288 --minibatches 96 --obs-bf16
     python -m sustaingym_tpu_torch.train --env cogen --num-envs 8192 \
         --rollout-len 96 --minibatches 24
+    python -m sustaingym_tpu_torch.train --env datacenter --num-envs 4096 \
+        --rollout-len 672 --minibatches 84
+    python -m sustaingym_tpu_torch.train --env electricitymarket \
+        --num-envs 4096 --rollout-len 288 --minibatches 36
 
 Writes per-iteration metrics to ``<log-dir>/train_results.csv``, saves the
 policy, optimizer and generator state with ``torch.save`` every
@@ -50,7 +55,8 @@ def restore_checkpoint(path: str, carry: dict, generator) -> int:
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--env", default="evcharging",
-                        choices=["evcharging", "cogen"])
+                        choices=["evcharging", "cogen", "datacenter",
+                                 "electricitymarket"])
     parser.add_argument("--env-kwargs", default=None,
                         help="JSON dict forwarded to make(env, **kwargs), "
                              "e.g. '{\"site\": \"jpl\"}'")
@@ -61,8 +67,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--num-envs", type=int, default=1024)
     parser.add_argument("--rollout-len", type=int, default=None,
                         help="must equal the episode length (evcharging "
-                             "288, cogen 96; the default): each rollout is "
-                             "one whole episode per env")
+                             "288, cogen 96, datacenter 672, "
+                             "electricitymarket 288; the default): each "
+                             "rollout is one whole episode per env")
     parser.add_argument("--hidden", type=int, default=256)
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--gamma", type=float, default=0.99)

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels of sustaingym_tpu_torch.ops.cuda
-(ev_rollout, exog_gather, cogen_rollout) against their plain PyTorch
-versions on the card, at a small size. Marked ``gpu``; each test skips
-when no CUDA device is present. On a card:
+(ev_rollout, exog_gather, cogen_rollout, dc_rollout, lp_solve) against
+their plain PyTorch versions on the card, at a small size. Marked ``gpu``;
+each test skips when no CUDA device is present. On a card:
 
     python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu
 """
@@ -10,9 +10,12 @@ import pytest
 import torch
 
 from sustaingym_tpu_torch import make
+from sustaingym_tpu_torch.core import random_policy
 from sustaingym_tpu_torch.ops.cuda import cogen_rollout as KB
+from sustaingym_tpu_torch.ops.cuda import dc_rollout as K8
 from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
 from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
+from sustaingym_tpu_torch.ops.cuda import lp_solve as K9
 from sustaingym_tpu_torch.parallel import init_policy
 
 pytestmark = pytest.mark.gpu
@@ -172,3 +175,103 @@ def test_cogen_fused_rollout_on_card(cuda):
     assert roll.reward.shape == (98, 512)
     assert bool(torch.isfinite(roll.reward).all())
     assert bool(roll.obs["Time"][95].eq(0).all())
+
+
+@pytest.mark.parametrize("batch", [300, 37])
+def test_dc_segment_kernel_bit_equal(cuda, batch):
+    """Prescribed VCCs (some outside [0, 1], which both clip), then RNG mode
+    with the plain version replaying the kernel's VCC row: every row bit
+    for bit, over a whole 672-hour episode; a batch of 37 fills no CTA."""
+    _, p = make("datacenter", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    T = 672
+    months = torch.randint(p.n_months, (batch,), generator=g, device=cuda)
+    acts = torch.rand((T, batch), generator=g, device=cuda) * 1.2 - 0.1
+    before = K8.dc_segment.launches
+    ko = K8.dc_segment(p, months, T, actions=acts)
+    torch.cuda.synchronize()
+    assert K8.dc_segment.launches == before + 1
+    assert torch.equal(ko, K8.dc_segment_ref(p, months, T, actions=acts))
+    ko = K8.dc_segment(p, months, T, seed=5)
+    a = ko[0].contiguous()
+    assert torch.equal(ko, K8.dc_segment_ref(p, months, T, actions=a))
+    assert 0.0 <= float(a.min()) and float(a.max()) < 1.0
+    with pytest.raises(ValueError):
+        K8.dc_segment(p, months + p.n_months, T)
+
+
+def test_dc_fused_rollout_on_card(cuda):
+    """The simulation tier launches the gather and the episode kernel once
+    per episode; across the boundary the obs splice in the next reset."""
+    env, p = make("datacenter", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    counts = (KA.episode_slice_gather.launches, K8.dc_segment.launches)
+    roll = env.fused_rollout(p, 512, 674, generator=g)
+    assert (KA.episode_slice_gather.launches - counts[0],
+            K8.dc_segment.launches - counts[1]) == (2, 2)
+    assert roll.reward.shape == (674, 512) and roll.obs.shape == (674, 512, 27)
+    assert bool(torch.isfinite(roll.reward).all())
+    assert bool(roll.terminated[671].all()) and not roll.terminated[672:].any()
+
+
+def _market_problem(p, batch, seed):
+    """Problem data and warm starts drawn as tests/test_ops_pallas.py
+    draws them."""
+    rng = np.random.default_rng(seed)
+    n, me, ms = p.op.n, p.op.me, p.op.ms
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=p.device)
+
+    return (t(rng.uniform(-50, 50, (batch, n))),
+            t(rng.uniform(100, 2000, (batch, me))),
+            t(rng.uniform(10, 500, (batch, ms))),
+            t(rng.uniform(10, 500, (batch, ms))),
+            t(rng.uniform(0, 1, (batch, n))), t(rng.normal(0, 5, (batch, me))),
+            t(np.abs(rng.normal(0, 1, (batch, ms)))),
+            t(np.abs(rng.normal(0, 1, (batch, ms)))))
+
+
+@pytest.mark.parametrize("batch,per_env_ub", [(64, False), (37, True)])
+def test_pdhg_solve_paired_kernel_matches_plain(cuda, batch, per_env_ub):
+    """50 warm-started iterations on the SCED operator against the plain
+    version with the JAX package's bound for its kernel against its solver
+    (rtol 1e-4 / atol 2e-3, tests/test_ops_pallas.py:512-517) on all but
+    1% of each output's entries, and max |d| within 1% of the output's
+    largest value: the kernel sums its float32 products in another order
+    than the plain version's matmul, which can flip the bf16 rounding of
+    an iterate (one bf16 step is 0.4%) that later iterations carry on. A
+    shared or per-env ub; zero iterations return the clipped start."""
+    _, p = make("electricitymarket", device=cuda)
+    kops = K9.pack_pdhg_operands(p.op)
+    c, b, hp, hm, x0, y0, zp0, zm0 = _market_problem(p, batch, 0)
+    ub = p.ub.expand(batch, -1).contiguous() if per_env_ub else p.ub
+    before = K9.pdhg_solve_paired.launches
+    got = K9.pdhg_solve_paired(kops, c, b, hp, hm, ub, x0, y0, zp0, zm0, 50)
+    torch.cuda.synchronize()
+    assert K9.pdhg_solve_paired.launches == before + 1
+    want = K9.pdhg_solve_paired_ref(kops, c, b, hp, hm, ub, x0, y0, zp0, zm0,
+                                    50)
+    for k, r in zip(got, want):
+        d = (k - r).abs()
+        assert float((d > 2e-3 + 1e-4 * r.abs()).float().mean()) <= 0.01
+        assert float(d.max()) <= 0.01 * float(r.abs().max())
+    x, y, zp, zm = K9.pdhg_solve_paired(kops, c, b, -hp, hm, ub, x0, -y0,
+                                        -zp0, zm0, 0)
+    assert torch.equal(x, torch.minimum(x0, ub)) and torch.equal(y, -y0)
+    assert torch.equal(zp, torch.zeros_like(zp)) and torch.equal(zm, zm0)
+
+
+def test_market_batch_unroll_on_card(cuda):
+    """The card's default market (bf16 products) solves every lockstep
+    step with one kernel launch; across the episode boundary the obs
+    splice in the next reset."""
+    env, p = make("electricitymarket", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    before = K9.pdhg_solve_paired.launches
+    roll = env.batch_unroll(p, random_policy(env, p, 64), None, 64, 290, g)
+    assert K9.pdhg_solve_paired.launches - before == 290
+    assert roll.reward.shape == (290, 64)
+    assert bool(torch.isfinite(roll.reward).all())
+    assert bool(roll.terminated[287].all())
+    assert bool(roll.obs["time"][287].eq(0).all())

@@ -219,18 +219,22 @@ def test_train_cli_refuses_missing_cuda(tmp_path):
                     "--log-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("name", ["evcharging", "cogen"])
+@pytest.mark.parametrize("name", ["evcharging", "cogen", "datacenter",
+                                  "electricitymarket"])
 def test_entry_points_default_to_the_card(name, tmp_path):
     """make(), make_params() and the CLI build on the card unless asked for
     the CPU; without a card the default raises instead of moving to the
     CPU."""
     from sustaingym_tpu_torch import train
-    from sustaingym_tpu_torch.envs import cogen, evcharging
+    from sustaingym_tpu_torch.envs import (cogen, datacenter,
+                                           electricitymarket, evcharging)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make(name)
+    envs = {"evcharging": evcharging, "cogen": cogen,
+            "datacenter": datacenter, "electricitymarket": electricitymarket}
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        {"evcharging": evcharging, "cogen": cogen}[name].make_params()
+        envs[name].make_params()
     with pytest.raises(SystemExit):
         train.main(["--env", name, "--obs-bf16", "--log-dir", str(tmp_path)])
