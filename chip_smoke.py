@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three slices through their public entry points, after
+Drives the port's four slices through their public entry points, after
 checking each hand-written kernel against its plain PyTorch version on the
 card. Slice 1, PPO on EVChargingEnv with the action projection on:
 
@@ -77,6 +77,31 @@ Slice 3, DataCenterEnv and ElectricityMarketEnv:
     launches, which its wrapper never separates by a host wait) and the
     plain warm solve.
 
+Slice 4, BuildingEnv, on a 6-zone office (one storey of a core and four
+perimeter zones under an attic) and a seeded hourly year in Tucson's range
+that ``write_building_tables`` writes, compiled by
+``generate_building_params`` (OfficeSmall U-factors; 105108 five-minute
+weather rows):
+
+15. ``building_segment`` vs its plain version, every TimeStep field, bit
+    for bit as the target and max |d| <= 1e-5 on zone temperatures and
+    rewards as the gate: 4096 x 288 on prescribed actions in [-ac, ac),
+    524288 x 288 in RNG mode with the plain version replaying the kernel's
+    recorded actions; the draws' a / ac mean 0 +- 0.002, in [-1, 1);
+16. ``building_policy_segment`` vs its plain version at 1024 x 288 and
+    8192 x 288, H = 256, on prescribed noise, with the JAX package's bounds
+    for its kernel (``tests/test_ops_pallas.py:461-478``); then N(0, 1)
+    draws with a zeroed mu and log sigma = 0: mean 0 +- 0.01, var 1 +-
+    0.01;
+17. the building main path with its counts from 0: the simulation tier
+    (``BuildingEnv.fused_rollout`` at 524288 x 288, finite rewards, done at
+    t = 287 only), two PPO train steps at 8192 x 288 (H = 256, 96
+    minibatches, 4 epochs, bf16 obs: the fused path) and one with float32
+    obs (the episodic path through ``batch_unroll`` and the gather), each
+    with its lr=0 step at 1024 envs; then both kernels timed (CUDA events
+    over back-to-back launches of their C entry points, which no host wait
+    separates), the whole simulation-tier call and the plain versions.
+
 ``python3 chip_smoke.py --profile`` adds each trainer's phases (rollout,
 re-scoring + GAE, minibatch updates) on the host clock with
 ``torch.cuda.synchronize()`` between them, and the device's busy time over
@@ -84,7 +109,8 @@ one whole train step from ``torch.profiler``.
 
 Every phase raises on failure (exit code 1). The line before the last is
 a JSON object with, for each kernel, its launches in its slice's main-path
-run (phases 5-6, 10, 12 and 14; the slice gather's in 10 and 12), its
+run (phases 5-6, 10, 12, 14 and 17; the slice gather's in 10, 12 and 17),
+its
 largest difference from the plain version,
 its time, the plain version's and the library call's, and its bound (the
 least time the card could take: the larger of its bytes over the memory
@@ -108,6 +134,7 @@ CHECK_BATCH = 1024
 COGEN_SIM, COGEN_TRAIN, COGEN_STEPS, COGEN_CHECK = 262144, 8192, 96, 4096
 DC_SIM, DC_TRAIN, DC_STEPS, DC_CHECK = 262144, 4096, 672, 4096
 MKT_BATCH, MKT_STEPS = 4096, 288
+BLD_SIM, BLD_CHECK = 524288, 4096
 # NVIDIA H100 SXM peaks (data sheet, dense, 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -115,6 +142,97 @@ PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 def fail(msg: str):
     raise RuntimeError(msg)
+
+
+# The synthetic building: one storey of an office, a 27.69 m x 18.46 m
+# footprint 3.05 m high, cut into a core (x 3.73-23.96, y 3.73-14.73) and
+# four perimeter zones 3.73 m deep (south and north span the whole x
+# range, east and west the whole y range, as EnergyPlus reports a
+# trapezoidal zone's bounding box), under an attic over the whole
+# footprint (z 3.05-4.88). Per zone: (name, z origin, x min, x max, y min,
+# y max, z min, z max, floor area m^2, exterior gross wall or roof area
+# m^2, window area m^2).
+BUILDING_ZONES = (
+    ("CORE_ZN", 0.0, 3.73, 23.96, 3.73, 14.73, 0.0, 3.05, 222.53, 0.0, 0.0),
+    ("PERIMETER_ZN_1", 0.0, 0.0, 27.69, 0.0, 3.73, 0.0, 3.05, 89.37, 84.45,
+     20.64),
+    ("PERIMETER_ZN_2", 0.0, 23.96, 27.69, 0.0, 18.46, 0.0, 3.05, 54.86,
+     56.30, 11.61),
+    ("PERIMETER_ZN_3", 0.0, 0.0, 27.69, 14.73, 18.46, 0.0, 3.05, 89.37,
+     84.45, 16.51),
+    ("PERIMETER_ZN_4", 0.0, 0.0, 3.73, 0.0, 18.46, 0.0, 3.05, 54.86, 56.30,
+     11.61),
+    ("ATTIC", 3.05, 0.0, 27.69, 0.0, 18.46, 3.05, 4.88, 511.16, 568.12, 0.0),
+)
+
+
+def write_building_tables(dirpath: str, seed: int = 0) -> tuple[str, str]:
+    """Writes the building's zone table and a year of hourly weather into
+    ``dirpath``, in the formats BuildingEnv reads, and returns their file
+    names (htm, epw):
+
+    - ``office_small.table.htm``: an EnergyPlus tabular HTM "Zone
+      Information" table of ``BUILDING_ZONES`` (6 zones: the storey's five
+      and the attic), each value a ``<td>`` line at its field's offset of
+      the table's 32-line zone record;
+    - ``tucson_synthetic.epw``: 8 header rows and 8760 hourly records of a
+      year in Tucson's range, drawn from ``seed``: dry bulb (field 6) with
+      a seasonal cycle (monthly means 11-31 C), a daily one (amplitude
+      6-9 C, peak at 15:00) and noise; global horizontal irradiance
+      (field 13) from the sun's elevation at 32.1 N, scaled by drawn cloud
+      cover and zero at night.
+    """
+    # line offsets after the table's heading line of each field of zone 0;
+    # zone k's are 32 k lines further
+    offsets = (35, 42, 46, 47, 48, 49, 50, 51, 56, 58, 59)
+    cell = '    <td align="right">'          # 22 characters before a value
+    values = {}
+    for k, zone in enumerate(BUILDING_ZONES):
+        for off, value in zip(offsets, zone):
+            text = value if isinstance(value, str) else f"{value:.2f}"
+            values[off + 32 * k] = f"{cell}{text}</td>\n"
+    lines = ["<html><body>\n", "<b>Zone Information</b><br><br>\n"]
+    lines += [values.get(rel, "    <td>&nbsp;</td>\n")
+              for rel in range(1, max(values) + 1)]
+    lines += ["<b>Zone Internal Gains Nominal</b>\n", "</body></html>\n"]
+    htm = "office_small.table.htm"
+    with open(os.path.join(dirpath, htm), "w") as f:
+        f.writelines(lines)
+
+    rng = np.random.default_rng(seed)
+    hours = np.arange(8760)
+    doy, hod = hours // 24, hours % 24
+    season = -np.cos(2 * np.pi * (doy - 15) / 365.0)      # -1 mid-January
+    daily = np.cos(2 * np.pi * (hod - 15) / 24.0)         # +1 at 15:00
+    temp = (21.0 + 10.0 * season + (7.5 + 1.5 * season) * daily
+            + rng.normal(0.0, 1.2, 8760))
+    decl = np.radians(23.44) * np.sin(2 * np.pi * (284 + doy) / 365.0)
+    lat, omega = np.radians(32.1), np.radians(15.0 * (hod + 0.5 - 12.0))
+    sin_elev = (np.sin(lat) * np.sin(decl)
+                + np.cos(lat) * np.cos(decl) * np.cos(omega))
+    clouds = rng.uniform(0.55, 1.0, 366)[doy]
+    ghi = np.rint(1050.0 * np.clip(sin_elev, 0.0, None) ** 1.15 * clouds)
+    header = ["LOCATION,Tucson Synthetic,AZ,USA,TMY3,722745,32.13,-110.95,"
+              "-7.0,779.0\n",
+              "DESIGN CONDITIONS,0\n", "TYPICAL/EXTREME PERIODS,0\n",
+              "GROUND TEMPERATURES,0\n",
+              "HOLIDAYS/DAYLIGHT SAVINGS,No,0,0,0\n",
+              f"COMMENTS 1,synthetic year drawn from seed {seed}\n",
+              "COMMENTS 2,\n", "DATA PERIODS,1,1,Data,Sunday, 1/ 1,12/31\n"]
+    month_starts = np.cumsum([0, 31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30])
+    records = []
+    for h in range(8760):
+        month = int(np.searchsorted(month_starts, doy[h], side="right"))
+        day = int(doy[h] - month_starts[month - 1]) + 1
+        records.append(
+            f"1990,{month},{day},{hod[h] + 1},60,?9?9?9?9E0?9?9?9?9?9?9?9?9?9"
+            f"?9?9?9?9?9*9*9,{temp[h]:.1f},{temp[h] - 15.0:.1f},25,92500,0,"
+            f"0,300,{int(ghi[h])},{int(0.8 * ghi[h])},{int(0.2 * ghi[h])},0,"
+            f"0,0,0,0,0,0,0,0,0,0,0,0,0.1,0,0,0,0,0\n")
+    epw = "tucson_synthetic.epw"
+    with open(os.path.join(dirpath, epw), "w") as f:
+        f.writelines(header + records)
+    return htm, epw
 
 
 def card_line() -> str:
@@ -140,11 +258,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time per call of the CUDA kernel whose name holds
+    """Mean device time per launch of the CUDA kernel whose name holds
     ``kernel``, launched once per call of ``fn``, from ``torch.profiler``
     over ``reps`` calls after one warm-up call: the kernel alone, without
-    the host time of its wrapper's checks. Fails unless the trace holds
-    every launch."""
+    the host time of its wrapper's checks. The trace can lose launches (it
+    did on an H100, late in a process that had traced before); a launch it
+    records carries its whole device time, so the mean is over the
+    launches the trace holds, which must be at least half of them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -165,9 +285,11 @@ def device_ms(fn, kernel: str, reps: int) -> float:
               if e.device_type == DeviceType.CUDA and kernel in e.key]
     count = sum(e.count for e in events)
     if count != reps:
-        fail(f"the profiler saw {count} launches of {kernel} in {reps} "
-             f"calls")
-    return sum(_dev_us(e) for e in events) / reps / 1e3
+        print(f"device_ms: the trace holds {count} of {reps} launches of "
+              f"{kernel}", flush=True)
+    if 2 * count < reps:
+        fail(f"the profiler lost most launches of {kernel}")
+    return sum(_dev_us(e) for e in events) / count / 1e3
 
 
 def _dev_us(e) -> float:
@@ -292,17 +414,18 @@ def profile_train_step(train_step, carry, generator, cfg, tag: str):
               f"{e.key[:90]}")
 
 
-def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str):
-    """Two PPO train steps at ``cfg`` (host clock, synchronised around
-    each), then the lr=0 exact-ratio check at ``cfg0`` (|pg_loss| < 1e-5).
-    Returns (train_step, carry, generator)."""
+def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
+                steps: int = 2):
+    """``steps`` PPO train steps at ``cfg`` (host clock, synchronised
+    around each), then the lr=0 exact-ratio check at ``cfg0`` (|pg_loss| <
+    1e-5). Returns (train_step, carry, generator)."""
     import torch
     from sustaingym_tpu_torch.parallel import make_train_step
     init_state, train_step = make_train_step(env, p, cfg)
     tgen = torch.Generator(device=p.device).manual_seed(seed)
     carry = init_state(tgen)
-    steps = cfg.num_envs * env.episode_steps(p)
-    for i in range(2):
+    env_steps = cfg.num_envs * env.episode_steps(p)
+    for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry, metrics = train_step(carry, tgen)
@@ -311,7 +434,7 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str):
         m = {key: float(v) for key, v in metrics.items()}
         if not all(np.isfinite(v) for v in m.values()):
             fail(f"{label} train step {i}: non-finite metrics {m}")
-        print(f"{label} train step {i}: {dt:.3f} s = {steps / dt:.0f} "
+        print(f"{label} train step {i}: {dt:.3f} s = {env_steps / dt:.0f} "
               f"env-steps/s; {json.dumps(m)} {tag}", flush=True)
     init0, step0 = make_train_step(env, p, cfg0)
     _, m0 = step0(init0(tgen), tgen)
@@ -856,6 +979,240 @@ def market_slice(tag: str, want_profile: bool) -> list:
     ]
 
 
+BUILDING_FIELDS = ("obs", "zone_temperature", "reward", "comfort_level",
+                   "power_consumption")
+
+
+def check_building(case: str, ko: dict, ro: dict, tag: str) -> float:
+    """``building_segment`` against its plain version: bit-equality is the
+    target; the gate is max |d| <= 1e-5 on zone temperatures and rewards
+    (and every field finite). Returns the largest |d| over the fields."""
+    import torch
+    d = {k: float((ko[k] - ro[k]).abs().max()) for k in BUILDING_FIELDS}
+    equal = all(torch.equal(ko[k], ro[k]) for k in BUILDING_FIELDS)
+    print(f"building_segment {case}: max|d| per field {d}; bit-equal "
+          f"{equal} {tag}", flush=True)
+    if not (d["zone_temperature"] <= 1e-5 and d["reward"] <= 1e-5
+            and all(bool(torch.isfinite(ko[k]).all())
+                    for k in BUILDING_FIELDS)):
+        fail(f"building_segment {case}: off its plain version")
+    return max(d.values())
+
+
+def check_building_policy(case: str, n: int, kernel, plain, tag: str
+                          ) -> float:
+    """``building_policy_segment`` against its plain version with the JAX
+    package's bounds for its kernel (``tests/test_ops_pallas.py:461-478``):
+    over the first 32 steps q99 |d| < 0.05 for zone temperatures and u and
+    < 0.02 for the reward; over the episode |d| of the reward's mean
+    < 5e-3 and of its std < 2e-2. Returns max |d reward|."""
+    (ko, kl), (ro, rl) = kernel, plain
+    kl, rl = kl.float(), rl.float()
+    dx = q((kl[:32, :, :n] - rl[:32, :, :n]).abs(), 0.99)
+    du = q((kl[:32, :, n + 4:] - rl[:32, :, n + 4:]).abs(), 0.99)
+    dr = (ko[..., 0] - ro[..., 0]).abs()
+    dr32 = q(dr[:32], 0.99)
+    dmean = abs(float(ko[..., 0].mean() - ro[..., 0].mean()))
+    dstd = abs(float(ko[..., 0].std() - ro[..., 0].std()))
+    print(f"building_policy_segment {case}: first 32 steps q99 |d| temps "
+          f"{dx:.3e} u {du:.3e} reward {dr32:.3e}; episode reward max|d| "
+          f"{float(dr.max()):.3e}, |d mean| {dmean:.3e}, |d std| {dstd:.3e} "
+          f"{tag}", flush=True)
+    if not (dx < 0.05 and du < 0.05 and dr32 < 0.02 and dmean < 5e-3
+            and dstd < 2e-2):
+        fail(f"building_policy_segment {case}: outside the JAX bounds")
+    return float(dr.max())
+
+
+def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
+    """Phases 15-17 (module docstring); returns the two kernels' entries of
+    the ``kernels`` line and the slice-gather launches of its main path."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sustaingym_tpu_torch.envs import building
+    from sustaingym_tpu_torch.ops.cuda import building_rollout as K5
+    from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
+    from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
+    from sustaingym_tpu_torch.ops.cuda.wrap import bind, raise_on
+    from sustaingym_tpu_torch.parallel import PPOConfig, init_policy
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    tables = tempfile.mkdtemp(prefix="building_tables_")
+    try:
+        htm, epw = write_building_tables(tables)
+        env, p = building.make_env(
+            htm, epw, "Tucson", device=dev, root=tables,
+            u_wall=building.BUILDINGS["OfficeSmall"][1])
+    finally:
+        shutil.rmtree(tables)
+    n, T, B = p.n, p.episode_len, BLD_SIM
+    print(f"building: {n} zones, operator {tuple(p.BD_d.shape)}, "
+          f"{p.length_of_weather} weather rows {tag}", flush=True)
+
+    # ---- 15. building_segment vs plain -----------------------------------
+    epochs = torch.randint(p.length_of_weather - 1, (BLD_CHECK,),
+                           generator=gen, device=dev)
+    acts = (torch.rand((T, BLD_CHECK, n), generator=gen, device=dev) * 2
+            - 1) * p.ac_map
+    seg_err = check_building(
+        f"{BLD_CHECK}x{T} prescribed actions in [-ac, ac)",
+        K5.building_segment(p, epochs, T, actions=acts),
+        K5.building_segment_ref(p, epochs, T, actions=acts), tag)
+    epochs = torch.randint(p.length_of_weather - 1, (B,), generator=gen,
+                           device=dev)
+    ko = K5.building_segment(p, epochs, T, seed=62, record_actions=True)
+    a = ko.pop("actions")
+    seg_err = max(seg_err, check_building(
+        f"{B}x{T} in-kernel draws", ko,
+        K5.building_segment_ref(p, epochs, T, actions=a), tag))
+    del ko
+    r = a / p.ac_map
+    r_mean, r_min, r_max = float(r.mean()), float(r.min()), float(r.max())
+    print(f"building draws: {r.numel()} actions / ac mean {r_mean:.6f} min "
+          f"{r_min:.6f} max {r_max:.6f} {tag}", flush=True)
+    if not (abs(r_mean) <= 0.002 and r_min >= -1.0 and r_max < 1.0):
+        fail("building in-kernel draws off")
+    del a, r
+
+    # ---- 16. building_policy_segment vs plain ------------------------------
+    pol_err = 0.0
+    for batch in (CHECK_BATCH, TRAIN_ENVS):
+        w = K.pack_policy_weights(init_policy(
+            n + 4, n, HIDDEN, torch.Generator().manual_seed(batch), dev))
+        e = torch.randint(p.length_of_weather - 1, (batch,), generator=gen,
+                          device=dev)
+        noise = torch.randn((T, batch, n), generator=gen, device=dev)
+        pol_err = max(pol_err, check_building_policy(
+            f"{batch}x{T} H={HIDDEN}", n,
+            K5.building_policy_segment(p, w, e, T, noise=noise),
+            K5.building_policy_segment_ref(p, w, e, T, noise=noise), tag))
+    del noise
+    zero = init_policy(n + 4, n, HIDDEN, torch.Generator().manual_seed(63),
+                       dev)
+    with torch.no_grad():
+        zero.mu.weight.zero_()
+        zero.log_std.zero_()
+    _, lrn = K5.building_policy_segment(
+        p, K.pack_policy_weights(zero), e[:CHECK_BATCH], T, seed=64)
+    z = lrn[..., n + 4:].float()                 # u = 0 + 1 * N(0, 1), bf16
+    z_mean, z_var = float(z.mean()), float(z.var())
+    print(f"building normal draws: {z.numel()} mean {z_mean:.6f} var "
+          f"{z_var:.6f} {tag}", flush=True)
+    if not (abs(z_mean) < 0.01 and abs(z_var - 1.0) < 0.01):
+        fail("building normal draws off")
+    del lrn, z
+
+    # ---- 17. the building main path: counts from 0 -------------------------
+    KA.episode_slice_gather.launches = 0
+    K5.building_segment.launches = 0
+    K5.building_policy_segment.launches = 0
+    sim_gen = torch.Generator(device=dev).manual_seed(65)
+    roll = env.fused_rollout(p, B, T, generator=sim_gen)
+    if roll.reward.shape != (T, B) or roll.obs.shape != (T, B, n + 4) \
+            or not bool(torch.isfinite(roll.reward).all()) \
+            or not bool(roll.terminated[T - 1].all()) \
+            or bool(roll.terminated[:T - 1].any()):
+        fail("building simulation tier: bad rewards, obs or done")
+    mean_reward = float(roll.reward.mean())
+    del roll
+    trainers = {}
+    for label, bf16, steps in (("building fused", True, 2),
+                               ("building episodic", False, 1)):
+        cfg = PPOConfig(num_envs=TRAIN_ENVS, hidden=HIDDEN, minibatches=96,
+                        epochs=4, obs_bf16=bf16)
+        trainers[label] = (cfg, run_trainer(
+            label, env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
+                                          minibatches=4, epochs=1, lr=0.0,
+                                          obs_bf16=bf16), 66, tag, steps))
+    launches = {"episode_slice_gather": KA.episode_slice_gather.launches,
+                "building_segment": K5.building_segment.launches,
+                "building_policy_segment":
+                    K5.building_policy_segment.launches}
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the building main path never launched: "
+             f"{launches}")
+    if want_profile:
+        for cfg, (train_step, carry, tgen) in trainers.values():
+            profile_train_step(train_step, carry, tgen, cfg, tag)
+    del trainers
+
+    # device time by CUDA events over back-to-back launches of the kernels'
+    # C entry points into outputs allocated once: the wrappers' range
+    # checks wait on the host, and the profiler's trace lost some of these
+    # launches
+    lib = bind("building_rollout", K5._SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    m = K5._operator(p)
+    sim_out = K5._outputs(n, B, T, dev, False)
+    seg_args = (K5._env_args(p, m, epochs, T, "building_segment")
+                + [None, 67] + [sim_out[k].data_ptr() for k in BUILDING_FIELDS]
+                + [None, stream])
+    seg_ms = cuda_ms(lambda: raise_on(lib.building_segment_launch(*seg_args),
+                                      "building_segment"), 5)
+    del sim_out
+    seg_plain_ms = cuda_ms(lambda: K5.building_segment_ref(p, epochs, T,
+                                                           seed=67), 1)
+    sim_ms = cuda_ms(lambda: env.fused_rollout(p, B, T, generator=sim_gen), 2)
+    seg_bound = bound(4 * (2 * n + 7) * T * B + nbytes(p.exog, epochs),
+                      f32_ops=K5.ops_per_step(n) * T * B)
+    steps = B * T
+    print(f"building simulation tier {B}x{T}: whole fused_rollout call "
+          f"{sim_ms:.3f} ms = {steps / sim_ms * 1e3:.0f} env-steps/s; "
+          f"building_segment kernel {seg_ms:.4f} ms (CUDA events) = "
+          f"{steps / seg_ms * 1e3:.0f} env-steps/s, bound "
+          f"{seg_bound[0]:.4f} ms ({seg_bound[1]}); plain {seg_plain_ms:.3f} "
+          f"ms; mean reward {mean_reward:.6f}; launches {launches} {tag}",
+          flush=True)
+    w = K.pack_policy_weights(init_policy(
+        n + 4, n, HIDDEN, torch.Generator().manual_seed(68), dev))
+    e = epochs[:TRAIN_ENVS]
+    pol_out = torch.empty((T, TRAIN_ENVS, 3), device=dev)
+    pol_lrn = torch.empty((T, TRAIN_ENVS, 2 * n + 4), dtype=torch.bfloat16,
+                          device=dev)
+    pol_args = (K5._env_args(p, m, e, T, "building_policy_segment")
+                + [x.data_ptr() for x in (w.w1, w.b1, w.w2, w.b2, w.wm, w.bm,
+                                          w.sigma)]
+                + [HIDDEN, None, 69, pol_out.data_ptr(), pol_lrn.data_ptr(),
+                   stream])
+    pol_ms = cuda_ms(lambda: raise_on(
+        lib.building_policy_segment_launch(*pol_args),
+        "building_policy_segment"), 3)
+    del pol_out, pol_lrn
+    pol_plain_ms = cuda_ms(lambda: K5.building_policy_segment_ref(
+        p, w, e, T, seed=69), 1)
+    D = n + 4
+    pol_flops = TRAIN_ENVS * T * 2 * (D * HIDDEN + HIDDEN * HIDDEN
+                                      + HIDDEN * n)
+    pol_bound = bound(
+        nbytes(p.exog, e, *w.__dict__.values())
+        + TRAIN_ENVS * T * (4 * 3 + 2 * (2 * n + 4)),
+        f32_ops=TRAIN_ENVS * T * K5.ops_per_step(n), bf16_ops=pol_flops)
+    print(f"building_policy_segment {TRAIN_ENVS}x{T} H={HIDDEN}: kernel "
+          f"{pol_ms:.3f} ms (CUDA events) = {pol_flops / pol_ms / 1e9:.3f} "
+          f"TFLOP/s in the actor, bound {pol_bound[0]:.4f} ms "
+          f"({pol_bound[1]}, the actor at the bf16 peak; "
+          f"{pol_flops / PEAK_F32 * 1e3:.3f} ms at the f32 peak); plain "
+          f"{pol_plain_ms:.3f} ms {tag}", flush=True)
+    src = "sustaingym_tpu_torch/ops/cuda/csrc/building_rollout.cu"
+    return [
+        {"name": "building_segment", "route": "cuda", "source": src,
+         "replaces": "sustaingym_tpu/ops/pallas/building_rollout.py:143",
+         "launches": launches["building_segment"], "max_abs_err": seg_err,
+         "ms": seg_ms, "plain_ms": seg_plain_ms, "bound_ms": seg_bound[0],
+         "bound_by": seg_bound[1], "library_ms": None},
+        {"name": "building_policy_segment", "route": "cuda", "source": src,
+         "replaces": "sustaingym_tpu/ops/pallas/building_rollout.py:348",
+         "launches": launches["building_policy_segment"],
+         "max_abs_err": pol_err, "ms": pol_ms, "plain_ms": pol_plain_ms,
+         "bound_ms": pol_bound[0], "bound_by": pol_bound[1],
+         "library_ms": None},
+    ], launches["episode_slice_gather"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -882,7 +1239,7 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("ev_rollout", "exog_gather", "cogen_rollout", "dc_rollout",
-               "lp_solve")
+               "lp_solve", "building_rollout")
     build.load_libraries(sources, verbose=True)
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.3f} s {tag}", flush=True)
@@ -1051,6 +1408,9 @@ def main() -> int:
     kernels[2]["launches"] += dc_gathers     # the gather serves both slices
     kernels += dc_kernels
     kernels += market_slice(tag, want_profile)
+    bld_kernels, bld_gathers = building_slice(tag, want_profile)
+    kernels[2]["launches"] += bld_gathers
+    kernels += bld_kernels
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

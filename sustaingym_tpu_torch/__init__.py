@@ -1,8 +1,10 @@
-"""SustainGym on PyTorch + CUDA: the EV-charging, cogeneration, datacenter
-and electricity-market paths of ``sustaingym_tpu`` ported to PyTorch, with
-their TPU kernels written by hand for Hopper (``ops/cuda/csrc/``): the EV
-episode kernels, the episode slice-gather, the cogen and datacenter episode
-kernels and the whole-solve PDHG kernel of the market's SCED clearing.
+"""SustainGym on PyTorch + CUDA: the EV-charging, building, cogeneration,
+datacenter and electricity-market paths of ``sustaingym_tpu`` ported to
+PyTorch, with their TPU kernels written by hand for Hopper
+(``ops/cuda/csrc/``): the EV and building episode kernels with and without
+the PPO actor inside, the episode slice-gather, the cogen and datacenter
+episode kernels and the whole-solve PDHG kernel of the market's SCED
+clearing.
 
 The JAX package ``sustaingym_tpu`` is the reference; this package imports
 neither it nor JAX. The packed data files are read from
@@ -39,9 +41,10 @@ def register(name: str, factory) -> None:
 
 def make(name: str, **kwargs):
     """Creates (env, params) for a registered environment. Registered
-    names: 'evcharging', 'cogen', 'datacenter' and 'electricitymarket'
-    (building is not ported yet). ``kwargs`` go to the env's
-    ``make_params``."""
+    names: 'evcharging', 'building', 'cogen', 'datacenter' and
+    'electricitymarket'. ``kwargs`` go to the env's ``make_env``
+    (``building`` reads the raw ASHRAE HTM and TMY3 EPW tables; see
+    ``envs/building``)."""
     if not _REGISTRY:
         _populate_registry()
     if name not in _REGISTRY:
@@ -50,8 +53,10 @@ def make(name: str, **kwargs):
 
 
 def _populate_registry() -> None:
-    from .envs import cogen, datacenter, electricitymarket, evcharging
+    from .envs import building, cogen, datacenter, electricitymarket, \
+        evcharging
     register("evcharging", evcharging.make_env)
+    register("building", building.make_env)
     register("cogen", cogen.make_env)
     register("datacenter", datacenter.make_env)
     register("electricitymarket", electricitymarket.make_env)

@@ -1,10 +1,11 @@
-"""Space descriptors: ``Box``, ``Discrete``, ``DictSpace``, ``flatdim`` and
-``flatten``.
+"""Space descriptors: ``Box``, ``Discrete``, ``MultiDiscrete``,
+``DictSpace``, ``flatdim`` and ``flatten``.
 
 Same semantics as ``sustaingym_tpu.core.spaces``: a ``DictSpace`` flattens
-its entries in insertion order (``gymnasium.spaces.flatten`` order) and a
-``Discrete`` point one-hot, so the flat observation layout, and with it the rows of a converted ``trunk1``
-weight, is the same in both packages.
+its entries in insertion order (``gymnasium.spaces.flatten`` order), a
+``Discrete`` point one-hot and a ``MultiDiscrete`` point one one-hot per
+dimension, so the flat observation layout, and with it the rows of a
+converted ``trunk1`` weight, is the same in both packages.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["Space", "Box", "Discrete", "DictSpace", "flatdim", "flatten"]
+__all__ = ["Space", "Box", "Discrete", "MultiDiscrete", "DictSpace",
+           "flatdim", "flatten"]
 
 
 class Space:
@@ -73,6 +75,30 @@ class Discrete(Space):
         return f"Discrete({self.n}, start={self.start})"
 
 
+class MultiDiscrete(Space):
+    """Independent integer dimensions, dimension i in {0, ..., nvec[i] - 1}."""
+
+    def __init__(self, nvec):
+        self.nvec = np.asarray(nvec, dtype=np.int64)
+        self.shape = self.nvec.shape
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        """One uniform point, int64, on the generator's device."""
+        return self.sample_batch(generator, 1)[0]
+
+    def sample_batch(self, generator: torch.Generator, batch: int
+                     ) -> torch.Tensor:
+        """(batch, *shape) points ``floor(u * nvec)``, u ~ U[0, 1) float32
+        from ``generator``, as the JAX package samples."""
+        dev = generator.device
+        u = torch.rand((batch,) + self.shape, generator=generator, device=dev)
+        nvec = torch.as_tensor(self.nvec, dtype=torch.float32, device=dev)
+        return torch.floor(u * nvec).long()
+
+    def __repr__(self) -> str:
+        return f"MultiDiscrete({self.nvec.tolist()})"
+
+
 class DictSpace(Space):
     """Ordered mapping of named sub-spaces."""
 
@@ -97,6 +123,8 @@ def flatdim(space: Space) -> int:
         return int(np.prod(space.shape, dtype=np.int64)) if space.shape else 1
     if isinstance(space, Discrete):
         return space.n                     # one-hot
+    if isinstance(space, MultiDiscrete):
+        return int(space.nvec.sum())       # one one-hot per dimension
     if isinstance(space, DictSpace):
         return sum(flatdim(sp) for sp in space.spaces.values())
     raise TypeError(f"unknown space {space}")
@@ -114,6 +142,12 @@ def flatten(space: Space, x: Any, batch_dims: int = 0) -> torch.Tensor:
         return torch.nn.functional.one_hot(
             x.reshape(x.shape[:batch_dims]) - space.start,
             space.n).to(torch.float32)
+    if isinstance(space, MultiDiscrete):
+        x = torch.as_tensor(x).long()
+        x = x.reshape(x.shape[:batch_dims] + (-1,))
+        return torch.cat([torch.nn.functional.one_hot(x[..., i], int(k))
+                          for i, k in enumerate(space.nvec.ravel())],
+                         dim=-1).to(torch.float32)
     if isinstance(space, DictSpace):
         return torch.cat([flatten(sp, x[name], batch_dims)
                           for name, sp in space.spaces.items()], dim=-1)

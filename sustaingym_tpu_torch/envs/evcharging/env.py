@@ -354,6 +354,11 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         from ...ops.cuda.ev_rollout import ev_fused_layout
         return ev_fused_layout(params.n_stations, params.moer_forecast_steps)
 
+    def fused_policy_unroll_supported(self, params: EVParams,
+                                      batch: int) -> bool:
+        """The policy kernel computes every EV configuration and batch."""
+        return True
+
     def fused_policy_unroll(self, params: EVParams, policy, batch: int,
                             num_steps: int, days=None,
                             generator: torch.Generator | None = None,

@@ -12,7 +12,8 @@ Flags: ``-O3 -gencode=arch=compute_90a,code=sm_90a``, and deliberately no
 IEEE ``tanhf``, ``sqrtf``, ``powf``, division and ``rintf``.
 ``cogen_rollout`` and ``dc_rollout`` also build with ``-fmad=false``, so
 their float32 arithmetic rounds after every operation as their plain
-versions' does.
+versions' does; ``building_rollout`` rounds its env step with ``__fmul_rn``
+/ ``__fadd_rn`` intrinsics instead and keeps the FMAs of its actor MLP.
 """
 from __future__ import annotations
 

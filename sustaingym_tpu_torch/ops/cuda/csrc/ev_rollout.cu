@@ -30,8 +30,9 @@
 //  * Policy kernel: a CTA owns a tile of kTile envs (one warp each). The obs
 //    and hidden tiles live in shared memory, so the bf16 weights are read
 //    from L2 once per tile per step, not once per env (~16x fewer bytes).
-//    The MLP is plain FMA loops; bf16 rounding happens exactly where the
-//    JAX kernel casts (obs, h1, h2), with f32 accumulation.
+//    The MLP (actor.cuh, shared with building_rollout.cu) is plain FMA
+//    loops; bf16 rounding happens exactly where the JAX kernel casts (obs,
+//    h1, h2), with f32 accumulation.
 //  * Random draws: counter-based Philox4x32-10 (philox.cuh) keyed by the
 //    caller's seed and counted by (lane, step, env, stream), so the draws do
 //    not depend on launch geometry.
@@ -42,6 +43,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "actor.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -61,10 +63,6 @@ constexpr double kMaxTimestep = 288.0;
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 struct Operators {
@@ -315,46 +313,6 @@ ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
   }
 }
 
-constexpr int kTile = 16;  // envs (= warps) per CTA in the policy kernel
-constexpr int kEpt = 8;    // envs per thread in the MLP loops
-
-struct Actor {
-  const __nv_bfloat16* w1;  // (D, H) = trunk1 (din, dout)
-  const float* b1;          // (H)
-  const __nv_bfloat16* w2;  // (H, H)
-  const float* b2;          // (H)
-  const __nv_bfloat16* wm;  // (H, n)
-  const float* bm;          // (n)
-  const float* sigma;       // (n) exp(log_std)
-  int D, H;
-};
-
-// out[e][j] = act(bias[j] + sum_i in[e][i] * w[i][j]) for the tile's envs;
-// `round` rounds the tanh output to bf16 (the next matmul's operand).
-__device__ void tile_dense(const float* in, int ld_in, int din,
-                           const __nv_bfloat16* __restrict__ w, int dout,
-                           const float* __restrict__ bias, float* out,
-                           int ld_out, bool act_tanh) {
-  for (int item = threadIdx.x; item < dout * (kTile / kEpt); item += blockDim.x) {
-    const int j = item % dout, g = item / dout;
-    const float* x = in + g * kEpt * ld_in;
-    float acc[kEpt];
-#pragma unroll
-    for (int q = 0; q < kEpt; ++q) acc[q] = 0.0f;
-    for (int i = 0; i < din; ++i) {
-      const float wv = __bfloat162float(w[(size_t)i * dout + j]);
-#pragma unroll
-      for (int q = 0; q < kEpt; ++q) acc[q] += x[q * ld_in + i] * wv;
-    }
-    const float b = bias[j];
-#pragma unroll
-    for (int q = 0; q < kEpt; ++q) {
-      const float v = acc[q] + b;
-      out[(g * kEpt + q) * ld_out + j] = act_tanh ? bf16_round(tanhf(v)) : v;
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kTile * 32)
 ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table,
                          int table_w, int rows_per_day,
@@ -418,11 +376,10 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
         z0 = L.v0 ? nz[L.s0] : 0.0f;
         z1 = L.v1 ? nz[L.s1] : 0.0f;
       } else {
-        // Box-Muller; log1p(-u1) keeps u1 = 0 finite
-        const uint4 r = philox4x32_10(make_uint4(L.lane, t, e, 1u), key);
-        const float tau = (float)(2.0 * 3.14159265358979323846);
-        z0 = sqrtf(-2.0f * log1pf(-uniform01(r.x))) * cosf(tau * uniform01(r.y));
-        z1 = sqrtf(-2.0f * log1pf(-uniform01(r.z))) * cosf(tau * uniform01(r.w));
+        const float2 z = box_muller(
+            philox4x32_10(make_uint4(L.lane, t, e, 1u), key));
+        z0 = z.x;
+        z1 = z.y;
       }
       float a0 = 0.0f, a1 = 0.0f;
       if (L.v0) {

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import resolve_device
 from .ppo import ActorCritic
 
 __all__ = ["from_jax", "to_jax"]
@@ -18,9 +19,11 @@ _DENSE = ("trunk1", "trunk2", "mu", "value")
 
 
 @torch.no_grad()
-def from_jax(tree: dict, device=None) -> ActorCritic:
-    """An ``ActorCritic`` holding the weights of a JAX policy tree of
-    array-likes (numpy arrays, or anything ``np.asarray`` reads)."""
+def from_jax(tree: dict, device="cuda") -> ActorCritic:
+    """An ``ActorCritic`` on ``device`` (the card unless the caller asks
+    for the CPU) holding the weights of a JAX policy tree of array-likes
+    (numpy arrays, or anything ``np.asarray`` reads)."""
+    device = resolve_device(device)
     w1 = np.asarray(tree["trunk1"]["w"])
     act_dim = np.asarray(tree["mu"]["w"]).shape[1]
     policy = ActorCritic(w1.shape[0], act_dim, w1.shape[1], device=device)

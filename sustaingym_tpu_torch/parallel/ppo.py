@@ -5,12 +5,13 @@ value) in one batched pass, GAE on ``reward * reward_scale``, and
 clipped-PPO epochs over ``torch.randperm`` minibatches of all T x B
 samples. The rollout goes one of two ways, as in the JAX package:
 
-- **fused** (EVChargingEnv with ``obs_bf16``): the actor runs inside the
-  env's policy-in-kernel rollout (``fused_policy_unroll``); the rollout and
-  the learner score the SAME bf16 obs with the same bf16 operands
+- **fused** (EVChargingEnv or BuildingEnv with ``obs_bf16``, in a
+  configuration its kernel computes): the actor runs inside the env's
+  policy-in-kernel rollout (``fused_policy_unroll``); the rollout and the
+  learner score the SAME bf16 obs with the same bf16 operands
   (:func:`policy_apply_bf16`);
-- **episodic** (an env with a lockstep ``batch_unroll``: CogenEnv,
-  DataCenterEnv, ElectricityMarketEnv): the
+- **episodic** (otherwise, an env with a lockstep ``batch_unroll``:
+  BuildingEnv, CogenEnv, DataCenterEnv, ElectricityMarketEnv): the
   sampling policy applies the f32 :func:`policy_apply` to the flat obs,
   draws a Gaussian ``u`` from the generator and squashes it into the Box
   action space; the obs it saw (bf16 if ``obs_bf16``) and ``u`` are
@@ -30,7 +31,7 @@ import warnings
 import torch
 from torch import nn
 
-from ..core import Discrete, dataclass, flatdim, flatten
+from ..core import Discrete, MultiDiscrete, dataclass, flatdim, flatten
 
 __all__ = ["PPOConfig", "ActorCritic", "init_policy", "policy_apply",
            "policy_apply_bf16", "default_act_transform", "gae", "loss_fn",
@@ -207,27 +208,31 @@ def make_train_step(env, env_params, cfg: PPOConfig):
     out``, ``score(policy, out) -> samples`` (re-scoring and GAE) and
     ``update(policy, opt, samples, generator) -> summed metrics``.
 
-    The rollout is the fused path when ``cfg.obs_bf16`` and the env has a
-    ``fused_policy_unroll``, else the episodic path when the env has a
-    lockstep ``batch_unroll`` (module docstring); anything else raises."""
-    fused = cfg.obs_bf16 and hasattr(env, "fused_policy_unroll")
-    if not fused and hasattr(env, "fused_policy_unroll"):
-        raise ValueError(
-            f"{type(env).__name__} with float32 obs needs its lockstep "
-            f"batch_unroll, which is not ported yet (ROADMAP Queue 1, 'EV "
-            f"lockstep rollouts'); set obs_bf16 for the fused "
-            f"policy-in-kernel path")
+    The rollout is the fused path when ``cfg.obs_bf16``, the env has a
+    ``fused_policy_unroll`` and ``env.fused_policy_unroll_supported(params,
+    num_envs)``; else the episodic path when the env has a lockstep
+    ``batch_unroll`` (module docstring); anything else raises."""
+    has_fused = hasattr(env, "fused_policy_unroll")
+    fused = (cfg.obs_bf16 and has_fused and env.fused_policy_unroll_supported(
+        env_params, cfg.num_envs))
     if not fused and not hasattr(env, "batch_unroll"):
+        if has_fused:
+            raise ValueError(
+                f"{type(env).__name__} with float32 obs needs its lockstep "
+                f"batch_unroll, which is not ported yet (ROADMAP Queue 1, "
+                f"'EV lockstep rollouts'); set obs_bf16 for the fused "
+                f"policy-in-kernel path")
         raise ValueError(
             "PPO in the port needs an env with a lockstep batch_unroll "
             "(episodic path) or a fused_policy_unroll (fused path, obs_bf16); "
             "the generic rollout is not ported yet (ROADMAP Queue 1, 'EV "
             "lockstep rollouts')")
-    if isinstance(env.action_space(env_params), Discrete):
+    if isinstance(env.action_space(env_params), (Discrete, MultiDiscrete)):
         raise ValueError(
-            f"{type(env).__name__} has a Discrete action space (the market's "
-            f"discrete=True), which needs the categorical PPO head; it is not "
-            f"ported yet (ROADMAP Queue 1, 'categorical PPO head')")
+            f"{type(env).__name__} has a discrete action space (the market's "
+            f"discrete=True, the building's is_continuous_action=False), "
+            f"which needs the categorical PPO head; it is not ported yet "
+            f"(ROADMAP Queue 1, 'categorical PPO head')")
     device = env_params.device
     ep_len = env.episode_steps(env_params)
     obs_space = env.observation_space(env_params)

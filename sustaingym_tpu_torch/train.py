@@ -1,8 +1,12 @@
-"""Training CLI of the PyTorch port: PPO on EVChargingEnv, CogenEnv,
-DataCenterEnv or ElectricityMarketEnv.
+"""Training CLI of the PyTorch port: PPO on EVChargingEnv, BuildingEnv,
+CogenEnv, DataCenterEnv or ElectricityMarketEnv.
 
     python -m sustaingym_tpu_torch.train --env evcharging --algo ppo \
         --num-envs 8192 --rollout-len 288 --minibatches 96 --obs-bf16
+    python -m sustaingym_tpu_torch.train --env building --num-envs 8192 \
+        --rollout-len 288 --minibatches 96 --obs-bf16 --env-kwargs \
+        '{"building": "office.htm", "weather": "tucson.epw", "root": "tables",
+          "u_wall": [6.299, 3.839, 0.514, 0.228, 4.488, 0.319, 2.615]}'
     python -m sustaingym_tpu_torch.train --env cogen --num-envs 8192 \
         --rollout-len 96 --minibatches 24
     python -m sustaingym_tpu_torch.train --env datacenter --num-envs 4096 \
@@ -55,11 +59,13 @@ def restore_checkpoint(path: str, carry: dict, generator) -> int:
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--env", default="evcharging",
-                        choices=["evcharging", "cogen", "datacenter",
-                                 "electricitymarket"])
+                        choices=["evcharging", "building", "cogen",
+                                 "datacenter", "electricitymarket"])
     parser.add_argument("--env-kwargs", default=None,
                         help="JSON dict forwarded to make(env, **kwargs), "
-                             "e.g. '{\"site\": \"jpl\"}'")
+                             "e.g. '{\"site\": \"jpl\"}'; building's "
+                             "default reads the raw OfficeSmall/Tucson "
+                             "tables")
     parser.add_argument("--algo", default="ppo", choices=["ppo"])
     parser.add_argument("--device", default="cuda",
                         help="torch device, e.g. cuda (default) or cpu")
@@ -67,7 +73,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--num-envs", type=int, default=1024)
     parser.add_argument("--rollout-len", type=int, default=None,
                         help="must equal the episode length (evcharging "
-                             "288, cogen 96, datacenter 672, "
+                             "288, building 288, cogen 96, datacenter 672, "
                              "electricitymarket 288; the default): each "
                              "rollout is one whole episode per env")
     parser.add_argument("--hidden", type=int, default=256)
@@ -80,8 +86,9 @@ def main(argv: list[str] | None = None) -> None:
                              "for cogen, 1.0 otherwise)")
     parser.add_argument("--obs-bf16", action="store_true",
                         help="store observations in bfloat16 (evcharging "
-                             "needs it: its fused rollout kernel writes a "
-                             "bf16 learner block)")
+                             "needs it; with it, evcharging and building "
+                             "train on the policy-in-kernel rollout, whose "
+                             "kernel writes a bf16 learner block)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--log-dir", default="runs/default")
     parser.add_argument("--save-every", type=int, default=10)

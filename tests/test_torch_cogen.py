@@ -288,7 +288,8 @@ def test_from_jax_cogen_policy_matches_jax():
     obs = rng.normal(0, 1, (32, 44)).astype(np.float32)
     jmu, jls, jv = jppo.policy_apply(jax.tree.map(jnp.asarray, tree),
                                      jnp.asarray(obs))
-    tmu, tls, tv = policy_apply(from_jax(tree), torch.from_numpy(obs))
+    tmu, tls, tv = policy_apply(from_jax(tree, device="cpu"),
+                                torch.from_numpy(obs))
     for t, j in ((tmu, jmu), (tls, jls), (tv, jv)):
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
                                    rtol=1e-5, atol=1e-5)

@@ -137,8 +137,8 @@ def test_ev_policy_segment_ref_matches_jax_reference(site):
     }
     days = rng.integers(0, tp.n_days, batch)
 
-    out = tenv.fused_policy_unroll(tp, from_jax(policy), batch, T,
-                                   days=torch.from_numpy(days),
+    out = tenv.fused_policy_unroll(tp, from_jax(policy, device="cpu"), batch,
+                                   T, days=torch.from_numpy(days),
                                    noise=torch.from_numpy(noise))
     lay = tenv.fused_layout(tp)
     assert lay == {"width": D + n, "obs_cols": D, "u_lo": D}

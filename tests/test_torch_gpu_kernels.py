@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of sustaingym_tpu_torch.ops.cuda
-(ev_rollout, exog_gather, cogen_rollout, dc_rollout, lp_solve) against
-their plain PyTorch versions on the card, at a small size. Marked ``gpu``;
-each test skips when no CUDA device is present. On a card:
+(ev_rollout, building_rollout, exog_gather, cogen_rollout, dc_rollout,
+lp_solve) against their plain PyTorch versions on the card, at a small
+size. Marked ``gpu``; each test skips when no CUDA device is present. On a
+card:
 
     python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu
 """
@@ -9,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from sustaingym_tpu_torch import make
 from sustaingym_tpu_torch.core import random_policy
+from sustaingym_tpu_torch.envs import building as tb
+from sustaingym_tpu_torch.ops.cuda import building_rollout as K5
 from sustaingym_tpu_torch.ops.cuda import cogen_rollout as KB
 from sustaingym_tpu_torch.ops.cuda import dc_rollout as K8
 from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
@@ -275,3 +279,99 @@ def test_market_batch_unroll_on_card(cuda):
     assert bool(torch.isfinite(roll.reward).all())
     assert bool(roll.terminated[287].all())
     assert bool(roll.obs["time"][287].eq(0).all())
+
+
+def _building(dev, tmp_path, **kw):
+    """BuildingEnv on the synthetic tables of chip_smoke.py (6 zones)."""
+    htm, epw = chip_smoke.write_building_tables(str(tmp_path))
+    return tb.make_env(htm, epw, "Tucson", device=dev, root=str(tmp_path),
+                       u_wall=tb.BUILDINGS["OfficeSmall"][1], **kw)
+
+
+@pytest.mark.parametrize("batch", [300, 37])
+def test_building_segment_kernel_bit_equal(cuda, tmp_path, batch):
+    """Prescribed actions, then RNG mode with the plain version replaying
+    the kernel's recorded actions: every TimeStep field bit for bit over a
+    whole 288-step episode, from epochs up to T - 2 (the padded rows); a
+    batch of 37 fills no CTA."""
+    _, p = _building(cuda, tmp_path)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    T, n = 288, p.n
+    epochs = torch.randint(p.length_of_weather - 1, (batch,), generator=g,
+                           device=cuda)
+    epochs[0] = p.length_of_weather - 2
+    acts = (torch.rand((T, batch, n), generator=g, device=cuda) * 2 - 1
+            ) * p.ac_map
+    before = K5.building_segment.launches
+    ko = K5.building_segment(p, epochs, T, actions=acts)
+    torch.cuda.synchronize()
+    assert K5.building_segment.launches == before + 1
+    ro = K5.building_segment_ref(p, epochs, T, actions=acts)
+    for k in ("obs", "zone_temperature", "reward", "comfort_level",
+              "power_consumption"):
+        assert torch.equal(ko[k], ro[k]), k
+    ko = K5.building_segment(p, epochs, T, seed=7, record_actions=True)
+    a = ko["actions"]
+    ro = K5.building_segment_ref(p, epochs, T, actions=a)
+    for k in ("obs", "zone_temperature", "reward", "comfort_level",
+              "power_consumption"):
+        assert torch.equal(ko[k], ro[k]), k
+    r = a / p.ac_map
+    assert -1.0 <= float(r.min()) and float(r.max()) < 1.0
+    with pytest.raises(ValueError):
+        K5.building_segment(p, epochs + p.length_of_weather, T)
+
+
+def test_building_policy_segment_kernel_matches_plain(cuda, tmp_path):
+    """Prescribed noise at H = 64 over a whole episode, with the JAX
+    package's bounds for its policy kernel (tests/test_ops_pallas.py:
+    461-478): per entry over the first 32 steps, reward statistics over the
+    episode."""
+    from sustaingym_tpu_torch.parallel import init_policy
+    _, p = _building(cuda, tmp_path)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, T, n, H = 300, 288, p.n, 64
+    w = K.pack_policy_weights(init_policy(n + 4, n, H, g, cuda))
+    epochs = torch.randint(p.length_of_weather - 1, (B,), generator=g,
+                           device=cuda)
+    noise = torch.randn((T, B, n), generator=g, device=cuda)
+    before = K5.building_policy_segment.launches
+    ko, kl = K5.building_policy_segment(p, w, epochs, T, noise=noise)
+    torch.cuda.synchronize()
+    assert K5.building_policy_segment.launches == before + 1
+    ro, rl = K5.building_policy_segment_ref(p, w, epochs, T, noise=noise)
+    kl, rl = kl.float(), rl.float()
+    assert torch.equal(kl[0, :, :n + 4], rl[0, :, :n + 4])   # the reset obs
+    for lo, hi in ((0, n), (n + 4, 2 * n + 4)):  # temps, u
+        d = (kl[:32, :, lo:hi] - rl[:32, :, lo:hi]).abs().cpu().numpy()
+        assert np.quantile(d, 0.99) < 0.05
+    dr = (ko[:32, :, 0] - ro[:32, :, 0]).abs().cpu().numpy()
+    assert np.quantile(dr, 0.99) < 0.02
+    assert abs(float(ko[..., 0].mean() - ro[..., 0].mean())) < 5e-3
+    assert abs(float(ko[..., 0].std() - ro[..., 0].std())) < 2e-2
+
+
+def test_building_fused_paths_on_card(cuda, tmp_path):
+    """The simulation tier launches the episode kernel once per episode
+    (the obs splice in the next reset at the boundary); PPO with bf16 obs
+    launches the policy kernel, with float32 obs the slice gather; lr=0
+    keeps every ratio at 1."""
+    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    env, p = _building(cuda, tmp_path)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    before = K5.building_segment.launches
+    roll = env.fused_rollout(p, 512, 290, generator=g)
+    assert K5.building_segment.launches - before == 2
+    assert roll.obs.shape == (290, 512, p.n + 4)
+    assert bool(torch.isfinite(roll.reward).all())
+    assert bool(roll.terminated[287].all()) and not roll.terminated[288:].any()
+    assert torch.equal(roll.obs[287, :, :p.n], p.target.expand(512, p.n))
+    for obs_bf16, kernel in ((True, K5.building_policy_segment),
+                             (False, KA.episode_slice_gather)):
+        cfg = PPOConfig(num_envs=256, hidden=64, minibatches=4, epochs=1,
+                        lr=0.0, obs_bf16=obs_bf16)
+        init_state, train_step = make_train_step(env, p, cfg)
+        before = kernel.launches
+        _, m = train_step(init_state(g), g)
+        assert kernel.launches - before == 1
+        assert abs(float(m["pg_loss"])) < 1e-5

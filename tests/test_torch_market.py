@@ -178,7 +178,8 @@ def test_batch_unroll_matches_generic(bf16):
 def _from_jax_policy(obs_dim, act_dim, hidden, seed):
     tree = jppo.init_policy(jax.random.PRNGKey(seed), obs_dim, act_dim,
                             hidden, dtype=jnp.float32)
-    return from_jax(jax.tree.map(lambda x: np.asarray(x, np.float32), tree))
+    return from_jax(jax.tree.map(lambda x: np.asarray(x, np.float32), tree),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("name,kwargs,obs_dim,act_dim", [

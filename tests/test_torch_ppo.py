@@ -38,7 +38,7 @@ def _jax_policy(seed=0):
 
 def test_convert_roundtrip():
     tree = _jax_policy()
-    policy = from_jax(tree)
+    policy = from_jax(tree, device="cpu")
     assert policy.trunk1.weight.shape == (H, D)
     back = to_jax(policy)
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
@@ -52,7 +52,8 @@ def test_policy_apply_and_logp_match_jax():
     u = rng.normal(0, 1, (32, N)).astype(np.float32)
     jmu, jls, jv = jppo.policy_apply(jax.tree.map(jnp.asarray, tree),
                                      jnp.asarray(obs))
-    tmu, tls, tv = policy_apply(from_jax(tree), torch.from_numpy(obs))
+    tmu, tls, tv = policy_apply(from_jax(tree, device="cpu"),
+                                torch.from_numpy(obs))
     for t, j in ((tmu, jmu), (tls, jls), (tv, jv)):
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
                                    rtol=1e-5, atol=1e-5)
@@ -119,13 +120,13 @@ def test_clip_adam_update_matches_optax(grad_scale):
     opt = optax.chain(optax.clip_by_global_norm(0.5), optax.adam(3e-4))
     jparams = jax.tree.map(jnp.asarray, tree)
     state = opt.init(jparams)
-    policy = from_jax(tree)
+    policy = from_jax(tree, device="cpu")
     topt = torch.optim.Adam(policy.parameters(), lr=3e-4, betas=(0.9, 0.999),
                             eps=1e-8)
     for g in grads:
         upd, state = opt.update(jax.tree.map(jnp.asarray, g), state, jparams)
         jparams = optax.apply_updates(jparams, upd)
-        gp = from_jax(g)
+        gp = from_jax(g, device="cpu")
         for p, q in zip(policy.parameters(), gp.parameters()):
             p.grad = q.detach().clone()
         tppo.clip_by_global_norm(policy.parameters(), 0.5)
@@ -182,6 +183,8 @@ def test_package_imports_no_jax():
             "ev_rollout, sustaingym_tpu_torch.ops.cuda.cogen_rollout, "
             "sustaingym_tpu_torch.ops.cuda.exog_gather, "
             "sustaingym_tpu_torch.ops.cuda.build, "
+            "sustaingym_tpu_torch.ops.cuda.building_rollout, "
+            "sustaingym_tpu_torch.envs.building, "
             "sustaingym_tpu_torch.core.rollout; "
             "sustaingym_tpu_torch.make('evcharging', device='cpu'); "
             "sustaingym_tpu_torch.make('cogen', device='cpu'); "
@@ -222,9 +225,9 @@ def test_train_cli_refuses_missing_cuda(tmp_path):
 @pytest.mark.parametrize("name", ["evcharging", "cogen", "datacenter",
                                   "electricitymarket"])
 def test_entry_points_default_to_the_card(name, tmp_path):
-    """make(), make_params() and the CLI build on the card unless asked for
-    the CPU; without a card the default raises instead of moving to the
-    CPU."""
+    """make(), make_params(), from_jax() and the CLI build on the card
+    unless asked for the CPU; without a card the default raises instead of
+    moving to the CPU."""
     from sustaingym_tpu_torch import train
     from sustaingym_tpu_torch.envs import (cogen, datacenter,
                                            electricitymarket, evcharging)
@@ -236,5 +239,7 @@ def test_entry_points_default_to_the_card(name, tmp_path):
             "datacenter": datacenter, "electricitymarket": electricitymarket}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         envs[name].make_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax(_jax_policy())
     with pytest.raises(SystemExit):
         train.main(["--env", name, "--obs-bf16", "--log-dir", str(tmp_path)])
