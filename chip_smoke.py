@@ -24,7 +24,11 @@ card. Slice 1, PPO on EVChargingEnv with the action projection on:
 6. trainer: two PPO train steps at 8192 envs x 288 steps, H = 256, bf16
    obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check; then
    the kernels' device time (``torch.profiler``), the whole
-   simulation-tier call and the plain versions (CUDA events).
+   simulation-tier call and the plain versions (CUDA events). Before the
+   main path, ``ev_policy_segment`` at 8192 x 288 is also timed with the
+   projection off (the actor / projection split), its CTAs resident per
+   SM are read, and the actor's three bf16 ``torch.matmul`` calls per step
+   over 288 steps are timed as a yardstick the port never calls.
 
 Slice 2, CogenEnv:
 
@@ -74,8 +78,10 @@ Slice 3, DataCenterEnv and ElectricityMarketEnv:
     step), two PPO train steps at 4096 x 288 (H = 256, 36 minibatches, 4
     epochs, f32 obs) and the lr=0 step at 1024 envs; then the kernel's
     time per warm and per cold solve (CUDA events over back-to-back
-    launches, which its wrapper never separates by a host wait) and the
-    plain warm solve.
+    launches, which its wrapper never separates by a host wait), the
+    plain warm solve, the kernel's CTAs resident per SM, and a warm solve's
+    products as 80 bf16 ``torch.matmul`` calls (K x-bar and K' w at B =
+    4096), a yardstick the port never calls.
 
 Slice 4, BuildingEnv, on a 6-zone office (one storey of a core and four
 perimeter zones under an attic) and a seeded hourly year in Tucson's range
@@ -108,10 +114,10 @@ re-scoring + GAE, minibatch updates) on the host clock with
 one whole train step from ``torch.profiler``.
 
 Every phase raises on failure (exit code 1). The line before the last is
-a JSON object with, for each kernel, its launches in its slice's main-path
-run (phases 5-6, 10, 12, 14 and 17; the slice gather's in 10, 12 and 17),
-its
-largest difference from the plain version,
+a JSON object with, for each TPU kernel's counterpart (the slice gather
+twice: it replaces both TPU gathers), its launches in its slice's
+main-path run (phases 5-6, 10, 12, 14 and 17; the slice gather's in 10, 12
+and 17), its largest difference from the plain version,
 its time, the plain version's and the library call's, and its bound (the
 least time the card could take: the larger of its bytes over the memory
 rate and its operations over the peak rate for their type); the last line
@@ -312,6 +318,11 @@ def bound(n_bytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def actor_bytes(w) -> int:
+    """Bytes of a packed actor's weights, biases and sigma, each once."""
+    return nbytes(w.w1, w.b1, w.w2, w.b2, w.wm, w.bm, w.sigma)
 
 
 FIELDS = ("reward", "profit", "carbon_cost", "excess_charge")
@@ -956,6 +967,16 @@ def market_slice(tag: str, want_profile: bool) -> list:
 
     warm_bound, cold_bound = (solve_bound(warm, "bf16_ops"),
                               solve_bound(cold, "bf16_ops"))
+    xbar = torch.randn((n, B), generator=gen, device=dev).bfloat16()
+    wpan = torch.randn((me + ms, B), generator=gen, device=dev).bfloat16()
+
+    def solve_products():
+        for _ in range(warm):
+            torch.matmul(kops.K, xbar)
+            torch.matmul(kops.K.t(), wpan)
+
+    products_ms = cuda_ms(solve_products, 3)
+    ctas, envs = K9.pdhg_occupancy(op)
     print(f"pdhg_solve_paired B={B}: warm solve ({warm} iterations) "
           f"{warm_ms:.4f} ms (CUDA events, back-to-back launches), bound "
           f"{warm_bound[0]:.4f} ms ({warm_bound[1]}, bf16 peak; "
@@ -963,7 +984,11 @@ def market_slice(tag: str, want_profile: bool) -> list:
           f"solve ({cold} iterations) {cold_ms:.4f} ms, bound "
           f"{cold_bound[0]:.4f} ms; plain warm solve {plain_ms:.3f} ms; "
           f"launches {per_episode} per {T}-step episode, {launches} on the "
-          f"main path {tag}", flush=True)
+          f"main path; {ctas} CTA(s) of {envs} envs resident per SM {tag}",
+          flush=True)
+    print(f"yardstick, not called by the port: a warm solve's products as "
+          f"{2 * warm} bf16 torch.matmul calls (K x-bar, K' w at B = {B}) "
+          f"{products_ms:.4f} ms (CUDA events) {tag}", flush=True)
     steps = B * T
     print(f"market simulation tier {B}x{T}: whole batch_unroll "
           f"{sim_s * 1e3:.1f} ms = {steps / sim_s:.0f} env-steps/s, of which "
@@ -1174,8 +1199,7 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     pol_lrn = torch.empty((T, TRAIN_ENVS, 2 * n + 4), dtype=torch.bfloat16,
                           device=dev)
     pol_args = (K5._env_args(p, m, e, T, "building_policy_segment")
-                + [x.data_ptr() for x in (w.w1, w.b1, w.w2, w.b2, w.wm, w.bm,
-                                          w.sigma)]
+                + K.policy_weight_args(w)
                 + [HIDDEN, None, 69, pol_out.data_ptr(), pol_lrn.data_ptr(),
                    stream])
     pol_ms = cuda_ms(lambda: raise_on(
@@ -1188,7 +1212,7 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     pol_flops = TRAIN_ENVS * T * 2 * (D * HIDDEN + HIDDEN * HIDDEN
                                       + HIDDEN * n)
     pol_bound = bound(
-        nbytes(p.exog, e, *w.__dict__.values())
+        nbytes(p.exog, e) + actor_bytes(w)
         + TRAIN_ENVS * T * (4 * 3 + 2 * (2 * n + 4)),
         f32_ops=TRAIN_ENVS * T * K5.ops_per_step(n), bf16_ops=pol_flops)
     print(f"building_policy_segment {TRAIN_ENVS}x{T} H={HIDDEN}: kernel "
@@ -1305,15 +1329,41 @@ def main() -> int:
     del noise
     pol_ms = device_ms(lambda: K.ev_policy_segment(p, w, days, STEPS, seed=3),
                        "ev_policy_segment_kernel", 3)
+    _, p_off = make("evcharging", project_action=False, device=dev)
+    pol_off_ms = device_ms(lambda: K.ev_policy_segment(p_off, w, days, STEPS,
+                                                       seed=3),
+                           "ev_policy_segment_kernel", 3)
     pol_call_ms = cuda_ms(lambda: K.ev_policy_segment(p, w, days, STEPS,
                                                       seed=3), 3)
     pol_plain_ms = cuda_ms(lambda: K.ev_policy_segment_ref(
         p, w, days, STEPS, seed=3), 1)
+    ctas = K.ev_policy_occupancy(D, HIDDEN, n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = -(-TRAIN_ENVS // 16)
     print(f"ev_policy_segment {TRAIN_ENVS}x{STEPS} H={HIDDEN}: kernel "
-          f"{pol_ms:.3f} ms (device), plain {pol_plain_ms:.3f} ms {tag}",
-          flush=True)
+          f"{pol_ms:.3f} ms (device) with the projection on, "
+          f"{pol_off_ms:.3f} ms with it off (the projection "
+          f"{pol_ms - pol_off_ms:.3f} ms); plain {pol_plain_ms:.3f} ms; "
+          f"{ctas} CTAs of 16 warps resident per SM = {16 * ctas} warps, "
+          f"{grid} CTAs = {grid / (ctas * sms):.3f} waves on {sms} SMs "
+          f"{tag}", flush=True)
     print(f"ev_policy_segment {TRAIN_ENVS}x{STEPS}: whole wrapper call "
           f"{pol_call_ms:.3f} ms (CUDA events) {tag}", flush=True)
+    obs = torch.randn((TRAIN_ENVS, D), generator=gen, device=dev).bfloat16()
+    hid = torch.randn((TRAIN_ENVS, HIDDEN), generator=gen,
+                      device=dev).bfloat16()
+
+    def actor_matmuls():
+        for _ in range(STEPS):
+            torch.matmul(obs, w.w1)
+            torch.matmul(hid, w.w2)
+            torch.matmul(hid, w.wm)
+
+    print(f"yardstick, not called by the port: the actor's three bf16 "
+          f"torch.matmul per step at {TRAIN_ENVS} rows x {STEPS} steps "
+          f"{cuda_ms(actor_matmuls, 2):.3f} ms (CUDA events) {tag}",
+          flush=True)
+    del obs, hid
 
     days = torch.randint(p.n_days, (B,), generator=gen, device=dev)
     zero = init_policy(D, n, HIDDEN, torch.Generator().manual_seed(4), dev)
@@ -1383,7 +1433,7 @@ def main() -> int:
     seg_bound = bound(nbytes(p.step_table) + SIM_BATCH * (8 + 16 * STEPS),
                       f32_ops=SIM_BATCH * STEPS * step_ops)
     pol_bound = bound(
-        nbytes(p.step_table, p.moer, *w.__dict__.values())
+        nbytes(p.step_table, p.moer) + actor_bytes(w)
         + TRAIN_ENVS * (8 + STEPS * (16 + 2 * (D + n))),
         f32_ops=TRAIN_ENVS * STEPS * step_ops,
         bf16_ops=TRAIN_ENVS * STEPS * 2 * (D * HIDDEN + HIDDEN * HIDDEN
@@ -1411,6 +1461,10 @@ def main() -> int:
     bld_kernels, bld_gathers = building_slice(tag, want_profile)
     kernels[2]["launches"] += bld_gathers
     kernels += bld_kernels
+    # one kernel replaces both TPU gathers: the second TPU kernel's entry
+    kernels.insert(3, {
+        **kernels[2], "name": "hbm_slice_gather",
+        "replaces": "sustaingym_tpu/ops/pallas/exog_gather.py:210"})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,8 @@ import torch
 
 from ...envs.building.env import (MAX_KERNEL_ZONES, OCCU_COEF, BuildingParams,
                                   _seq_sum, div, kernel_config)
-from .ev_rollout import PolicyWeights, _actor_ref
+from .ev_rollout import (PolicyWeights, _actor_ref, check_policy_weights,
+                         policy_weight_args)
 from .wrap import F, I, P, U64, bind, check, on_card, ptr, raise_on, seeded
 
 __all__ = ["building_fused_layout", "segment_step", "building_segment",
@@ -267,30 +268,19 @@ def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
     m = _operator(params)
     args = _env_args(params, m, epochs, T, "building_policy_segment")
     n, B, dev = params.n, epochs.shape[0], params.device
-    D, H = n + 4, weights.w1.shape[1]
-    for name, x, shape, dt in (
-            ("w1", weights.w1, (D, H), torch.bfloat16),
-            ("b1", weights.b1, (H,), torch.float32),
-            ("w2", weights.w2, (H, H), torch.bfloat16),
-            ("b2", weights.b2, (H,), torch.float32),
-            ("wm", weights.wm, (H, n), torch.bfloat16),
-            ("bm", weights.bm, (n,), torch.float32),
-            ("sigma", weights.sigma, (n,), torch.float32)):
-        check(name, x, dt, shape, dev)
+    H = weights.b1.shape[0]
+    check_policy_weights(weights, n + 4, H, n, dev)
     if noise is not None:
         check("noise", noise, torch.float32, (T, B, n), dev)
     out = torch.empty((T, B, 3), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, 2 * n + 4), dtype=torch.bfloat16, device=dev)
     if B == 0:
         return out, lrn
-    w = weights
     with torch.cuda.device(dev):
         err = bind("building_rollout",
                    _SIGNATURES).building_policy_segment_launch(
-            *args, w.w1.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(),
-            w.b2.data_ptr(), w.wm.data_ptr(), w.bm.data_ptr(),
-            w.sigma.data_ptr(), H, ptr(noise), seed % 2 ** 64,
-            out.data_ptr(), lrn.data_ptr(),
+            *args, *policy_weight_args(weights), H, ptr(noise),
+            seed % 2 ** 64, out.data_ptr(), lrn.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "building_policy_segment")
     building_policy_segment.launches += 1

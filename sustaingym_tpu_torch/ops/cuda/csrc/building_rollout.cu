@@ -41,10 +41,10 @@
 //  * Policy: a CTA owns kTile envs (actor.cuh, shared with ev_rollout.cu).
 //    Thread l < kTile keeps env l's state in registers and writes its bf16
 //    obs row into shared memory; all 512 threads run the actor over the
-//    tile (the weights are read from L2 once per tile per step); thread l
-//    then samples u, squashes a = tanh(u) ac (the JAX kernel's form) and
-//    steps its env. The obs at step t is step t-1's emitted obs; at t = 0
-//    the reset obs.
+//    tile (its three layers on the tensor cores, the weights read from L2
+//    once per tile per step); thread l then samples u, squashes a = tanh(u)
+//    ac (the JAX kernel's form) and steps its env. The obs at step t is step
+//    t-1's emitted obs; at t = 0 the reset obs.
 //  * Numerics: the env step rounds after every operation (__fmul_rn,
 //    __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn) in the order of the plain
 //    version (ops/cuda/building_rollout.py::segment_step), so the simulation
@@ -81,6 +81,13 @@ struct Env {
   const int64_t* epochs;
   int B, T;
 };
+
+// Floats of the operator, target and ac in shared memory, rounded up to
+// 16 bytes.
+template <int N>
+__host__ __device__ constexpr int env_floats() {
+  return (N * (2 * N + 4) + 2 * N + 3) / 4 * 4;
+}
 
 // Copies the operator, target and ac into shared memory.
 template <int N>
@@ -240,12 +247,10 @@ building_policy_segment_kernel(Env env, Actor act, const float* __restrict__ noi
                                __nv_bfloat16* __restrict__ lrn) {
   constexpr int K = 2 * N + 4, D = N + 4, LW = 2 * N + 4;
   extern __shared__ float smem[];
-  const int H = act.H, B = env.B;
-  float* env_s = smem;                     // operator | target | ac
-  float* obs_s = env_s + N * K + 2 * N;    // [kTile][D]
-  float* h1_s = obs_s + kTile * D;         // [kTile][H]
-  float* h2_s = h1_s + kTile * H;          // [kTile][H]
-  float* mu_s = h2_s + kTile * H;          // [kTile][kMaxZones]
+  const int B = env.B;
+  float* env_s = smem;  // operator | target | ac, then the actor's tiles
+  const ActorTiles at = carve_actor_tiles(
+      reinterpret_cast<unsigned char*>(smem + env_floats<N>()), D, act.H, N);
   load_env<N>(env, env_s);
   __syncthreads();
   const float* ac = env_s + N * K + N;
@@ -268,26 +273,21 @@ building_policy_segment_kernel(Env env, Actor act, const float* __restrict__ noi
 
   for (int t = 0; t < env.T; ++t) {
     if (mine) {
-      float* ob = obs_s + l * D;
+      __nv_bfloat16* ob = at.obs + l * at.ld_obs;
 #pragma unroll
-      for (int i = 0; i < N; ++i) ob[i] = bf16_round(x[i]);
-      ob[N] = bf16_round(prev.x);
-      ob[N + 1] = bf16_round(prev.y);
-      ob[N + 2] = bf16_round(prev.z);
-      ob[N + 3] = bf16_round(__fmul_rn(prev_occ, 0.001f));
+      for (int i = 0; i < N; ++i) ob[i] = __float2bfloat16_rn(x[i]);
+      ob[N] = __float2bfloat16_rn(prev.x);
+      ob[N + 1] = __float2bfloat16_rn(prev.y);
+      ob[N + 2] = __float2bfloat16_rn(prev.z);
+      ob[N + 3] = __float2bfloat16_rn(__fmul_rn(prev_occ, 0.001f));
     }
     __syncthreads();
-    tile_dense(obs_s, D, D, act.w1, H, act.b1, h1_s, H, true);
-    __syncthreads();
-    tile_dense(h1_s, H, H, act.w2, H, act.b2, h2_s, H, true);
-    __syncthreads();
-    tile_dense(h2_s, H, H, act.wm, N, act.bm, mu_s, kMaxZones, false);
-    __syncthreads();
+    actor_forward(act, at, N);
     if (live) {
       const size_t te = (size_t)t * B + e;
       __nv_bfloat16* lrow = lrn + te * LW;
 #pragma unroll
-      for (int i = 0; i < D; ++i) lrow[i] = __float2bfloat16_rn(obs_s[l * D + i]);
+      for (int i = 0; i < D; ++i) lrow[i] = at.obs[l * at.ld_obs + i];
       float z[N];
       if (noise != nullptr) {
 #pragma unroll
@@ -304,7 +304,7 @@ building_policy_segment_kernel(Env env, Actor act, const float* __restrict__ noi
       float a[N];
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        const float u = __fadd_rn(mu_s[l * kMaxZones + i], __fmul_rn(act.sigma[i], z[i]));
+        const float u = __fadd_rn(at.mu[l * at.ld_mu + i], __fmul_rn(act.sigma[i], z[i]));
         lrow[D + i] = __float2bfloat16_rn(u);
         a[i] = __fmul_rn(tanhf(u), ac[i]);
       }
@@ -335,9 +335,8 @@ template <int N>
 int policy_launch(const Env& env, const Actor& act, const float* noise,
                   uint64_t seed, float* out, __nv_bfloat16* lrn,
                   cudaStream_t stream) {
-  constexpr int K = 2 * N + 4;
-  const size_t smem = sizeof(float) * (N * K + 2 * N +
-                                       kTile * (N + 4 + 2 * act.H + kMaxZones));
+  const size_t smem =
+      sizeof(float) * env_floats<N>() + actor_tiles_bytes(N + 4, act.H, N);
   const cudaError_t err = cudaFuncSetAttribute(
       building_policy_segment_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -384,13 +383,14 @@ extern "C" int building_segment_launch(
 extern "C" int building_policy_segment_launch(
     const float* m, const float* target, const float* ac, float q_rate,
     float beta, int n, const float* table, int rows, const int64_t* epochs,
-    int B, int T, const __nv_bfloat16* w1, const float* b1,
-    const __nv_bfloat16* w2, const float* b2, const __nv_bfloat16* wm,
-    const float* bm, const float* sigma, int H, const float* noise,
-    uint64_t seed, float* out, __nv_bfloat16* lrn, void* stream) {
+    int B, int T, const void* w1, const float* b1, const void* w2,
+    const float* b2, const void* wm, const float* bm, const float* sigma,
+    int H, const float* noise, uint64_t seed, float* out, __nv_bfloat16* lrn,
+    void* stream) {
   if (bad_env(n, table, rows, B, T) || H <= 0) return (int)cudaErrorInvalidValue;
   const Env env{m, target, ac, q_rate, beta,
                 reinterpret_cast<const float4*>(table), epochs, B, T};
-  const Actor act{w1, b1, w2, b2, wm, bm, sigma, n + 4, H};
+  const Actor act{static_cast<const uint4*>(w1), b1, static_cast<const uint4*>(w2),
+                  b2, static_cast<const uint4*>(wm), bm, sigma, n + 4, H};
   return kPolicy[n - 1](env, act, noise, seed, out, lrn, (cudaStream_t)stream);
 }

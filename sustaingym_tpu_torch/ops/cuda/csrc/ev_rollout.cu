@@ -27,12 +27,18 @@
 //    bank conflicts. Mat-vec operands go through a per-warp shared buffer.
 //  * The day table is indexed directly, table[day_b, t], instead of the TPU
 //    kernel's one-hot matmul day select.
-//  * Policy kernel: a CTA owns a tile of kTile envs (one warp each). The obs
-//    and hidden tiles live in shared memory, so the bf16 weights are read
-//    from L2 once per tile per step, not once per env (~16x fewer bytes).
-//    The MLP (actor.cuh, shared with building_rollout.cu) is plain FMA
-//    loops; bf16 rounding happens exactly where the JAX kernel casts (obs,
-//    h1, h2), with f32 accumulation.
+//  * Policy kernel: a CTA owns a tile of kTile = 16 envs (one warp each).
+//    Per step the warps write their bf16 obs rows, the whole CTA runs the
+//    actor (actor.cuh, shared with building_rollout.cu: the three layers on
+//    the tensor cores, the weights read from L2 once per tile per step),
+//    and each warp samples and steps its env. With the actor off the FMA
+//    pipes the env step, the projection's dependent chain of shared-memory
+//    mat-vecs, warp shuffles and syncs, is what the kernel spends its time
+//    on, so it needs resident warps to hide that latency: the kernel is
+//    held to 64 registers a thread and ~50 KB of shared memory a CTA
+//    (bf16 tiles), two 512-thread CTAs (32 warps) per SM. 8192 envs are
+//    512 CTAs, 1.94 waves of 264 on 132 SMs (the first kernel ran one CTA
+//    per SM: 3.9 waves of 16 warps).
 //  * Random draws: counter-based Philox4x32-10 (philox.cuh) keyed by the
 //    caller's seed and counted by (lane, step, env, stream), so the draws do
 //    not depend on launch geometry.
@@ -313,63 +319,55 @@ ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
   }
 }
 
-__global__ void __launch_bounds__(kTile * 32)
+__global__ void __launch_bounds__(kTile * 32, 2)
 ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table,
                          int table_w, int rows_per_day,
                          const float* __restrict__ moer, int moer_w, int k_fc,
                          const int64_t* __restrict__ days, int B, int T,
                          const float* __restrict__ noise, uint64_t seed,
                          float* __restrict__ out, __nv_bfloat16* __restrict__ lrn) {
-  extern __shared__ float smem[];
-  const int n = op.n, D = ac.D, H = ac.H;
+  extern __shared__ float smem[];  // dynamic: 16-byte aligned
+  const int n = op.n, D = ac.D;
   SharedC sc{smem, smem + kMaxStations * kMaxConeRows};
-  float* obs_s = smem + 2 * kMaxStations * kMaxConeRows;  // [kTile][D]
-  float* h1_s = obs_s + kTile * D;                         // [kTile][H]
-  float* h2_s = h1_s + kTile * H;                          // [kTile][H]
-  float* mu_s = h2_s + kTile * H;                          // [kTile][64]
-  float* scratch = mu_s + kTile * kMaxStations;            // [kTile][96]
+  float* scratch = smem + 2 * kMaxStations * kMaxConeRows;  // [kTile][96]
+  const ActorTiles at = carve_actor_tiles(
+      reinterpret_cast<unsigned char*>(scratch + kTile * 96), D, ac.H, n);
   load_operator(op, sc);
-  const int warp = threadIdx.x >> 5;
-  float* xs = scratch + warp * 96;
-  float* ys = xs + kMaxStations;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int e = blockIdx.x * kTile + warp;
   const bool live = e < B;
-  const Lane L = make_lane(op);
-  const uint2 key = philox_key(seed);
   const int64_t day = live ? days[e] : 0;
-  const float* day_rows = table + (size_t)day * rows_per_day * table_w;
-  const float* day_moer = moer + (size_t)day * rows_per_day * moer_w;
   const int lw = D + n;  // learner row: obs (canonical flat order) | u
-  float* my_obs = obs_s + warp * D;
+  __nv_bfloat16* my_obs = at.obs + warp * at.ld_obs;
   Stations st{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    // ---- obs of the pre-event state, bf16-rounded, in flat order:
+    // ---- obs of the pre-event state in bf16, in flat order:
     // timestep | est_departures | demands | prev_moer | forecast
-    const float* mrow = day_moer + (size_t)t * moer_w;
-    if (L.v0) {
-      my_obs[1 + L.s0] = bf16_round(st.pl0 ? (float)(st.est0 - t) : 0.0f);
-      my_obs[1 + n + L.s0] = bf16_round(st.pl0 ? st.dem0 : 0.0f);
+    const float* mrow = moer + ((size_t)day * rows_per_day + t) * moer_w;
+    if (lane < n) {
+      my_obs[1 + lane] = __float2bfloat16_rn(st.pl0 ? (float)(st.est0 - t) : 0.0f);
+      my_obs[1 + n + lane] = __float2bfloat16_rn(st.pl0 ? st.dem0 : 0.0f);
     }
-    if (L.v1) {
-      my_obs[1 + L.s1] = bf16_round(st.pl1 ? (float)(st.est1 - t) : 0.0f);
-      my_obs[1 + n + L.s1] = bf16_round(st.pl1 ? st.dem1 : 0.0f);
+    if (lane + 32 < n) {
+      my_obs[33 + lane] = __float2bfloat16_rn(st.pl1 ? (float)(st.est1 - t) : 0.0f);
+      my_obs[33 + n + lane] = __float2bfloat16_rn(st.pl1 ? st.dem1 : 0.0f);
     }
-    for (int i = L.lane; i < 1 + k_fc; i += 32)
-      my_obs[1 + 2 * n + i] = bf16_round(mrow[i]);
-    if (L.lane == 0) my_obs[0] = bf16_round((float)t / (float)kMaxTimestep);
+    for (int i = lane; i < 1 + k_fc; i += 32)
+      my_obs[1 + 2 * n + i] = __float2bfloat16_rn(mrow[i]);
+    if (lane == 0) my_obs[0] = __float2bfloat16_rn((float)t / (float)kMaxTimestep);
     __syncthreads();
-    // ---- actor MLP over the tile
-    tile_dense(obs_s, D, D, ac.w1, H, ac.b1, h1_s, H, true);
-    __syncthreads();
-    tile_dense(h1_s, H, H, ac.w2, H, ac.b2, h2_s, H, true);
-    __syncthreads();
-    tile_dense(h2_s, H, H, ac.wm, n, ac.bm, mu_s, kMaxStations, false);
-    __syncthreads();
+    actor_forward(ac, at, n);
     if (live) {
+      // the lane's constants and scratch are set up again each step, so
+      // that they hold no registers through the actor
+      const Lane L = make_lane(op);
+      float* xs = scratch + warp * 96;
+      float* ys = xs + kMaxStations;
+      const float* my_mu = at.mu + warp * at.ld_mu;
       __nv_bfloat16* lrow = lrn + ((size_t)t * B + e) * lw;
-      for (int i = L.lane; i < D; i += 32) lrow[i] = __float2bfloat16_rn(my_obs[i]);
+      for (int i = L.lane; i < D; i += 32) lrow[i] = my_obs[i];
       float z0, z1;
       if (noise != nullptr) {
         const float* nz = noise + ((size_t)t * B + e) * n;
@@ -377,30 +375,31 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
         z1 = L.v1 ? nz[L.s1] : 0.0f;
       } else {
         const float2 z = box_muller(
-            philox4x32_10(make_uint4(L.lane, t, e, 1u), key));
+            philox4x32_10(make_uint4(L.lane, t, e, 1u), philox_key(seed)));
         z0 = z.x;
         z1 = z.y;
       }
       float a0 = 0.0f, a1 = 0.0f;
       if (L.v0) {
-        const float u = mu_s[warp * kMaxStations + L.s0] + ac.sigma[L.s0] * z0;
+        const float u = my_mu[L.s0] + ac.sigma[L.s0] * z0;
         lrow[D + L.s0] = __float2bfloat16_rn(u);
         a0 = tanhf(u) * 0.5f + 0.5f;
       }
       if (L.v1) {
-        const float u = mu_s[warp * kMaxStations + L.s1] + ac.sigma[L.s1] * z1;
+        const float u = my_mu[L.s1] + ac.sigma[L.s1] * z1;
         lrow[D + L.s1] = __float2bfloat16_rn(u);
         a1 = tanhf(u) * 0.5f + 0.5f;
       }
-      env_step(op, sc, L, xs, ys, st, a0, a1, day_rows + (size_t)t * table_w, t,
+      env_step(op, sc, L, xs, ys, st, a0, a1,
+               table + ((size_t)day * rows_per_day + t) * table_w, t,
                out + ((size_t)t * B + e) * 4);
     }
   }
 }
 
-size_t policy_smem_bytes(int D, int H) {
-  return sizeof(float) * (2 * kMaxStations * kMaxConeRows +
-                          kTile * (D + 2 * H + kMaxStations + 96));
+size_t policy_smem_bytes(int D, int H, int n) {
+  return sizeof(float) * (2 * kMaxStations * kMaxConeRows + kTile * 96) +
+         actor_tiles_bytes(D, H, n);
 }
 
 }  // namespace
@@ -426,18 +425,19 @@ extern "C" int ev_segment_launch(
 extern "C" int ev_policy_segment_launch(
     const float* C, const float* radii, const float* step, const float* mags,
     const float* minp, int n, int m2, int iters, int restart, int project,
-    const __nv_bfloat16* w1, const float* b1, const __nv_bfloat16* w2,
-    const float* b2, const __nv_bfloat16* wm, const float* bm,
-    const float* sigma, int D, int H, const float* table, int table_w,
-    int rows_per_day, const float* moer, int moer_w, int k_fc,
+    const void* w1, const float* b1, const void* w2, const float* b2,
+    const void* wm, const float* bm, const float* sigma, int D, int H,
+    const float* table, int table_w, int rows_per_day, const float* moer,
+    int moer_w, int k_fc,
     const int64_t* days, int B, int T, const float* noise, uint64_t seed,
     float* out, __nv_bfloat16* lrn, void* stream) {
   if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0 ||
       D != 2 + 2 * n + k_fc || 1 + k_fc > moer_w)
     return (int)cudaErrorInvalidValue;
   Operators op{C, radii, step, mags, minp, n, m2, iters, restart, project};
-  Actor ac{w1, b1, w2, b2, wm, bm, sigma, D, H};
-  const size_t smem = policy_smem_bytes(D, H);
+  const Actor ac{static_cast<const uint4*>(w1), b1, static_cast<const uint4*>(w2),
+                 b2, static_cast<const uint4*>(wm), bm, sigma, D, H};
+  const size_t smem = policy_smem_bytes(D, H, n);
   cudaError_t err = cudaFuncSetAttribute(
       ev_policy_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -446,4 +446,14 @@ extern "C" int ev_policy_segment_launch(
       op, ac, table, table_w, rows_per_day, moer, moer_w, k_fc, days, B, T,
       noise, seed, out, lrn);
   return (int)cudaGetLastError();
+}
+
+// CTAs of ev_policy_segment_kernel resident per SM for an actor (D, H, n).
+extern "C" int ev_policy_segment_ctas_per_sm(int D, int H, int n, int* ctas) {
+  const size_t smem = policy_smem_bytes(D, H, n);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ev_policy_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, ev_policy_segment_kernel, kTile * 32, smem);
 }

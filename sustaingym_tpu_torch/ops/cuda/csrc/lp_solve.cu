@@ -15,57 +15,64 @@
 //
 // from x0 clipped to [0, ub] and zp0, zm0 clipped at 0.
 //
-// What bounds it. Operations: each iteration is 4 n (me + ms) flops per env
-// (89.6 kflop on the SCED operator, n = 140, me = 4, ms = 156), against
-// 4 (4 n + 3 me + 6 ms) = 6 KB of problem data and solution per env and
-// solve. At the market's 40 warm iterations the arithmetic takes ~2 times
-// the bytes' time at the bf16 tensor-core rate, and ~30 times at the
-// float32 rate that this first kernel runs at (float FMAs on bf16-rounded
-// operands).
+// What bounds it. Each iteration is 4 n (me + ms) flops per env (89.6 kflop
+// on the SCED operator, n = 140, me = 4, ms = 156) against 4 (4 n + 3 me +
+// 6 ms) = 6 KB of problem data and solution per env and solve: at the
+// market's 40 warm iterations the products at the bf16 tensor-core rate take
+// ~2 times the bytes' time. But the iterations are dependent, so what a
+// launch at B = 4096 waits on is the latency of 40 (or 200) rounds of two
+// products, each a chain of k16 steps, two block barriers and the
+// elementwise steps between them; the first version of this kernel ran the
+// products as float FMAs on bf16-rounded operands, one shared-memory load
+// per FMA, 8 envs per CTA, ~25 us per iteration.
 //
-// Design. A CTA holds kEnvs envs and one thread per variable and per dual
-// row (blockDim >= max(n, me + ms), 160 threads on SCED). The operator
-// K = [A; S] is loaded once per CTA into shared memory as bf16 (45 KB on
-// SCED), rows padded to a stride whose half is odd, so that the column walk
-// of phase 1 (thread j reads K[k][j]) and the row walk of phase 2 (thread r
-// reads K[r][j..j+1] as one 32-bit word) are both free of bank conflicts
-// with one copy of K. Each thread keeps its variable's x, c, ub and its
-// row's duals and right-hand sides for the CTA's envs in registers across
-// all iterations; the only shared vectors are the bf16-rounded duals
-// w[k][env] and the bf16-rounded x-bar xb[j][env], read as broadcast float4
-// loads. Only the problem data and the solution touch device memory. The
-// products are laid out as K (rows x k) times a (k x envs) panel, envs as
-// the N dimension, the shape an mma.sync / wgmma version would take.
+// Design. Both products run on the tensor cores (mma.sync m16n8k16, bf16 in,
+// float32 sums) with the operator rows as M and the CTA's E = 32 envs as N
+// (four n8 tiles):
+//   grad (n x E) = c + K'_A w_A + K'_S w_S      (M = variables, k = dual rows)
+//   s    (R x E) = K xb                         (M = dual rows,  k = variables)
+// K = [A; S] (pack_pdhg_operands' Kp) is padded with zero rows and columns to
+// multiples of 16, the A and S blocks each on their own (so the A' and S'
+// sums stay apart, as in the math above), and copied once per CTA into shared
+// memory as bf16 with a row stride that is an odd multiple of 16 bytes.
+// ldmatrix reads it as K's fragments for the dual products and, with .trans,
+// as K''s for the gradient, so one copy serves both and K is never read from
+// device memory again. Warp w owns the variable tile w and the dual-row tile
+// w (16 rows each, all E envs): its primal state (x, c, ub, tau) and dual
+// state (y or zp / zm, b or hp / hm, sigma) stay in registers for the whole
+// solve, in the accumulator layout of its mma tiles, so the clip, the
+// extrapolation and the dual steps run where the sums land. The only shared
+// vectors are the two bf16 panels the math rounds anyway, bf16(w) (E x R)
+// and bf16(xb) (E x n), stored env-major so that ldmatrix gives the B
+// fragments; two __syncthreads per iteration separate the phases. At B =
+// 4096 the grid is 128 CTAs, about one wave on 132 SMs.
 //
-// The grid is one CTA per kEnvs envs, any B (a ragged last CTA masks its
-// stores). Two __syncthreads per iteration separate the phases.
+// What bounds this design. By the op count, shared memory: every warp reads
+// the whole bf16 panel for its product, so an SM reads ~300 KB per
+// iteration (K's fragments once, the panels once per warp), ~2400 cycles
+// at 128 bytes a cycle, against ~800 cycles of mma. Iterations take about
+// twice that, and a version without the panel loads or without the
+// barriers was no faster: what is left is each warp's chain of k16 steps
+// (ldmatrix, mma, the float32 adds) with 11 warps per SM to hide it. The
+// 11-warp CTA leaves 168 registers a thread (three warps share a
+// scheduler's 16K), a little under the state's needs: ptxas spills ~100
+// bytes.
+//
+// Larger operators (12 to 22 tiles of 16 rows or variables: the SCED
+// operators of horizons 5 to 8) take E = 16 with two tiles per warp: the
+// same registers per thread, fewer warps. The ragged last CTA masks its
+// loads and stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kEnvs = 8;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// acc[e] += m * v[e] for the kEnvs values of one panel row (16-byte aligned)
-__device__ __forceinline__ void axpy_row(float (&acc)[kEnvs], float m,
-                                         const float* __restrict__ v) {
-  const float4 lo = reinterpret_cast<const float4*>(v)[0];
-  const float4 hi = reinterpret_cast<const float4*>(v)[1];
-  acc[0] += m * lo.x;
-  acc[1] += m * lo.y;
-  acc[2] += m * lo.z;
-  acc[3] += m * lo.w;
-  acc[4] += m * hi.x;
-  acc[5] += m * hi.y;
-  acc[6] += m * hi.z;
-  acc[7] += m * hi.w;
-}
+constexpr int kMaxWarps = 11;
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a CTA may use
 
 struct Problem {
   const float *c, *b, *hp, *hm, *ub, *x0, *y0, *zp0, *zm0;
@@ -73,115 +80,175 @@ struct Problem {
   int ub_stride;  // 0: one ub row shared by every env; n: one per env
 };
 
-__global__ void pdhg_paired_kernel(const __nv_bfloat16* __restrict__ K,
-                                   const float* __restrict__ tau,
-                                   const float* __restrict__ sig, Problem p,
-                                   int n, int me, int ms, int B, int iters,
-                                   int kstride, int ks_bytes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int R = me + ms;
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* w = reinterpret_cast<float*>(smem + ks_bytes);  // (R, kEnvs)
-  float* xb = w + (size_t)R * kEnvs;                      // (n, kEnvs)
-  const int tid = threadIdx.x;
-  const int e0 = blockIdx.x * kEnvs;
-  const int ne = min(kEnvs, B - e0);
+// Problem sizes and their 16-padded tile counts: mt1 variable tiles, mt2
+// dual-row tiles of which the first kA hold the A rows.
+struct Dims {
+  int n, me, ms, B, iters;
+  int mt1, mt2, kA;
+};
 
-  for (int i = tid; i < R * n; i += blockDim.x)
-    Ks[(i / n) * kstride + i % n] = K[i];
-
-  // thread tid owns variable j = tid and dual row r = tid
-  const int j = tid, r = tid;
-  float xv[kEnvs], cv[kEnvs], ubv[kEnvs];
-  float tj = 0.0f;
+// acc[nb] += A (16 x 16, from shared memory at a_row) * B[k0:k0+16, envs of
+// n tile nb], B stored env-major with row stride ldb. The tensor core sums
+// the chunk's 16 products from zero and the chunk's sum is added to acc in
+// float32, rounding to nearest: chaining acc through the tensor core's own
+// accumulation (which does not round to nearest) drifted further from the
+// plain version's sums (and from float64 ones) on the SCED problems.
+template <int NT, bool kTrans>
+__device__ __forceinline__ void chunk_mma(float (&acc)[NT][4],
+                                          const __nv_bfloat16* a_row,
+                                          const __nv_bfloat16* b, int ldb,
+                                          int k0, int lane) {
+  uint32_t a[4];
+  if (kTrans)
+    ldsm_x4_trans(a, a_row);
+  else
+    ldsm_x4(a, a_row);
+  const int kk = k0 + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int e = 0; e < kEnvs; ++e) xv[e] = cv[e] = ubv[e] = 0.0f;
-  if (j < n) {
-    tj = tau[j];
-#pragma unroll
-    for (int e = 0; e < kEnvs; ++e) {
-      if (e >= ne) break;
-      const size_t g = (size_t)(e0 + e) * n + j;
-      ubv[e] = p.ub[(size_t)(e0 + e) * p.ub_stride + j];
-      cv[e] = p.c[g];
-      xv[e] = fminf(fmaxf(p.x0[g], 0.0f), ubv[e]);
-    }
+  for (int nb = 0; nb < NT; nb += 2) {
+    uint32_t f[4];
+    ldsm_x4(f, b + (8 * nb + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk);
+    add_mma(acc[nb], a, f[0], f[1]);
+    add_mma(acc[nb + 1], a, f[2], f[3]);
   }
-  // row r < me: d1 = y, h1 = b; me <= r < R: d1 = zp, d2 = zm, h1 = hp,
-  // h2 = hm
-  float d1[kEnvs], d2[kEnvs], h1[kEnvs], h2[kEnvs];
-  float sr = 0.0f;
+}
+
+// E = 8 NT envs per CTA (NT even); warp w owns variable and dual-row tiles
+// w + s W, s < TPW, for the W warps of the CTA.
+template <int NT, int TPW>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+pdhg_paired_kernel(const __nv_bfloat16* __restrict__ Kp,
+                   const float* __restrict__ tau, const float* __restrict__ sig,
+                   Problem p, Dims d) {
+  constexpr int E = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = d.n, me = d.me, ms = d.ms, B = d.B;
+  const int n_p = 16 * d.mt1, Rp = 16 * d.mt2, me_p = 16 * d.kA;
+  const int ldk = n_p + 8, ldw = Rp + 8, ldx = n_p + 8;
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rp][ldk]
+  __nv_bfloat16* ws = Ks + Rp * ldk;  // bf16(w)  [E][ldw]
+  __nv_bfloat16* xs = ws + E * ldw;   // bf16(xb) [E][ldx]
+  const int W = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int e0 = blockIdx.x * E;
+
+  const int chunks = n_p / 8;  // 16-byte chunks per operator row
+  for (int i = threadIdx.x; i < Rp * chunks; i += blockDim.x)
+    *reinterpret_cast<uint4*>(Ks + (i / chunks) * ldk + (i % chunks) * 8) =
+        reinterpret_cast<const uint4*>(Kp)[i];
+
+  // element (s, nb, q) of a thread's tiles: row 16 i + g + 8 (q >> 1), env
+  // 8 nb + 2 t + (q & 1), for its tile i = warp + s W
+  float xv[TPW][NT][4], cv[TPW][NT][4], ubv[TPW][NT][4], tj[TPW][2];
+  float d1[TPW][NT][4], d2[TPW][NT][4], h1[TPW][NT][4], h2[TPW][NT][4], sr[TPW][2];
 #pragma unroll
-  for (int e = 0; e < kEnvs; ++e) d1[e] = d2[e] = h1[e] = h2[e] = 0.0f;
-  if (r < R) {
-    sr = sig[r];
+  for (int s = 0; s < TPW; ++s) {
+    const int i = warp + s * W;
 #pragma unroll
-    for (int e = 0; e < kEnvs; ++e) {
-      if (e >= ne) break;
-      if (r < me) {
-        const size_t g = (size_t)(e0 + e) * me + r;
-        d1[e] = p.y0[g];
-        h1[e] = p.b[g];
-      } else {
-        const size_t g = (size_t)(e0 + e) * ms + (r - me);
-        d1[e] = fmaxf(p.zp0[g], 0.0f);
-        d2[e] = fmaxf(p.zm0[g], 0.0f);
-        h1[e] = p.hp[g];
-        h2[e] = p.hm[g];
+    for (int h = 0; h < 2; ++h) {
+      const int j = 16 * i + g + 8 * h, rp = j;
+      tj[s][h] = j < n ? tau[j] : 0.0f;
+      const int ra = rp < me ? rp : -1;
+      const int rs = (rp >= me_p && rp - me_p < ms) ? rp - me_p : -1;
+      sr[s][h] = ra >= 0 ? sig[ra] : rs >= 0 ? sig[me + rs] : 0.0f;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NT; ++nb) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = 16 * i + g + 8 * (q >> 1);
+        const int el = 8 * nb + 2 * t + (q & 1), e = e0 + el;
+        const bool live = e < B;
+        float x = 0.0f, c = 0.0f, u = 0.0f;
+        if (live && row < n) {
+          const size_t gi = (size_t)e * n + row;
+          u = p.ub[(size_t)e * p.ub_stride + row];
+          c = p.c[gi];
+          x = fminf(fmaxf(p.x0[gi], 0.0f), u);
+        }
+        xv[s][nb][q] = x;
+        cv[s][nb][q] = c;
+        ubv[s][nb][q] = u;
+        // dual row rp = row: an A row below me_p, else an S row
+        float a1 = 0.0f, a2 = 0.0f, k1 = 0.0f, k2 = 0.0f;
+        if (live && row < me) {
+          const size_t gi = (size_t)e * me + row;
+          a1 = p.y0[gi];
+          k1 = p.b[gi];
+        } else if (live && row >= me_p && row - me_p < ms) {
+          const size_t gi = (size_t)e * ms + (row - me_p);
+          a1 = fmaxf(p.zp0[gi], 0.0f);
+          a2 = fmaxf(p.zm0[gi], 0.0f);
+          k1 = p.hp[gi];
+          k2 = p.hm[gi];
+        }
+        d1[s][nb][q] = a1;
+        d2[s][nb][q] = a2;
+        h1[s][nb][q] = k1;
+        h2[s][nb][q] = k2;
+        if (i < d.mt2)
+          ws[el * ldw + row] = __float2bfloat16_rn(row < me_p ? a1 : a1 - a2);
       }
     }
-#pragma unroll
-    for (int e = 0; e < kEnvs; ++e)
-      w[r * kEnvs + e] = bf16_round(r < me ? d1[e] : d1[e] - d2[e]);
   }
   __syncthreads();
 
-  for (int it = 0; it < iters; ++it) {
-    // ---- phase 1: gradient and primal step (thread j) ----
-    if (j < n) {
-      float ga[kEnvs], gs[kEnvs];
+  for (int it = 0; it < d.iters; ++it) {
+    // ---- phase 1: grad = (c + A' w_A) + S' w_S and the primal step ----
 #pragma unroll
-      for (int e = 0; e < kEnvs; ++e) ga[e] = gs[e] = 0.0f;
-      for (int k = 0; k < me; ++k)
-        axpy_row(ga, __bfloat162float(Ks[k * kstride + j]), w + k * kEnvs);
-      for (int k = me; k < R; ++k)
-        axpy_row(gs, __bfloat162float(Ks[k * kstride + j]), w + k * kEnvs);
+    for (int s = 0; s < TPW; ++s) {
+      const int i = warp + s * W;
+      if (i < d.mt1) {
+        float ga[NT][4] = {}, gs[NT][4] = {};
+        // K' tile (variables 16 i.., dual rows 16 kc..): K read transposed
+        const __nv_bfloat16* a_row =
+            Ks + ((lane & 7) + ((lane >> 4) << 3)) * ldk + 16 * i + ((lane >> 3) & 1) * 8;
+        for (int kc = 0; kc < d.kA; ++kc)
+          chunk_mma<NT, true>(ga, a_row + 16 * kc * ldk, ws, ldw, 16 * kc, lane);
+        for (int kc = d.kA; kc < d.mt2; ++kc)
+          chunk_mma<NT, true>(gs, a_row + 16 * kc * ldk, ws, ldw, 16 * kc, lane);
 #pragma unroll
-      for (int e = 0; e < kEnvs; ++e) {
-        const float grad = (cv[e] + ga[e]) + gs[e];
-        const float xn = fminf(fmaxf(xv[e] - tj * grad, 0.0f), ubv[e]);
-        xb[j * kEnvs + e] = bf16_round(2.0f * xn - xv[e]);
-        xv[e] = xn;
+        for (int nb = 0; nb < NT; ++nb) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float grad = (cv[s][nb][q] + ga[nb][q]) + gs[nb][q];
+            const float xo = xv[s][nb][q];
+            const float xn = fminf(fmaxf(xo - tj[s][q >> 1] * grad, 0.0f), ubv[s][nb][q]);
+            xs[(8 * nb + 2 * t + (q & 1)) * ldx + 16 * i + g + 8 * (q >> 1)] =
+                __float2bfloat16_rn(2.0f * xn - xo);
+            xv[s][nb][q] = xn;
+          }
+        }
       }
     }
     __syncthreads();
-    // ---- phase 2: the products with x-bar and the dual steps (thread r) --
-    if (r < R) {
-      float acc[kEnvs];
+    // ---- phase 2: s = K bf16(xb) and the dual steps ----
 #pragma unroll
-      for (int e = 0; e < kEnvs; ++e) acc[e] = 0.0f;
-      const __nv_bfloat162* row =
-          reinterpret_cast<const __nv_bfloat162*>(Ks + r * kstride);
-      for (int jj = 0; jj < n / 2; ++jj) {
-        const float2 m = __bfloat1622float2(row[jj]);
-        axpy_row(acc, m.x, xb + (2 * jj) * kEnvs);
-        axpy_row(acc, m.y, xb + (2 * jj + 1) * kEnvs);
-      }
-      if (n & 1)
-        axpy_row(acc, __bfloat162float(Ks[r * kstride + n - 1]),
-                 xb + (n - 1) * kEnvs);
-      if (r < me) {
+    for (int s = 0; s < TPW; ++s) {
+      const int i = warp + s * W;
+      if (i < d.mt2) {
+        float acc[NT][4] = {};
+        const __nv_bfloat16* a_row = Ks + (16 * i + (lane & 15)) * ldk + ((lane >> 4) << 3);
+        for (int kc = 0; kc < d.mt1; ++kc)
+          chunk_mma<NT, false>(acc, a_row + 16 * kc, xs, ldx, 16 * kc, lane);
+        const bool a_rows = i < d.kA;
 #pragma unroll
-        for (int e = 0; e < kEnvs; ++e) {
-          d1[e] = d1[e] + sr * (acc[e] - h1[e]);
-          w[r * kEnvs + e] = bf16_round(d1[e]);
-        }
-      } else {
+        for (int nb = 0; nb < NT; ++nb) {
 #pragma unroll
-        for (int e = 0; e < kEnvs; ++e) {
-          d1[e] = fmaxf(d1[e] + sr * (acc[e] - h1[e]), 0.0f);
-          d2[e] = fmaxf(d2[e] + sr * (-acc[e] - h2[e]), 0.0f);
-          w[r * kEnvs + e] = bf16_round(d1[e] - d2[e]);
+          for (int q = 0; q < 4; ++q) {
+            const float sg = sr[s][q >> 1], v = acc[nb][q];
+            float w;
+            if (a_rows) {
+              d1[s][nb][q] = d1[s][nb][q] + sg * (v - h1[s][nb][q]);
+              w = d1[s][nb][q];
+            } else {
+              d1[s][nb][q] = fmaxf(d1[s][nb][q] + sg * (v - h1[s][nb][q]), 0.0f);
+              d2[s][nb][q] = fmaxf(d2[s][nb][q] + sg * (-v - h2[s][nb][q]), 0.0f);
+              w = d1[s][nb][q] - d2[s][nb][q];
+            }
+            ws[(8 * nb + 2 * t + (q & 1)) * ldw + 16 * i + g + 8 * (q >> 1)] =
+                __float2bfloat16_rn(w);
+          }
         }
       }
     }
@@ -189,46 +256,92 @@ __global__ void pdhg_paired_kernel(const __nv_bfloat16* __restrict__ K,
   }
 
 #pragma unroll
-  for (int e = 0; e < kEnvs; ++e) {
-    if (e >= ne) break;
-    if (j < n) p.x[(size_t)(e0 + e) * n + j] = xv[e];
-    if (r < me) {
-      p.y[(size_t)(e0 + e) * me + r] = d1[e];
-    } else if (r < R) {
-      const size_t g = (size_t)(e0 + e) * ms + (r - me);
-      p.zp[g] = d1[e];
-      p.zm[g] = d2[e];
+  for (int s = 0; s < TPW; ++s) {
+    const int i = warp + s * W;
+#pragma unroll
+    for (int nb = 0; nb < NT; ++nb) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = 16 * i + g + 8 * (q >> 1);
+        const int e = e0 + 8 * nb + 2 * t + (q & 1);
+        if (e >= B) continue;
+        if (row < n) p.x[(size_t)e * n + row] = xv[s][nb][q];
+        if (row < me) {
+          p.y[(size_t)e * me + row] = d1[s][nb][q];
+        } else if (row >= me_p && row - me_p < ms) {
+          const size_t gi = (size_t)e * ms + (row - me_p);
+          p.zp[gi] = d1[s][nb][q];
+          p.zm[gi] = d2[s][nb][q];
+        }
+      }
     }
   }
+}
+
+// Launches the (NT, TPW) instance if its warps and shared memory fit, or
+// with `ctas` set, stores how many of its CTAs an SM holds and its envs
+// per CTA instead; returns -1 if they do not fit.
+template <int NT, int TPW>
+int launch(const __nv_bfloat16* Kp, const float* tau, const float* sig,
+           const Problem& p, const Dims& d, cudaStream_t stream, int* ctas,
+           int* envs) {
+  constexpr int E = 8 * NT;
+  const int mt = d.mt1 > d.mt2 ? d.mt1 : d.mt2;
+  const int warps = (mt + TPW - 1) / TPW;
+  const int n_p = 16 * d.mt1, Rp = 16 * d.mt2;
+  const int smem = 2 * (Rp * (n_p + 8) + E * (Rp + 8) + E * (n_p + 8));
+  if (warps > kMaxWarps || smem > kMaxSmem) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      pdhg_paired_kernel<NT, TPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (ctas != nullptr) {
+    *envs = E;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, pdhg_paired_kernel<NT, TPW>, warps * 32, smem);
+  }
+  const int grid = (d.B + E - 1) / E;
+  pdhg_paired_kernel<NT, TPW><<<grid, warps * 32, smem, stream>>>(Kp, tau, sig, p, d);
+  return (int)cudaGetLastError();
+}
+
+// The first instance that fits the operator: E = 32 envs a CTA, then 16.
+int dispatch(const __nv_bfloat16* Kp, const float* tau, const float* sig,
+             const Problem& p, const Dims& d, cudaStream_t stream,
+             int* ctas = nullptr, int* envs = nullptr) {
+  int err = launch<4, 1>(Kp, tau, sig, p, d, stream, ctas, envs);
+  if (err < 0) err = launch<2, 2>(Kp, tau, sig, p, d, stream, ctas, envs);
+  return err < 0 ? (int)cudaErrorInvalidValue : err;
+}
+
+Dims dims(int n, int me, int ms, int B, int iters) {
+  return Dims{n, me, ms, B, iters, pad16(n) / 16, (pad16(me) + pad16(ms)) / 16,
+              pad16(me) / 16};
 }
 
 }  // namespace
 
 // ---- plain C interface (loaded with ctypes; returns a cudaError_t) ----
 
+// Kp: (pad16(me) + pad16(ms), pad16(n)) bf16, the A rows then the S rows,
+// each block zero-padded (ops/cuda/lp_solve.py::pack_pdhg_operands).
 extern "C" int pdhg_solve_paired_launch(
-    const void* K, const float* tau, const float* sig, const float* c,
+    const void* Kp, const float* tau, const float* sig, const float* c,
     const float* b, const float* hp, const float* hm, const float* ub,
     int ub_stride, const float* x0, const float* y0, const float* zp0,
     const float* zm0, int n, int me, int ms, int B, int iters, float* x,
     float* y, float* zp, float* zm, void* stream) {
-  const int R = me + ms;
-  const int threads = ((n > R ? n : R) + 31) / 32 * 32;
-  if (B <= 0 || n <= 0 || me < 0 || ms < 0 || iters < 0 || threads > 1024)
+  if (B <= 0 || n <= 0 || me < 0 || ms < 0 || iters < 0)
     return (int)cudaErrorInvalidValue;
-  // row stride of K in shared memory: even (32-bit pairs), half odd (the
-  // row walk of phase 2 is then conflict-free)
-  int kstride = (n + 1) / 2 * 2;
-  if ((kstride / 2) % 2 == 0) kstride += 2;
-  const int ks_bytes = (R * kstride * 2 + 15) / 16 * 16;
-  const int smem = ks_bytes + (R + n) * kEnvs * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pdhg_paired_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const Problem p{c, b, hp, hm, ub, x0, y0, zp0, zm0, x, y, zp, zm, ub_stride};
-  const int grid = (B + kEnvs - 1) / kEnvs;
-  pdhg_paired_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(K), tau, sig, p, n, me, ms, B, iters,
-      kstride, ks_bytes);
-  return (int)cudaGetLastError();
+  return dispatch(static_cast<const __nv_bfloat16*>(Kp), tau, sig, p,
+                  dims(n, me, ms, B, iters), (cudaStream_t)stream);
+}
+
+// CTAs of the instance pdhg_solve_paired_launch takes for (n, me, ms)
+// resident per SM, and its envs per CTA.
+extern "C" int pdhg_solve_paired_ctas_per_sm(int n, int me, int ms, int* ctas,
+                                             int* envs) {
+  if (n <= 0 || me < 0 || ms < 0) return (int)cudaErrorInvalidValue;
+  return dispatch(nullptr, nullptr, nullptr, Problem{}, dims(n, me, ms, 1, 0),
+                  nullptr, ctas, envs);
 }

@@ -10,7 +10,8 @@ What bounds each kernel and how it is laid out is in the ``.cu`` file.
 The kernels read an ``EVParams``' tensors as they are: the (n_days, 289,
 3n + 39) step table indexed by (day, t), the interleaved cone operator C
 and the per-cone/per-station constants, so only the actor's weights need
-packing (``pack_policy_weights``, bf16 (din, dout)).
+packing (``pack_policy_weights``: bf16 (din, dout) for the plain versions
+and a copy in the tensor cores' B-fragment order for the kernels).
 
 Dispatch goes by device: CUDA params always run the kernel (a build or
 launch failure raises), CPU params run the plain version
@@ -32,12 +33,13 @@ import torch
 
 from ...core import dataclass
 from ...envs.evcharging.env import EVParams, EVState, MAX_TIMESTEP, advance
-from .wrap import (I, P, U64, bind, check, on_card, ptr, raise_on,
-                   seeded)
+from .wrap import (I, P, PI, U64, bind, check, ctas_per_sm, on_card, pad16,
+                   ptr, raise_on, seeded)
 
-__all__ = ["PolicyWeights", "pack_policy_weights", "ev_fused_layout",
+__all__ = ["PolicyWeights", "b_fragments", "pack_policy_weights",
+           "check_policy_weights", "policy_weight_args", "ev_fused_layout",
            "ev_segment", "ev_segment_ref", "ev_policy_segment",
-           "ev_policy_segment_ref"]
+           "ev_policy_segment_ref", "ev_policy_occupancy"]
 
 _MAX_STATIONS = 64
 _MAX_CONE_ROWS = 32
@@ -45,8 +47,10 @@ _MAX_CONE_ROWS = 32
 
 @dataclass
 class PolicyWeights:
-    """Actor weights in the kernel's operand layout: dense weights are
-    (din, dout) bf16, biases and sigma = exp(log_std) f32."""
+    """Actor weights in the kernels' operand layouts: dense weights are
+    (din, dout) bf16 (``w*``, the plain versions' operands) and the same in
+    B-fragment order (``w*f``, see :func:`b_fragments`); biases and sigma =
+    exp(log_std) f32."""
     w1: torch.Tensor   # (D, H)
     b1: torch.Tensor   # (H,)
     w2: torch.Tensor   # (H, H)
@@ -54,11 +58,32 @@ class PolicyWeights:
     wm: torch.Tensor   # (H, n)
     bm: torch.Tensor   # (n,)
     sigma: torch.Tensor  # (n,)
+    w1f: torch.Tensor  # b_fragments(w1)
+    w2f: torch.Tensor  # b_fragments(w2)
+    wmf: torch.Tensor  # b_fragments(wm)
+
+
+def b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A (din, dout) bf16 weight in the order ``csrc/actor.cuh`` reads it as
+    mma.m16n8k16 B fragments, zero-padded to multiples of 16: (dout / 16,
+    din / 16, 32, 8), where for column pair p, k16 step kc and lane 4g + t
+    the eight values are rows 16 kc + 2t + (0, 1, 8, 9) of column 16 p + g,
+    then the same rows of column 16 p + 8 + g: one 16-byte load gives a lane
+    its b0 and b1 of both n8 tiles."""
+    din, dout = w.shape
+    kp, np_ = pad16(din), pad16(dout)
+    wp = torch.zeros((kp, np_), dtype=torch.bfloat16, device=w.device)
+    wp[:din, :dout] = w
+    # row 16 kc + 8 kh + 2 t + kk, column 16 p + 8 nh + g
+    # -> [p][kc][g][t][nh][kh][kk]
+    return (wp.view(kp // 16, 2, 4, 2, np_ // 16, 2, 8)
+            .permute(4, 0, 6, 2, 5, 1, 3).reshape(np_ // 16, kp // 16, 32, 8)
+            .contiguous())
 
 
 @torch.no_grad()
 def pack_policy_weights(policy) -> PolicyWeights:
-    """Re-lays a ``parallel.ppo.ActorCritic`` into the kernel's operands."""
+    """Re-lays a ``parallel.ppo.ActorCritic`` into the kernels' operands."""
     def dense(layer):
         return (layer.weight.detach().t().to(torch.bfloat16).contiguous(),
                 layer.bias.detach().float().contiguous())
@@ -67,7 +92,30 @@ def pack_policy_weights(policy) -> PolicyWeights:
     w2, b2 = dense(policy.trunk2)
     wm, bm = dense(policy.mu)
     return PolicyWeights(w1=w1, b1=b1, w2=w2, b2=b2, wm=wm, bm=bm,
-                         sigma=torch.exp(policy.log_std.detach().float()))
+                         sigma=torch.exp(policy.log_std.detach().float()),
+                         w1f=b_fragments(w1), w2f=b_fragments(w2),
+                         wmf=b_fragments(wm))
+
+
+def check_policy_weights(w: PolicyWeights, D: int, H: int, n: int, dev):
+    """Raises unless ``w`` is an actor (D, H, n) on ``dev`` in the kernels'
+    layouts."""
+    def frag(din, dout):
+        return (pad16(dout) // 16, pad16(din) // 16, 32, 8)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, x, shape, dt in (
+            ("w1f", w.w1f, frag(D, H), bf16), ("b1", w.b1, (H,), f32),
+            ("w2f", w.w2f, frag(H, H), bf16), ("b2", w.b2, (H,), f32),
+            ("wmf", w.wmf, frag(H, n), bf16), ("bm", w.bm, (n,), f32),
+            ("sigma", w.sigma, (n,), f32)):
+        check(name, x, dt, shape, dev)
+
+
+def policy_weight_args(w: PolicyWeights) -> list:
+    """The kernels' actor arguments: w1, b1, w2, b2, wm, bm, sigma."""
+    return [x.data_ptr() for x in (w.w1f, w.b1, w.w2f, w.b2, w.wmf, w.bm,
+                                   w.sigma)]
 
 
 def ev_fused_layout(n: int, k: int = 36) -> dict:
@@ -177,6 +225,7 @@ _SIGNATURES = {
     "ev_policy_segment_launch": _OP_ARGS + [
         P, P, P, P, P, P, P, I, I, P, I, I, P, I, I, P, I, I, P, U64, P, P,
         P],
+    "ev_policy_segment_ctas_per_sm": [I, I, I, PI],
 }
 
 
@@ -266,27 +315,17 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
             or moer.shape[2] < 1 + k:
         raise ValueError(f"bad moer pack {tuple(moer.shape)}")
     check("moer", moer, torch.float32, moer.shape, dev)
-    for name, x, shape, dt in (
-            ("w1", weights.w1, (D, H), torch.bfloat16),
-            ("b1", weights.b1, (H,), torch.float32),
-            ("w2", weights.w2, (H, H), torch.bfloat16),
-            ("b2", weights.b2, (H,), torch.float32),
-            ("wm", weights.wm, (H, n), torch.bfloat16),
-            ("bm", weights.bm, (n,), torch.float32),
-            ("sigma", weights.sigma, (n,), torch.float32)):
-        check(name, x, dt, shape, dev)
+    check_policy_weights(weights, D, H, n, dev)
     if noise is not None:
         check("noise", noise, torch.float32, (T, B, n), dev)
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, D + n), dtype=torch.bfloat16, device=dev)
-    w = weights
     with torch.cuda.device(dev):
         err = _lib().ev_policy_segment_launch(
-            *_op_args(params, n, m2), w.w1.data_ptr(), w.b1.data_ptr(),
-            w.w2.data_ptr(), w.b2.data_ptr(), w.wm.data_ptr(),
-            w.bm.data_ptr(), w.sigma.data_ptr(), D, H, table.data_ptr(),
-            table.shape[2], table.shape[1], moer.data_ptr(), moer.shape[2],
-            k, days.data_ptr(), B, T, ptr(noise), seed % 2 ** 64,
+            *_op_args(params, n, m2), *policy_weight_args(weights), D, H,
+            table.data_ptr(), table.shape[2], table.shape[1],
+            moer.data_ptr(), moer.shape[2], k, days.data_ptr(), B, T,
+            ptr(noise), seed % 2 ** 64,
             out.data_ptr(), lrn.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "ev_policy_segment")
@@ -295,3 +334,9 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
 
 
 ev_policy_segment.launches = 0
+
+
+def ev_policy_occupancy(D: int, H: int, n: int) -> int:
+    """CTAs of ``ev_policy_segment``'s kernel (16 warps each) resident per
+    SM for an actor (D, H, n), on the current card."""
+    return ctas_per_sm(_lib().ev_policy_segment_ctas_per_sm, D, H, n)[0]

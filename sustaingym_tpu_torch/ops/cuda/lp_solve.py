@@ -21,35 +21,46 @@ import torch
 
 from ..lp import LPOperator, LPSolution, solve_lp
 from ...core.struct import dataclass, replace
-from .wrap import I, P, bind, check, on_card, raise_on
+from .wrap import I, P, PI, bind, check, ctas_per_sm, on_card, pad16, raise_on
 
 __all__ = ["PDHGOperands", "pack_pdhg_operands", "pdhg_solve_paired",
-           "pdhg_solve_paired_ref"]
+           "pdhg_solve_paired_ref", "pdhg_occupancy"]
 
 # K, tau, sig, c, b, hp, hm, ub | ub_stride | x0, y0, zp0, zm0 |
 # n, me, ms, B, iters | x, y, zp, zm, stream
 _SIGNATURES = {"pdhg_solve_paired_launch":
-               [P] * 8 + [I] + [P] * 4 + [I] * 5 + [P] * 5}
+               [P] * 8 + [I] + [P] * 4 + [I] * 5 + [P] * 5,
+               "pdhg_solve_paired_ctas_per_sm": [I, I, I, PI, PI]}
 
 
 @dataclass
 class PDHGOperands:
     """An ``LPOperator`` (me equalities + paired S block, mg == 0) with the
-    kernel's operands: K = [A; S] in bf16 and the step vectors."""
+    kernel's operands: K = [A; S] in bf16, its tile-padded copy and the
+    step vectors."""
     op: LPOperator
     K: torch.Tensor      # (me + ms, n) bfloat16
+    Kp: torch.Tensor     # (pad16(me) + pad16(ms), pad16(n)) bfloat16
     tau: torch.Tensor    # (n,) float32
     sig: torch.Tensor    # (me + ms,) float32: [sigma_a, sigma_s]
 
 
 def pack_pdhg_operands(op: LPOperator) -> PDHGOperands:
-    """The kernel's operands of ``op`` on its device."""
+    """The kernel's operands of ``op`` on its device. ``Kp`` is K with the
+    A rows and the S rows each zero-padded to a multiple of 16 rows and
+    the columns to a multiple of 16: the mma tiles of ``csrc/lp_solve.cu``,
+    with the A' and S' sums of the gradient in tiles of their own."""
     if op.mg != 0:
         raise ValueError("pdhg_solve_paired covers the paired form only "
                          f"(no residual G rows); the operator has {op.mg}")
+    K = torch.cat([op.A, op.S]).to(torch.bfloat16).contiguous()
+    n, me, ms = op.n, op.me, op.ms
+    Kp = torch.zeros((pad16(me) + pad16(ms), pad16(n)), dtype=torch.bfloat16,
+                     device=K.device)
+    Kp[:me, :n] = K[:me]
+    Kp[pad16(me):pad16(me) + ms, :n] = K[me:]
     return PDHGOperands(
-        op=op, K=torch.cat([op.A, op.S]).to(torch.bfloat16).contiguous(),
-        tau=op.tau.float().contiguous(),
+        op=op, K=K, Kp=Kp, tau=op.tau.float().contiguous(),
         sig=torch.cat([op.sigma_a, op.sigma_s]).float().contiguous())
 
 
@@ -79,7 +90,8 @@ def pdhg_solve_paired(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
     n, me, ms = op.n, op.me, op.ms
     B = c.shape[0]
     f32 = torch.float32
-    check("K", kops.K, torch.bfloat16, (me + ms, n), dev)
+    check("Kp", kops.Kp, torch.bfloat16, (pad16(me) + pad16(ms), pad16(n)),
+          dev)
     check("tau", kops.tau, f32, (n,), dev)
     check("sig", kops.sig, f32, (me + ms,), dev)
     for name, x, rows in (("c", c, n), ("x0", x0, n), ("b", b, me),
@@ -100,7 +112,7 @@ def pdhg_solve_paired(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
         return x, y, zp, zm
     with torch.cuda.device(dev):
         err = bind("lp_solve", _SIGNATURES).pdhg_solve_paired_launch(
-            kops.K.data_ptr(), kops.tau.data_ptr(), kops.sig.data_ptr(),
+            kops.Kp.data_ptr(), kops.tau.data_ptr(), kops.sig.data_ptr(),
             c.data_ptr(), b.data_ptr(), hp.data_ptr(), hm.data_ptr(),
             ub.data_ptr(), 0 if ub.ndim == 1 else n, x0.data_ptr(),
             y0.data_ptr(), zp0.data_ptr(), zm0.data_ptr(), n, me, ms, B,
@@ -112,3 +124,10 @@ def pdhg_solve_paired(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
 
 
 pdhg_solve_paired.launches = 0
+
+
+def pdhg_occupancy(op: LPOperator) -> tuple[int, int]:
+    """(CTAs resident per SM, envs per CTA) of the kernel instance that
+    ``op``'s shape takes, on the current card."""
+    return ctas_per_sm(bind("lp_solve", _SIGNATURES)
+                       .pdhg_solve_paired_ctas_per_sm, op.n, op.me, op.ms)

@@ -8,9 +8,11 @@ import ctypes
 
 import torch
 
-__all__ = ["on_card", "check", "ptr", "seeded", "bind", "raise_on"]
+__all__ = ["on_card", "check", "ptr", "pad16", "seeded", "bind", "ctas_per_sm",
+           "raise_on"]
 
 P, I, U64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
+PI = ctypes.POINTER(ctypes.c_int)
 
 
 def on_card(x: torch.Tensor, what: str) -> bool:
@@ -36,6 +38,11 @@ def ptr(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
+def pad16(v: int) -> int:
+    """``v`` rounded up to a multiple of 16 (an mma tile edge)."""
+    return -(-v // 16) * 16
+
+
 def seeded(device, seed: int) -> torch.Generator:
     """The plain versions' generator for ``seed``."""
     g = torch.Generator(device=device)
@@ -57,6 +64,14 @@ def bind(name: str, signatures: dict) -> ctypes.CDLL:
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _BOUND[name] = lib
     return _BOUND[name]
+
+
+def ctas_per_sm(fn, *args) -> tuple[int, ...]:
+    """Calls a kernel's occupancy query ``fn(*args, int*...)`` and returns
+    what it stores: CTAs resident per SM first."""
+    out = [ctypes.c_int() for _ in range(len(fn.argtypes) - len(args))]
+    raise_on(fn(*args, *(ctypes.byref(o) for o in out)), fn.__name__)
+    return tuple(o.value for o in out)
 
 
 def raise_on(err: int, kernel: str):

@@ -197,3 +197,35 @@ def test_ev_policy_segment_ref_matches_jax_reference(site):
     assert dr.mean() < 1e-4, dr.mean()
     assert out["done"][T - 1].all() and not out["done"][:T - 1].any()
     np.testing.assert_array_equal(out["days"].numpy(), days[None])
+
+
+@pytest.mark.parametrize("D,H,n", [(37, 40, 21), (146, 256, 54), (10, 24, 6)])
+def test_pack_policy_weights_fragment_order(D, H, n):
+    """The actor's weights in the kernels' mma B-fragment order hold
+    w1 / w2 / wm bit for bit: for column pair p, k16 step kc and lane
+    4g + t, the eight values are rows 16 kc + 2t + (0, 1, 8, 9) of column
+    16 p + g, then of column 16 p + 8 + g, zero outside (din, dout); D, H
+    and n need not be multiples of 16."""
+    from sustaingym_tpu_torch.parallel import init_policy
+    w = K.pack_policy_weights(init_policy(D, n, H, torch.Generator()
+                                          .manual_seed(D), "cpu"))
+    for dense, frag in ((w.w1, w.w1f), (w.w2, w.w2f), (w.wm, w.wmf)):
+        din, dout = dense.shape
+        kp, np_ = -(-din // 16) * 16, -(-dout // 16) * 16
+        assert frag.dtype == torch.bfloat16
+        assert frag.shape == (np_ // 16, kp // 16, 32, 8)
+        p, kc, lane, q = np.meshgrid(np.arange(np_ // 16),
+                                     np.arange(kp // 16), np.arange(32),
+                                     np.arange(8), indexing="ij")
+        g, t = lane // 4, lane % 4
+        row = 16 * kc + 2 * t + (q & 1) + 8 * ((q >> 1) & 1)
+        col = 16 * p + g + 8 * (q >> 2)
+        padded = torch.zeros((kp, np_), dtype=torch.bfloat16)
+        padded[:din, :dout] = dense
+        assert torch.equal(frag, padded[torch.from_numpy(row),
+                                        torch.from_numpy(col)])
+        # every entry of the weight appears once, the rest is padding
+        back = torch.zeros((kp, np_), dtype=torch.bfloat16)
+        back[torch.from_numpy(row), torch.from_numpy(col)] = frag
+        assert torch.equal(back[:din, :dout], dense)
+        assert not back[din:].any() and not back[:, dout:].any()

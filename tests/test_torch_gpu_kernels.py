@@ -88,7 +88,8 @@ def test_ev_policy_segment_kernel_matches_plain(cuda, site, project):
 
 def test_ragged_batch(cuda):
     """A batch that fills neither the 8-warp simulation CTAs nor the
-    16-env policy tiles."""
+    16-env policy tiles; then a policy batch of 1029 envs (64 tiles and
+    five envs) with the bounds of chip_smoke.check_policy."""
     _, p, days, g = _setup(cuda, "jpl", True, batch=37)
     n, k, T = p.n_stations, p.moer_forecast_steps, 24
     acts = torch.rand((T, 37, n), generator=g, device=cuda)
@@ -101,6 +102,12 @@ def test_ragged_batch(cuda):
     ro, rl = K.ev_policy_segment_ref(p, w, days, T, noise=noise)
     torch.testing.assert_close(ko, ro, rtol=2e-4, atol=2e-5)
     assert torch.equal(kl[..., :1 + n], rl[..., :1 + n])
+    days = torch.randint(p.n_days, (16 * 64 + 5,), generator=g, device=cuda)
+    noise = torch.randn((T, days.shape[0], n), generator=g, device=cuda)
+    chip_smoke.check_policy(
+        "jpl 1029 envs", n, 2 + 2 * n + k,
+        K.ev_policy_segment(p, w, days, T, noise=noise),
+        K.ev_policy_segment_ref(p, w, days, T, noise=noise), "")
 
 
 def test_kernel_wrappers_validate_inputs(cuda):
@@ -236,34 +243,49 @@ def _market_problem(p, batch, seed):
             t(np.abs(rng.normal(0, 1, (batch, ms)))))
 
 
-@pytest.mark.parametrize("batch,per_env_ub", [(64, False), (37, True)])
+@pytest.mark.parametrize("batch,per_env_ub", [(64, False), (37, True),
+                                               (4096 + 5, False)])
 def test_pdhg_solve_paired_kernel_matches_plain(cuda, batch, per_env_ub):
-    """50 warm-started iterations on the SCED operator against the plain
-    version with the JAX package's bound for its kernel against its solver
-    (rtol 1e-4 / atol 2e-3, tests/test_ops_pallas.py:512-517) on all but
-    1% of each output's entries, and max |d| within 1% of the output's
-    largest value: the kernel sums its float32 products in another order
-    than the plain version's matmul, which can flip the bf16 rounding of
-    an iterate (one bf16 step is 0.4%) that later iterations carry on. A
-    shared or per-env ub; zero iterations return the clipped start."""
-    _, p = make("electricitymarket", device=cuda)
-    kops = K9.pack_pdhg_operands(p.op)
-    c, b, hp, hm, x0, y0, zp0, zm0 = _market_problem(p, batch, 0)
-    ub = p.ub.expand(batch, -1).contiguous() if per_env_ub else p.ub
-    before = K9.pdhg_solve_paired.launches
-    got = K9.pdhg_solve_paired(kops, c, b, hp, hm, ub, x0, y0, zp0, zm0, 50)
-    torch.cuda.synchronize()
-    assert K9.pdhg_solve_paired.launches == before + 1
-    want = K9.pdhg_solve_paired_ref(kops, c, b, hp, hm, ub, x0, y0, zp0, zm0,
-                                    50)
-    for k, r in zip(got, want):
-        d = (k - r).abs()
-        assert float((d > 2e-3 + 1e-4 * r.abs()).float().mean()) <= 0.01
-        assert float(d.max()) <= 0.01 * float(r.abs().max())
-    x, y, zp, zm = K9.pdhg_solve_paired(kops, c, b, -hp, hm, ub, x0, -y0,
-                                        -zp0, zm0, 0)
-    assert torch.equal(x, torch.minimum(x0, ub)) and torch.equal(y, -y0)
-    assert torch.equal(zp, torch.zeros_like(zp)) and torch.equal(zm, zm0)
+    """50 warm-started iterations on the SCED operators of horizons 4 (n =
+    140, me = 4, ms = 156), 2 (70, 2, 78) and 6 (210, 6, 234: the kernel's
+    16-env instance), none a multiple of the kernel's 16-row tiles,
+    against the plain version with the JAX package's
+    bound for its kernel against its solver (rtol 1e-4 / atol 2e-3,
+    tests/test_ops_pallas.py:512-517) on all but 1% of each output's
+    entries, and max |d| within 1% of the output's largest value: the
+    kernel sums its float32 products in another order than the plain
+    version's matmul, which can flip the bf16 rounding of an iterate (one
+    bf16 step is 0.4%) that later iterations carry on. 37 and 4101 envs
+    fill no 32-env CTA. At horizons 2 and 6 and at 4101 envs the gate is
+    chip_smoke.check_solve's, each bound also at twice the plain version's
+    own float32-vs-float64 sensitivity: at horizon 2 and 64 envs the plain
+    version against itself summing in float64 already has 0.8% of y
+    outside the elementwise bound (one env's prices). A shared or per-env
+    ub; zero iterations return the clipped start."""
+    for horizon in (4, 2, 6):
+        _, p = make("electricitymarket", horizon=horizon, device=cuda)
+        kops = K9.pack_pdhg_operands(p.op)
+        c, b, hp, hm, x0, y0, zp0, zm0 = _market_problem(p, batch, 0)
+        ub = p.ub.expand(batch, -1).contiguous() if per_env_ub else p.ub
+        args = (c, b, hp, hm, ub, x0, y0, zp0, zm0)
+        before = K9.pdhg_solve_paired.launches
+        got = K9.pdhg_solve_paired(kops, *args, 50)
+        torch.cuda.synchronize()
+        assert K9.pdhg_solve_paired.launches == before + 1
+        if horizon != 4 or batch > 64:
+            chip_smoke.check_solve(f"horizon {horizon} B={batch}", kops, args,
+                                   50, "")
+        else:
+            want = K9.pdhg_solve_paired_ref(kops, *args, 50)
+            for k, r in zip(got, want):
+                d = (k - r).abs()
+                share = float((d > 2e-3 + 1e-4 * r.abs()).float().mean())
+                assert share <= 0.01
+                assert float(d.max()) <= 0.01 * float(r.abs().max())
+        x, y, zp, zm = K9.pdhg_solve_paired(kops, c, b, -hp, hm, ub, x0, -y0,
+                                            -zp0, zm0, 0)
+        assert torch.equal(x, torch.minimum(x0, ub)) and torch.equal(y, -y0)
+        assert torch.equal(zp, torch.zeros_like(zp)) and torch.equal(zm, zm0)
 
 
 def test_market_batch_unroll_on_card(cuda):

@@ -133,6 +133,28 @@ def test_pdhg_solve_paired_ref_matches_jax_kernel():
             np.ones((1, 3)), np.ones((2, 3)), device="cpu"))
 
 
+@pytest.mark.parametrize("horizon", [4, 2])
+def test_pack_pdhg_operands_pads_k_into_mma_tiles(horizon):
+    """The kernel's tile-padded operator Kp holds K = [A; S] bit for bit:
+    the A rows at the top, the S rows from the next multiple of 16, every
+    other entry zero; at horizons 4 (n = 140, me = 4, ms = 156) and 2 (70,
+    2, 78) n, me and ms are not multiples of 16."""
+    _, p = tem.make_env(horizon=horizon, device="cpu")
+    kops = K9.pack_pdhg_operands(p.op)
+    n, me, ms = p.op.n, p.op.me, p.op.ms
+    assert (n, me, ms) == (35 * horizon, horizon, 39 * horizon)
+    me_p, ms_p, n_p = (-(-v // 16) * 16 for v in (me, ms, n))
+    Kp = kops.Kp
+    assert Kp.dtype == torch.bfloat16 and Kp.shape == (me_p + ms_p, n_p)
+    assert torch.equal(Kp[:me, :n], kops.K[:me])
+    assert torch.equal(Kp[me_p:me_p + ms, :n], kops.K[me:])
+    rest = Kp.clone()
+    rest[:me, :n] = 0
+    rest[me_p:me_p + ms, :n] = 0
+    assert not rest.any()
+    assert torch.equal(kops.K, torch.cat([p.op.A, p.op.S]).bfloat16())
+
+
 def test_per_env_budgets_freeze_each_env():
     """A (B,) iteration budget runs the largest and freezes each env after
     its own: each env of a pair solved with budgets (30, 7) equals the pair
