@@ -24,7 +24,8 @@ card. Slice 1, PPO on EVChargingEnv with the action projection on:
 6. trainer: two PPO train steps at 8192 envs x 288 steps, H = 256, bf16
    obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check; then
    the kernels' device time (``torch.profiler``), the whole
-   simulation-tier call and the plain versions (CUDA events). Before the
+   simulation-tier call and the plain versions (CUDA events), and
+   ``ev_segment``'s CTAs resident per SM and waves. Before the
    main path, ``ev_policy_segment`` at 8192 x 288 is also timed with the
    projection off (the actor / projection split), its CTAs resident per
    SM are read, and the actor's three bf16 ``torch.matmul`` calls per step
@@ -96,9 +97,10 @@ weather rows):
     recorded actions; the draws' a / ac mean 0 +- 0.002, in [-1, 1);
 16. ``building_policy_segment`` vs its plain version at 1024 x 288 and
     8192 x 288, H = 256, on prescribed noise, with the JAX package's bounds
-    for its kernel (``tests/test_ops_pallas.py:461-478``); then N(0, 1)
-    draws with a zeroed mu and log sigma = 0: mean 0 +- 0.01, var 1 +-
-    0.01;
+    for its kernel (``tests/test_ops_pallas.py:461-478``), each with the
+    drift diagnostic of ``policy_drift`` (a print, not a gate); then
+    N(0, 1) draws with a zeroed mu and log sigma = 0: mean 0 +- 0.01, var
+    1 +- 0.01;
 17. the building main path with its counts from 0: the simulation tier
     (``BuildingEnv.fused_rollout`` at 524288 x 288, finite rewards, done at
     t = 287 only), two PPO train steps at 8192 x 288 (H = 256, 96
@@ -106,7 +108,10 @@ weather rows):
     obs (the episodic path through ``batch_unroll`` and the gather), each
     with its lr=0 step at 1024 envs; then both kernels timed (CUDA events
     over back-to-back launches of their C entry points, which no host wait
-    separates), the whole simulation-tier call and the plain versions.
+    separates), the whole simulation-tier call and the plain versions; the
+    policy kernel's shared-memory plan, CTAs resident per SM and waves,
+    and its actor's three bf16 ``torch.matmul`` calls per step over 288
+    steps, a yardstick the port never calls.
 
 ``python3 chip_smoke.py --profile`` adds each trainer's phases (rollout,
 re-scoring + GAE, minibatch updates) on the host clock with
@@ -1024,6 +1029,37 @@ def check_building(case: str, ko: dict, ro: dict, tag: str) -> float:
     return max(d.values())
 
 
+def policy_drift(n: int, kernel, plain) -> str:
+    """Where ``building_policy_segment``'s most drifting episode leaves its
+    plain version: for the env with the largest |d reward|, the first step
+    at which |d reward| passes 1e-3, and the first step at which any of its
+    learner-block entries (the bf16 obs and the bf16 u) differ, with the
+    entries and their values. A print, not a gate."""
+    import torch
+    (ko, kl), (ro, rl) = kernel, plain
+    dr = (ko[..., 0] - ro[..., 0]).abs()
+    b = int(dr.max(0).values.argmax())
+    past = (dr[:, b] > 1e-3).nonzero()
+    t_r = int(past[0]) if len(past) else None
+    names = ([f"temp[{i}]" for i in range(n)]
+             + ["out", "ground", "ghi", "occupower/1000"]
+             + [f"u[{i}]" for i in range(n)])
+    diff = kl[:, b] != rl[:, b]
+    rows = diff.any(1).nonzero()
+    if not len(rows):
+        return (f"env {b}: |d reward| first > 1e-3 at step {t_r}; learner "
+                f"block equal at every step")
+    t_f = int(rows[0])
+    cols = diff[t_f].nonzero().flatten().tolist()
+    entries = ", ".join(f"{names[c]} {float(kl[t_f, b, c]):.6g} vs "
+                        f"{float(rl[t_f, b, c]):.6g}" for c in cols)
+    d_before = float(dr[:t_f + 1, b].max())
+    return (f"env {b}: |d reward| first > 1e-3 at step {t_r}; learner block "
+            f"first differs at step {t_f} in {entries} (kernel vs plain); "
+            f"max |d reward| up to that step {d_before:.3e}; "
+            f"{'a bf16 flip comes first' if t_r is None or t_f <= t_r else 'no flip comes first'}")
+
+
 def check_building_policy(case: str, n: int, kernel, plain, tag: str
                           ) -> float:
     """``building_policy_segment`` against its plain version with the JAX
@@ -1043,6 +1079,8 @@ def check_building_policy(case: str, n: int, kernel, plain, tag: str
           f"{dx:.3e} u {du:.3e} reward {dr32:.3e}; episode reward max|d| "
           f"{float(dr.max()):.3e}, |d mean| {dmean:.3e}, |d std| {dstd:.3e} "
           f"{tag}", flush=True)
+    print(f"building_policy_segment {case} drift: "
+          f"{policy_drift(n, kernel, plain)} {tag}", flush=True)
     if not (dx < 0.05 and du < 0.05 and dr32 < 0.02 and dmean < 5e-3
             and dstd < 2e-2):
         fail(f"building_policy_segment {case}: outside the JAX bounds")
@@ -1200,8 +1238,8 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
                           device=dev)
     pol_args = (K5._env_args(p, m, e, T, "building_policy_segment")
                 + K.policy_weight_args(w)
-                + [HIDDEN, None, 69, pol_out.data_ptr(), pol_lrn.data_ptr(),
-                   stream])
+                + [HIDDEN, None, 69,
+                   pol_out.data_ptr(), pol_lrn.data_ptr(), stream])
     pol_ms = cuda_ms(lambda: raise_on(
         lib.building_policy_segment_launch(*pol_args),
         "building_policy_segment"), 3)
@@ -1209,6 +1247,28 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     pol_plain_ms = cuda_ms(lambda: K5.building_policy_segment_ref(
         p, w, e, T, seed=69), 1)
     D = n + 4
+    plan = K5.building_policy_plan(n, HIDDEN)
+    ctas = plan["ctas"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = -(-TRAIN_ENVS // (16 * plan["tiles"]))
+    print(f"building_policy_segment H={HIDDEN}: plan {plan}; {ctas} CTA(s) "
+          f"of {16 * plan['tiles']} envs resident per SM, {grid} CTAs = "
+          f"{grid / (ctas * sms):.3f} waves on {sms} SMs {tag}", flush=True)
+    obs = torch.randn((TRAIN_ENVS, D), generator=gen, device=dev).bfloat16()
+    hid = torch.randn((TRAIN_ENVS, HIDDEN), generator=gen,
+                      device=dev).bfloat16()
+
+    def actor_matmuls():
+        for _ in range(T):
+            torch.matmul(obs, w.w1)
+            torch.matmul(hid, w.w2)
+            torch.matmul(hid, w.wm)
+
+    print(f"yardstick, not called by the port: the building actor's three "
+          f"bf16 torch.matmul per step at {TRAIN_ENVS} rows x {T} steps "
+          f"{cuda_ms(actor_matmuls, 2):.3f} ms (CUDA events) {tag}",
+          flush=True)
+    del obs, hid
     pol_flops = TRAIN_ENVS * T * 2 * (D * HIDDEN + HIDDEN * HIDDEN
                                       + HIDDEN * n)
     pol_bound = bound(
@@ -1413,25 +1473,38 @@ def main() -> int:
     days = torch.randint(p.n_days, (SIM_BATCH,), generator=gen, device=dev)
     seg_ms = device_ms(lambda: K.ev_segment(p, days, STEPS, seed=12),
                        "ev_segment_kernel", 3)
+    # the mat-vecs with C the kernel ran on these inputs (it stops an env
+    # step's projection at its fixed point and skips C' y where y is 0)
+    matvecs = torch.zeros((), dtype=torch.long, device=dev)
+    K.ev_segment(p, days, STEPS, seed=12, matvecs=matvecs)
+    matvecs = int(matvecs)
     seg_plain_ms = cuda_ms(lambda: K.ev_segment_ref(p, days, STEPS,
                                                     seed=12), 1)
     steps = SIM_BATCH * STEPS
+    m2, iters = int(p.proj.C.shape[0]), int(p.proj.iters)
+    seg_ctas, seg_warps = K.ev_segment_occupancy(m2)
+    seg_grid = -(-SIM_BATCH // seg_warps)
     print(f"simulation tier {SIM_BATCH}x{STEPS} projection on: kernel "
           f"{seg_ms:.3f} ms (device) = {steps / seg_ms * 1e3:.0f} "
           f"env-steps/s; plain {seg_plain_ms:.3f} ms = "
           f"{steps / seg_plain_ms * 1e3:.0f} env-steps/s; mean reward "
-          f"{ev_mean_reward:.6f}; launches {launches} {tag}", flush=True)
+          f"{ev_mean_reward:.6f}; launches {launches}; {seg_ctas} CTAs of "
+          f"{seg_warps} warps resident per SM = {seg_ctas * seg_warps} warps "
+          f"(m2 = {m2}), {seg_grid} CTAs = "
+          f"{seg_grid / (seg_ctas * sms):.3f} waves on {sms} SMs; mat-vecs "
+          f"with C run {matvecs} = {matvecs / steps:.4f} per env step (the "
+          f"full loop: {2 * iters + 2}) {tag}", flush=True)
     print(f"simulation tier {SIM_BATCH}x{STEPS}: whole fused_rollout call "
           f"{sim_ms:.3f} ms (CUDA events) = {steps / sim_ms * 1e3:.0f} "
           f"env-steps/s {tag}", flush=True)
 
     # bounds at the main path's shapes (caltech, projection on)
-    m2, iters = int(p.proj.C.shape[0]), int(p.proj.iters)
-    # per env step: 2 mat-vecs per FISTA iteration, the final C' y and the
-    # reward's C p, each 2 m2 n operations
+    # mat-vecs with C, each 2 m2 n operations: ev_segment counts those it
+    # ran; the policy kernel runs 2 per FISTA iteration, the final C' y and
+    # the reward's C p in every step
     step_ops = (2 * iters + 2) * 2 * m2 * n
     seg_bound = bound(nbytes(p.step_table) + SIM_BATCH * (8 + 16 * STEPS),
-                      f32_ops=SIM_BATCH * STEPS * step_ops)
+                      f32_ops=matvecs * 2 * m2 * n)
     pol_bound = bound(
         nbytes(p.step_table, p.moer) + actor_bytes(w)
         + TRAIN_ENVS * (8 + STEPS * (16 + 2 * (D + n))),

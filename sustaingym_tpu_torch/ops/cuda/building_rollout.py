@@ -35,11 +35,13 @@ from ...envs.building.env import (MAX_KERNEL_ZONES, OCCU_COEF, BuildingParams,
                                   _seq_sum, div, kernel_config)
 from .ev_rollout import (PolicyWeights, _actor_ref, check_policy_weights,
                          policy_weight_args)
-from .wrap import F, I, P, U64, bind, check, on_card, ptr, raise_on, seeded
+from .wrap import (F, I, P, PI, U64, bind, check, ctas_per_sm, on_card, ptr,
+                   raise_on, seeded)
 
 __all__ = ["building_fused_layout", "segment_step", "building_segment",
            "building_segment_ref", "building_policy_segment",
-           "building_policy_segment_ref", "ops_per_step"]
+           "building_policy_segment_ref", "ops_per_step",
+           "building_policy_plan"]
 
 
 def ops_per_step(n: int) -> int:
@@ -176,6 +178,9 @@ _SIGNATURES = {
     "building_segment_launch": _ENV_ARGS + [P, U64, P, P, P, P, P, P, P],
     "building_policy_segment_launch": _ENV_ARGS + [
         P, P, P, P, P, P, P, I, P, U64, P, P, P],
+    "building_policy_segment_launch_plan": _ENV_ARGS + [
+        P, P, P, P, P, P, P, I, I, I, I, I, I, P, U64, P, P, P],
+    "building_policy_segment_plan": [I, I] + [PI] * 7,
 }
 
 
@@ -261,7 +266,9 @@ def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
     (T, B, n) prescribed normals, else Box–Muller draws seeded by
     ``seed``. Returns (out (T, B, 3) f32 reward | comfort_cost |
     power_cost, learner block (T, B, 2n + 4) bf16; see
-    :func:`building_fused_layout`)."""
+    :func:`building_fused_layout`). The launcher lays the actor out in the
+    card's shared memory (:func:`building_policy_plan`) and refuses one
+    whose 16-env activation tiles do not fit."""
     if not on_card(params.exog, "building_policy_segment"):
         return building_policy_segment_ref(params, weights, epochs, T, noise,
                                            seed)
@@ -288,3 +295,18 @@ def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
 
 
 building_policy_segment.launches = 0
+
+
+def building_policy_plan(n: int, H: int) -> dict:
+    """How ``building_policy_segment``'s launcher holds an actor of ``n``
+    zones and ``H`` hidden units in the current card's shared memory: env
+    tiles of 16 per CTA (``tiles``: 4, 2 or 1, the most whose activation
+    tiles fit), ``bias`` (1: b1 and b2 resident), the resident leading k16
+    steps per column pair of w1, w2 and wm (``k1``, ``k2``, ``k3``; the
+    rest is read from L2), the CTA's shared memory (``smem``, bytes) and
+    the CTAs resident per SM (``ctas``). Raises if one tile does not
+    fit."""
+    keys = ("ctas", "tiles", "bias", "k1", "k2", "k3", "smem")
+    return dict(zip(keys, ctas_per_sm(
+        bind("building_rollout", _SIGNATURES).building_policy_segment_plan,
+        n, H)))

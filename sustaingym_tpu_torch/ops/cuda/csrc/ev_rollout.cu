@@ -9,11 +9,11 @@
 // What bounds them. Per env step the dual-FISTA projection runs `iters`
 // (15) dependent iterations of two skinny mat-vecs (C' y over <= 32 cone
 // rows, C xbar over <= 64 stations); the reward adds one more C mat-vec.
-// That is a latency chain of warp-synchronous FMAs, not a bandwidth
-// problem: one day-table row (~0.7 KB, L2-resident: the whole table is
-// ~37 MB) and 16 bytes of output per env step. The policy kernel adds the
-// actor MLP, ~2*(D*H + H*H + H*n) = 234 kFLOP per env step at H = 256,
-// whose weights (~233 KB bf16) are the one large operand.
+// That is a chain of warp-synchronous FMAs, not a bandwidth problem: one
+// day-table row (~0.7 KB, L2-resident: the whole table is ~37 MB) and 16
+// bytes of output per env step. The policy kernel adds the actor MLP,
+// ~2*(D*H + H*H + H*n) = 234 kFLOP per env step at H = 256, whose weights
+// (~233 KB bf16) are the one large operand.
 //
 // Design.
 //  * One warp per env. Lane l owns stations l and l + 32 (n <= 64) and cone
@@ -21,10 +21,25 @@
 //    a cone's (Re, Im) pair sits in lanes (2c, 2c+1) and its norm is one
 //    __shfl_xor. Station state (plugged, departure, est. departure, demand)
 //    stays in registers for the whole segment.
-//  * The cone operator C lives in shared memory twice: station-major for
-//    C xbar (lane = cone row reads consecutive words) and cone-major for
-//    C' y (lane = station reads consecutive words), so neither mat-vec has
-//    bank conflicts. Mat-vec operands go through a per-warp shared buffer.
+//  * Simulation kernel: the cone operator in registers (RegCone). The
+//    kernel is bound by its instruction issue: read from shared memory,
+//    each FISTA iteration's two mat-vecs cost a load per term and operand,
+//    ~436 instructions an iteration at caltech's 54 stations and 16 cone
+//    rows (82 ms at 32768 x 288). A lane holds its two stations' columns
+//    of C for the whole launch; y comes back from shared memory as float4
+//    broadcasts, and C x is a reduce-scatter of the lanes' partials by
+//    shuffles: ~250 instructions an iteration. The kernel is a template on
+//    m2 rounded up to 8, so each site holds only the columns it has. Each
+//    step's projection stops at its fixed point (fista<true>), after one
+//    iteration in nearly every step of random actions, and skips C' y
+//    where y is 0 in every lane.
+//  * Policy kernel: the cone operator lives in shared memory twice
+//    (SharedCone; fista<false> and env_step<false> run the same body):
+//    station-major for C xbar (lane = cone row reads consecutive words) and
+//    cone-major for C' y (lane = station reads consecutive words), so
+//    neither mat-vec has bank conflicts. Mat-vec operands go through a
+//    per-warp shared buffer. Its 64-register budget leaves no room for the
+//    columns.
 //  * The day table is indexed directly, table[day_b, t], instead of the TPU
 //    kernel's one-hot matmul day select.
 //  * Policy kernel: a CTA owns a tile of kTile = 16 envs (one warp each).
@@ -66,8 +81,10 @@ constexpr double kViolationFactor = kAPersToKwh * 0.001;
 constexpr double kCarbonCostFactor = kAPersToKwh * (30.85 / 1000.0);
 constexpr double kMaxTimestep = 288.0;
 
+// offsets 16 .. 1, unrolled
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+#pragma unroll
+  for (int b = 4; b >= 0; --b) v += __shfl_xor_sync(kFull, v, 1 << b);
   return v;
 }
 
@@ -120,27 +137,42 @@ __device__ Lane make_lane(const Operators& op) {
   return L;
 }
 
-// C' y for this lane's two stations; y[k] in ys[0:m2].
-__device__ __forceinline__ void ct_y(const Operators& op, SharedC sc,
-                                     const float* ys, const Lane& L,
-                                     float& d0, float& d1) {
-  d0 = 0.0f;
-  d1 = 0.0f;
-  for (int k = 0; k < op.m2; ++k) {
-    const float yk = ys[k];
-    d0 += sc.ckj[k * kMaxStations + L.s0] * yk;
-    d1 += sc.ckj[k * kMaxStations + L.s1] * yk;
-  }
-}
+// The policy kernel's cone operator: C in shared memory (SharedC), the
+// mat-vecs' operands through the warp's scratch (xs: 64 stations, ys: 32
+// cone rows). RegCone below has the same interface; ct_y returns the
+// mat-vecs it ran.
+struct SharedCone {
+  const Operators& op;
+  SharedC sc;
+  float *xs, *ys;
 
-// (C x)[lane] for this lane's cone row; x[j] in xs[0:n].
-__device__ __forceinline__ float c_x(const Operators& op, SharedC sc,
-                                     const float* xs, const Lane& L) {
-  float acc = 0.0f;
-  if (L.crow)
-    for (int j = 0; j < op.n; ++j) acc += sc.cjk[j * kMaxConeRows + L.lane] * xs[j];
-  return acc;
-}
+  // C' y for the lane's two stations; y is the lane's cone-row value
+  __device__ __forceinline__ int ct_y(float y, const Lane& L, float& d0,
+                                      float& d1) const {
+    __syncwarp();
+    ys[L.lane] = y;
+    __syncwarp();
+    d0 = 0.0f;
+    d1 = 0.0f;
+    for (int k = 0; k < op.m2; ++k) {
+      const float yk = ys[k];
+      d0 += sc.ckj[k * kMaxStations + L.s0] * yk;
+      d1 += sc.ckj[k * kMaxStations + L.s1] * yk;
+    }
+    return 1;
+  }
+
+  // (C x)[lane] for the lane's cone row from the lane's two station values
+  __device__ __forceinline__ float c_x(float x0, float x1, const Lane& L) const {
+    xs[L.s0] = x0;
+    xs[L.s1] = x1;
+    __syncwarp();
+    float acc = 0.0f;
+    if (L.crow)
+      for (int j = 0; j < op.n; ++j) acc += sc.cjk[j * kMaxConeRows + L.lane] * xs[j];
+    return acc;
+  }
+};
 
 // Norm of this lane's cone pair (Re in the even lane, Im in the odd one).
 __device__ __forceinline__ float pair_norm_sq(float v, int lane) {
@@ -148,43 +180,6 @@ __device__ __forceinline__ float pair_norm_sq(float v, int lane) {
   const float re = (lane & 1) ? p : v;
   const float im = (lane & 1) ? v : p;
   return re * re + im * im;
-}
-
-// Preconditioned dual-FISTA with gradient restart (ops/qp.py::project);
-// a and ub are this lane's two stations, xs/ys the warp's scratch.
-__device__ void fista(const Operators& op, SharedC sc, const Lane& L,
-                      float* xs, float* ys, float a0, float a1, float ub0,
-                      float ub1, float& x0, float& x1) {
-  float lam = 0.0f, lam_prev = 0.0f, tk = 1.0f;
-  float d0, d1;
-  for (int it = 0; it < op.iters; ++it) {
-    float tk1 = 0.5f * (1.0f + sqrtf(1.0f + 4.0f * tk * tk));
-    const float beta = (tk - 1.0f) / tk1;
-    const float y = lam + beta * (lam - lam_prev);
-    __syncwarp();
-    ys[L.lane] = y;
-    __syncwarp();
-    ct_y(op, sc, ys, L, d0, d1);
-    xs[L.s0] = fminf(fmaxf(a0 - d0, 0.0f), ub0);
-    xs[L.s1] = fminf(fmaxf(a1 - d1, 0.0f), ub1);
-    __syncwarp();
-    const float w = y + L.t2 * c_x(op, sc, xs, L);
-    const float nr = sqrtf(pair_norm_sq(w, L.lane) + 1e-12f);
-    const float lam_new = L.crow ? w * fmaxf(0.0f, 1.0f - L.tr / nr) : 0.0f;
-    if (op.restart) {
-      const float prog = warp_sum((lam_new - lam) * (lam - lam_prev));
-      if (prog < 0.0f) tk1 = 1.0f;
-    }
-    lam_prev = lam;
-    lam = lam_new;
-    tk = tk1;
-  }
-  __syncwarp();
-  ys[L.lane] = lam;
-  __syncwarp();
-  ct_y(op, sc, ys, L, d0, d1);
-  x0 = fminf(fmaxf(a0 - d0, 0.0f), ub0);
-  x1 = fminf(fmaxf(a1 - d1, 0.0f), ub1);
 }
 
 // Station state of one env, in this lane's registers.
@@ -215,23 +210,177 @@ __device__ __forceinline__ float charge(float pilot, bool plugged, float& dem) {
   return power * 1000.0f / (float)kVoltage;
 }
 
+// ---- the simulation kernel's projection: the cone operator in registers --
+//
+// Lane l keeps the two columns of C it needs, C[0:m2, l] and C[0:m2, l+32],
+// in registers for the whole launch (MP = m2 rounded up to 8; zero past m2
+// and past n). C' y reads y back from the warp's scratch as float4
+// broadcasts and sums k = 0 .. m2-1 with one FMA per term, the order of
+// SharedCone::ct_y, so d0 and d1 come out as there (the zero columns past
+// m2 add exact zeros). C x forms each lane's partials C[k, l] x_l +
+// C[k, l+32] x_{l+32} for all k and reduce-scatters them across the warp
+// (reduce_scatter below), so that cone row k ends in lane k as in
+// SharedCone::c_x.
+
+// One halving step of reduce_scatter at lane bit O, then the next: a lane
+// keeps the half of v[0:2 O] that its bit O selects and adds its partner's
+// copy of that half (O shuffles). O is a template parameter so that every
+// index of v is a constant: a register, not a select over registers.
+template <int O, int W>
+__device__ __forceinline__ void halve(float (&v)[W], int lane) {
+  if constexpr (O >= 1) {
+    const bool hi = lane & O;
+#pragma unroll
+    for (int j = 0; j < O; ++j) {
+      const float send = hi ? v[j] : v[O + j];
+      const float keep = hi ? v[O + j] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+    halve<O / 2>(v, lane);
+  }
+}
+
+// Sums v[0:W] over the warp's lanes and leaves the sum of row (lane % W)
+// in the lane: log2(W) halving steps (W - 1 shuffles), then a butterfly
+// over the lane bits above W (16 rows: 16 shuffles in all; 8 rows: 9).
+template <int W>
+__device__ __forceinline__ float reduce_scatter(float (&v)[W], int lane) {
+  halve<W / 2>(v, lane);
+  float s = v[0];
+#pragma unroll
+  for (int b = 0; b < 5; ++b)
+    if ((1 << b) >= W) s += __shfl_xor_sync(kFull, s, 1 << b);
+  return s;
+}
+
+template <int MP>
+struct RegCone {
+  float c0[MP], c1[MP];  // C[k, s0], C[k, s1]
+  float4* ys;            // the warp's scratch: y[0:MP]
+
+  __device__ __forceinline__ void load(const Operators& op, const Lane& L,
+                                       float4* scratch) {
+    ys = scratch;
+#pragma unroll
+    for (int k = 0; k < MP; ++k) {
+      c0[k] = (k < op.m2 && L.v0) ? op.C[k * op.n + L.s0] : 0.0f;
+      c1[k] = (k < op.m2 && L.v1) ? op.C[k * op.n + L.s1] : 0.0f;
+    }
+  }
+
+  // C' y for the lane's two stations; y is the lane's cone-row value (0
+  // outside the cones). When y is 0 in every lane, every term is a zero and
+  // the sums +0, as the loop would leave them: no mat-vec runs.
+  __device__ __forceinline__ int ct_y(float y, const Lane& L, float& d0,
+                                      float& d1) const {
+    d0 = 0.0f;
+    d1 = 0.0f;
+    if (__all_sync(kFull, y == 0.0f)) return 0;
+    __syncwarp();
+    if (L.lane < MP) reinterpret_cast<float*>(ys)[L.lane] = y;
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < MP / 4; ++q) {
+      const float4 y4 = ys[q];
+      const float yk[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        d0 = fmaf(c0[4 * q + i], yk[i], d0);
+        d1 = fmaf(c1[4 * q + i], yk[i], d1);
+      }
+    }
+    return 1;
+  }
+
+  // (C x)[lane] from the lane's two station values
+  __device__ __forceinline__ float c_x(float x0, float x1, const Lane& L) const {
+    const int lane = L.lane;
+    float part[MP];
+#pragma unroll
+    for (int k = 0; k < MP; ++k) part[k] = fmaf(c1[k], x1, c0[k] * x0);
+    float r = 0.0f;
+#pragma unroll
+    for (int base = 0; base + 16 <= MP; base += 16) {
+      float v[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) v[k] = part[base + k];
+      const float s = reduce_scatter<16>(v, lane);
+      if (base == 0 || lane >= base) r = s;
+    }
+    if constexpr (MP % 16 == 8) {
+      constexpr int base = MP - 8;
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = part[base + k];
+      const float s = reduce_scatter<8>(v, lane);
+      if (base == 0 || lane >= base) r = s;
+    }
+    return r;
+  }
+};
+
+// Preconditioned dual-FISTA with gradient restart (ops/qp.py::project)
+// on a cone operator (SharedCone or RegCone; inlined: RegCone's columns must
+// stay in registers, not go to the stack with a reference to the cone); a
+// and ub are this lane's two stations. With kStop, the loop stops once an
+// iteration leaves every lane's lam where the one before left it (lam_new
+// == lam == lam_prev: in most env steps lam stays 0, no cone binding): the
+// iterations left would repeat it exactly (y = lam + beta * 0 = lam, so the
+// same x, w and lam, and no restart), so the result is that of all
+// `iters`. Returns the mat-vecs with C that it ran.
+template <bool kStop, class Cone>
+__device__ __forceinline__ int fista(const Operators& op, const Cone& cone,
+                                     const Lane& L, float a0, float a1,
+                                     float ub0, float ub1, float& x0, float& x1) {
+  float lam = 0.0f, lam_prev = 0.0f, tk = 1.0f;
+  float d0, d1;
+  int matvecs = 0;
+  for (int it = 0; it < op.iters; ++it) {
+    float tk1 = 0.5f * (1.0f + sqrtf(1.0f + 4.0f * tk * tk));
+    const float beta = (tk - 1.0f) / tk1;
+    const float y = lam + beta * (lam - lam_prev);
+    matvecs += cone.ct_y(y, L, d0, d1) + 1;  // and C x below
+    const float w = y + L.t2 * cone.c_x(fminf(fmaxf(a0 - d0, 0.0f), ub0),
+                                        fminf(fmaxf(a1 - d1, 0.0f), ub1), L);
+    const float nr = sqrtf(pair_norm_sq(w, L.lane) + 1e-12f);
+    const float lam_new = L.crow ? w * fmaxf(0.0f, 1.0f - L.tr / nr) : 0.0f;
+    // at it = 0, lam - lam_prev = 0: prog is 0
+    if (op.restart && (!kStop || it > 0)) {
+      const float prog = warp_sum((lam_new - lam) * (lam - lam_prev));
+      if (prog < 0.0f) tk1 = 1.0f;
+    }
+    const bool fixed = kStop && __all_sync(kFull, lam_new == lam && lam == lam_prev);
+    lam_prev = lam;
+    lam = lam_new;
+    tk = tk1;
+    if (fixed) break;
+  }
+  matvecs += cone.ct_y(lam, L, d0, d1);
+  x0 = fminf(fmaxf(a0 - d0, 0.0f), ub0);
+  x1 = fminf(fmaxf(a1 - d1, 0.0f), ub1);
+  return matvecs;
+}
+
 // One env step after the action is known: projection, quantization,
 // events, battery, reward. Writes (reward, profit, carbon, excess) to out4
 // from lane 0. `row` is table[day, t]: plug_dep | plug_est | plug_req |
-// moer(t+1) | ...
-__device__ void env_step(const Operators& op, SharedC sc, const Lane& L,
-                         float* xs, float* ys, Stations& st, float a0,
-                         float a1, const float* row, int t, float* out4) {
+// moer(t+1) | ... Returns the mat-vecs with C that it ran.
+template <bool kStop, class Cone>
+__device__ __forceinline__ int env_step(const Operators& op, const Cone& cone,
+                                        const Lane& L, Stations& st, float a0,
+                                        float a1, const float* row, int t,
+                                        float* out4) {
   const int n = op.n;
   a0 = L.v0 ? fminf(fmaxf(a0, 0.0f), 1.0f) : 0.0f;
   a1 = L.v1 ? fminf(fmaxf(a1, 0.0f), 1.0f) : 0.0f;
+  int matvecs = 1;  // the reward's C p
   if (op.project) {
     // upper bound from the pre-event demands the agent observed
     const float kub = (float)kAPersToKwh;
     const float ub0 = fminf(1.0f, (st.pl0 ? st.dem0 : 0.0f) / kub / 32.0f);
     const float ub1 = fminf(1.0f, (st.pl1 ? st.dem1 : 0.0f) / kub / 32.0f);
-    fista(op, sc, L, xs, ys, a0, a1, L.v0 ? ub0 : 0.0f, L.v1 ? ub1 : 0.0f,
-          a0, a1);
+    matvecs += fista<kStop>(op, cone, L, a0, a1, L.v0 ? ub0 : 0.0f,
+                            L.v1 ? ub1 : 0.0f, a0, a1);
   }
   const float p0 = L.v0 ? quantize(a0, L.minp0) : 0.0f;
   const float p1 = L.v1 ? quantize(a1, L.minp1) : 0.0f;
@@ -259,10 +408,7 @@ __device__ void env_step(const Operators& op, SharedC sc, const Lane& L,
 
   // per-cone aggregate current magnitudes at the quantized pilots
   __syncwarp();
-  xs[L.s0] = p0;
-  xs[L.s1] = p1;
-  __syncwarp();
-  const float agg = c_x(op, sc, xs, L);
+  const float agg = cone.c_x(p0, p1, L);
   const float mag = sqrtf(pair_norm_sq(agg, L.lane));
   // padded cone rows add exactly 0
   const bool cone_head = L.crow && !(L.lane & 1) && L.mag_lim > 0.0f;
@@ -276,28 +422,33 @@ __device__ void env_step(const Operators& op, SharedC sc, const Lane& L,
     *reinterpret_cast<float4*>(out4) =
         make_float4(profit - carbon - excess_charge, profit, carbon, excess_charge);
   }
+  return matvecs;
 }
 
 constexpr int kSimWarps = 8;
 
-__global__ void __launch_bounds__(kSimWarps * 32)
+// CTAs per SM the register budget of the simulation kernel must allow: 24
+// resident warps (<= 80 registers) up to 24 cone rows, 16 warps above
+__host__ __device__ constexpr int sim_blocks(int MP) { return MP <= 24 ? 3 : 2; }
+
+template <int MP>
+__global__ void __launch_bounds__(kSimWarps * 32, sim_blocks(MP))
 ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
                   int rows_per_day, const int64_t* __restrict__ days, int B,
                   int T, const float* __restrict__ acts, uint64_t seed,
-                  float* __restrict__ out, float* __restrict__ acts_out) {
-  extern __shared__ float smem[];
-  SharedC sc{smem, smem + kMaxStations * kMaxConeRows};
-  load_operator(op, sc);
-  __syncthreads();
+                  float* __restrict__ out, float* __restrict__ acts_out,
+                  unsigned long long* __restrict__ matvecs_out) {
+  __shared__ float4 scratch[kSimWarps][MP / 4];
   const int warp = threadIdx.x >> 5;
-  float* xs = smem + 2 * kMaxStations * kMaxConeRows + warp * 96;
-  float* ys = xs + kMaxStations;
   const int e = blockIdx.x * kSimWarps + warp;
   if (e >= B) return;  // whole warps only: no block-wide sync follows
   const Lane L = make_lane(op);
+  RegCone<MP> cone;
+  cone.load(op, L, scratch[warp]);
   const uint2 key = philox_key(seed);
   const float* day_rows = table + (size_t)days[e] * rows_per_day * table_w;
   Stations st{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
+  unsigned long long matvecs = 0;
   for (int t = 0; t < T; ++t) {
     float a0, a1;
     if (acts != nullptr) {
@@ -314,9 +465,11 @@ ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
       if (L.v0) ao[L.s0] = fminf(fmaxf(a0, 0.0f), 1.0f);
       if (L.v1) ao[L.s1] = fminf(fmaxf(a1, 0.0f), 1.0f);
     }
-    env_step(op, sc, L, xs, ys, st, a0, a1, day_rows + (size_t)t * table_w, t,
-             out + ((size_t)t * B + e) * 4);
+    matvecs += env_step<true>(op, cone, L, st, a0, a1,
+                              day_rows + (size_t)t * table_w, t,
+                              out + ((size_t)t * B + e) * 4);
   }
+  if (matvecs_out != nullptr && L.lane == 0) atomicAdd(matvecs_out, matvecs);
 }
 
 __global__ void __launch_bounds__(kTile * 32, 2)
@@ -390,9 +543,9 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
         lrow[D + L.s1] = __float2bfloat16_rn(u);
         a1 = tanhf(u) * 0.5f + 0.5f;
       }
-      env_step(op, sc, L, xs, ys, st, a0, a1,
-               table + ((size_t)day * rows_per_day + t) * table_w, t,
-               out + ((size_t)t * B + e) * 4);
+      env_step<false>(op, SharedCone{op, sc, xs, ys}, L, st, a0, a1,
+                      table + ((size_t)day * rows_per_day + t) * table_w, t,
+                      out + ((size_t)t * B + e) * 4);
     }
   }
 }
@@ -400,6 +553,20 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
 size_t policy_smem_bytes(int D, int H, int n) {
   return sizeof(float) * (2 * kMaxStations * kMaxConeRows + kTile * 96) +
          actor_tiles_bytes(D, H, n);
+}
+
+using SimKernel = void (*)(Operators, const float*, int, int, const int64_t*, int,
+                           int, const float*, uint64_t, float*, float*,
+                           unsigned long long*);
+// ev_segment_kernel's instance for m2 <= 32 cone rows (rounded up to 8)
+SimKernel sim_kernel(int m2) {
+  switch ((m2 + 7) / 8) {
+    case 0:
+    case 1: return ev_segment_kernel<8>;
+    case 2: return ev_segment_kernel<16>;
+    case 3: return ev_segment_kernel<24>;
+    default: return ev_segment_kernel<32>;
+  }
 }
 
 }  // namespace
@@ -411,15 +578,24 @@ extern "C" int ev_segment_launch(
     const float* minp, int n, int m2, int iters, int restart, int project,
     const float* table, int table_w, int rows_per_day, const int64_t* days,
     int B, int T, const float* acts, uint64_t seed, float* out,
-    float* acts_out, void* stream) {
+    float* acts_out, unsigned long long* matvecs_out, void* stream) {
   if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
   Operators op{C, radii, step, mags, minp, n, m2, iters, restart, project};
-  const size_t smem = sizeof(float) * (2 * kMaxStations * kMaxConeRows + kSimWarps * 96);
   const int grid = (B + kSimWarps - 1) / kSimWarps;
-  ev_segment_kernel<<<grid, kSimWarps * 32, smem, (cudaStream_t)stream>>>(
-      op, table, table_w, rows_per_day, days, B, T, acts, seed, out, acts_out);
+  sim_kernel(m2)<<<grid, kSimWarps * 32, 0, (cudaStream_t)stream>>>(
+      op, table, table_w, rows_per_day, days, B, T, acts, seed, out, acts_out,
+      matvecs_out);
   return (int)cudaGetLastError();
+}
+
+// CTAs of ev_segment_kernel (kSimWarps warps each) resident per SM for m2
+// cone rows, and the warps per CTA.
+extern "C" int ev_segment_ctas_per_sm(int m2, int* ctas, int* warps) {
+  if (m2 > kMaxConeRows) return (int)cudaErrorInvalidValue;
+  *warps = kSimWarps;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, sim_kernel(m2), kSimWarps * 32, 0);
 }
 
 extern "C" int ev_policy_segment_launch(

@@ -39,7 +39,8 @@ from .wrap import (I, P, PI, U64, bind, check, ctas_per_sm, on_card, pad16,
 __all__ = ["PolicyWeights", "b_fragments", "pack_policy_weights",
            "check_policy_weights", "policy_weight_args", "ev_fused_layout",
            "ev_segment", "ev_segment_ref", "ev_policy_segment",
-           "ev_policy_segment_ref", "ev_policy_occupancy"]
+           "ev_policy_segment_ref", "ev_policy_occupancy",
+           "ev_segment_occupancy"]
 
 _MAX_STATIONS = 64
 _MAX_CONE_ROWS = 32
@@ -142,11 +143,18 @@ def _zero_state(days: torch.Tensor, n: int) -> EVState:
 
 def ev_segment_ref(params: EVParams, days: torch.Tensor, T: int,
                    actions: torch.Tensor | None = None, seed: int = 0,
-                   record_actions: bool = False):
+                   record_actions: bool = False,
+                   matvecs: torch.Tensor | None = None):
     """Plain version of :func:`ev_segment`. Returns (out (T, B, 4) rows
     reward | profit | carbon_cost | excess_charge, the actions used
-    (T, B, n) if ``record_actions`` else None)."""
+    (T, B, n) if ``record_actions`` else None). It runs every FISTA
+    iteration of every step and adds its mat-vecs with C to ``matvecs``:
+    C' y and C x per iteration, the final C' y, the reward's C p."""
     n, B, dev = params.n_stations, days.shape[0], params.device
+    if matvecs is not None:
+        per_step = 2 * int(params.proj.iters) + 2 if params.project_action \
+            else 1
+        matvecs += B * T * per_step
     gen = seeded(dev, seed) if actions is None else None
     st = _zero_state(days, n)
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
@@ -221,11 +229,12 @@ def ev_policy_segment_ref(params: EVParams, weights: PolicyWeights,
 
 _OP_ARGS = [P, P, P, P, P, I, I, I, I, I]
 _SIGNATURES = {
-    "ev_segment_launch": _OP_ARGS + [P, I, I, P, I, I, P, U64, P, P, P],
+    "ev_segment_launch": _OP_ARGS + [P, I, I, P, I, I, P, U64, P, P, P, P],
     "ev_policy_segment_launch": _OP_ARGS + [
         P, P, P, P, P, P, P, I, I, P, I, I, P, I, I, P, I, I, P, U64, P, P,
         P],
     "ev_policy_segment_ctas_per_sm": [I, I, I, PI],
+    "ev_segment_ctas_per_sm": [I, PI, PI],
 }
 
 
@@ -266,15 +275,24 @@ def _op_args(params: EVParams, n: int, m2: int) -> list:
 
 def ev_segment(params: EVParams, days: torch.Tensor, T: int,
                actions: torch.Tensor | None = None, seed: int = 0,
-               record_actions: bool = False):
+               record_actions: bool = False,
+               matvecs: torch.Tensor | None = None):
     """One episode segment of B = len(days) envs from reset, T <= 288
     steps; ``days`` (B,) int64. ``actions`` (T, B, n) prescribed, else
     U[0, 1) draws seeded by ``seed``. Returns (out (T, B, 4) f32 rows
     reward | profit | carbon_cost | excess_charge, the actions used (T, B,
-    n) if ``record_actions`` else None)."""
+    n) if ``record_actions`` else None). ``matvecs``, a 0-d int64 tensor
+    on the params' device, gets the mat-vecs with C that the kernel ran
+    added to it: it stops an env step's projection once an iteration
+    repeats the one before (the rest would repeat it exactly) and skips
+    C' y where y is 0, so a projected step runs at least the first
+    iteration's C x and the reward's C p."""
     if not on_card(params.step_table, "the EV kernels"):
-        return ev_segment_ref(params, days, T, actions, seed, record_actions)
+        return ev_segment_ref(params, days, T, actions, seed, record_actions,
+                              matvecs)
     dev, n, m2 = _check_common(params, days, T)
+    if matvecs is not None:
+        check("matvecs", matvecs, torch.long, (), dev)
     table = params.step_table
     B = days.shape[0]
     if actions is not None:
@@ -286,7 +304,7 @@ def ev_segment(params: EVParams, days: torch.Tensor, T: int,
         err = _lib().ev_segment_launch(
             *_op_args(params, n, m2), table.data_ptr(), table.shape[2],
             table.shape[1], days.data_ptr(), B, T, ptr(actions),
-            seed % 2 ** 64, out.data_ptr(), ptr(acts_out),
+            seed % 2 ** 64, out.data_ptr(), ptr(acts_out), ptr(matvecs),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "ev_segment")
     ev_segment.launches += 1
@@ -340,3 +358,9 @@ def ev_policy_occupancy(D: int, H: int, n: int) -> int:
     """CTAs of ``ev_policy_segment``'s kernel (16 warps each) resident per
     SM for an actor (D, H, n), on the current card."""
     return ctas_per_sm(_lib().ev_policy_segment_ctas_per_sm, D, H, n)[0]
+
+
+def ev_segment_occupancy(m2: int) -> tuple[int, int]:
+    """(CTAs resident per SM, warps per CTA) of ``ev_segment``'s kernel
+    instance for ``m2`` cone rows, on the current card."""
+    return ctas_per_sm(_lib().ev_segment_ctas_per_sm, m2)

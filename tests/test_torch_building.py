@@ -480,3 +480,25 @@ def test_raw_tables_resolve_by_path(tables, monkeypatch):
     _, tp = tb.make_env(device="cpu")
     _, ref = _params(_dicts(tables))
     np.testing.assert_array_equal(tp.A_d.numpy(), ref.A_d.numpy())
+
+
+@pytest.mark.parametrize("flip,verdict", [
+    (5, "a bf16 flip comes first"), (9, "no flip comes first"),
+    (None, "learner block equal at every step")])
+def test_policy_drift_finds_the_first_flip(flip, verdict):
+    """chip_smoke.policy_drift names the most drifting env, the step where
+    its |d reward| first passes 1e-3 (7 here) and the first differing
+    learner-block entry, and says whether that flip comes first."""
+    T, B, n = 12, 3, 2
+    ko, ro = torch.zeros((T, B, 3)), torch.zeros((T, B, 3))
+    kl = torch.zeros((T, B, 2 * n + 4), dtype=torch.bfloat16)
+    rl = kl.clone()
+    ko[6:, 1, 0] = torch.linspace(1e-4, 0.5, T - 6)
+    ko[9, 2, 0] = 0.1
+    if flip is not None:
+        kl[flip, 1, n + 4 + 1] = 0.5                   # u[1]
+    msg = chip_smoke.policy_drift(n, (ko, kl), (ro, rl))
+    assert msg.startswith("env 1: |d reward| first > 1e-3 at step 7;")
+    if flip is not None:
+        assert f"first differs at step {flip} in u[1] 0.5 vs 0" in msg
+    assert msg.endswith(verdict)

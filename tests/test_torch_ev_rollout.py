@@ -229,3 +229,20 @@ def test_pack_policy_weights_fragment_order(D, H, n):
         back[torch.from_numpy(row), torch.from_numpy(col)] = frag
         assert torch.equal(back[:din, :dout], dense)
         assert not back[din:].any() and not back[:, dout:].any()
+
+
+@pytest.mark.parametrize("site", ["caltech", "jpl"])
+@pytest.mark.parametrize("project", [True, False])
+def test_ev_segment_ref_counts_every_matvec(site, project):
+    """The plain version runs every FISTA iteration of every step (the
+    kernel stops a step's projection at its fixed point, with the same
+    result) and adds its mat-vecs with C to the caller's count: two per
+    iteration, the final C' y and the reward's C p; only the reward's
+    without the projection."""
+    tenv, tp = tev.make_env(site=site, project_action=project, device="cpu")
+    days = torch.tensor([0, 3, 5])
+    run = torch.zeros((), dtype=torch.long)
+    K.ev_segment(tp, days, 4, seed=1, matvecs=run)
+    K.ev_segment(tp, days, 4, seed=2, matvecs=run)
+    per_step = 2 * int(tp.proj.iters) + 2 if project else 1
+    assert int(run) == 2 * 3 * 4 * per_step

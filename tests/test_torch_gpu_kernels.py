@@ -43,10 +43,14 @@ def _setup(dev, site, project, batch=64):
     return env, p, days, g
 
 
-@pytest.mark.parametrize("site,project", [("caltech", True), ("jpl", True),
-                                          ("caltech", False)])
-def test_ev_segment_kernel_matches_plain(cuda, site, project):
-    _, p, days, g = _setup(cuda, site, project)
+@pytest.mark.parametrize("site,project,batch", [
+    ("caltech", True, 64), ("jpl", True, 64), ("caltech", False, 64),
+    ("jpl", True, 37)])
+def test_ev_segment_kernel_matches_plain(cuda, site, project, batch):
+    """Both sites' kernel instances (caltech 16 cone rows, jpl 18: the
+    operator's columns in registers, rounded up to 16 and 24 rows), with
+    the projection on and off; 37 envs fill no 8-warp CTA."""
+    _, p, days, g = _setup(cuda, site, project, batch)
     T = 288
     acts = torch.rand((T, days.shape[0], p.n_stations), generator=g,
                       device=cuda)
@@ -63,6 +67,22 @@ def test_ev_segment_kernel_matches_plain(cuda, site, project):
     ro, _ = K.ev_segment_ref(p, days, T, actions=a)
     torch.testing.assert_close(ko[:12], ro[:12], rtol=2e-4, atol=2e-5)
     assert 0.0 <= float(a.min()) and float(a.max()) < 1.0
+    # near-full rates bind the cones: the projection runs more than one
+    # iteration a step before it reaches its fixed point, at most all (two
+    # mat-vecs with C each, the final C' y and the reward's C p)
+    acts = 0.8 + 0.2 * torch.rand((T, days.shape[0], p.n_stations),
+                                  generator=g, device=cuda)
+    run = torch.zeros((), dtype=torch.long, device=cuda)
+    ko, _ = K.ev_segment(p, days, T, actions=acts, matvecs=run)
+    ro, _ = K.ev_segment_ref(p, days, T, actions=acts)
+    torch.testing.assert_close(ko[:12], ro[:12], rtol=2e-4, atol=2e-5)
+    d = (ko[..., 0] - ro[..., 0]).abs().cpu().numpy()
+    assert np.quantile(d, 0.99) < 1e-4 and d.mean() < 1e-4
+    steps = T * days.shape[0]
+    if project:
+        assert 2 * steps < int(run) <= steps * (2 * int(p.proj.iters) + 2)
+    else:
+        assert int(run) == steps
 
 
 @pytest.mark.parametrize("site,project", [("caltech", True), ("jpl", False)])
@@ -110,7 +130,11 @@ def test_ragged_batch(cuda):
         K.ev_policy_segment_ref(p, w, days, T, noise=noise), "")
 
 
-def test_kernel_wrappers_validate_inputs(cuda):
+def test_kernel_wrappers_validate_inputs(cuda, tmp_path):
+    """The EV wrapper's range checks; building_policy_segment's launcher
+    refuses an actor whose activation tiles exceed shared memory, and its
+    test entry point a plan it cannot hold (3 tiles, more resident steps
+    than a weight has)."""
     _, p, days, _ = _setup(cuda, "caltech", True)
     with pytest.raises(ValueError):
         K.ev_segment(p, days.int(), 12)
@@ -119,6 +143,32 @@ def test_kernel_wrappers_validate_inputs(cuda):
                      actions=torch.zeros((12, 3, 54), device=cuda))
     with pytest.raises(ValueError):
         K.ev_segment(p, days + p.n_days, 12)
+    _, p = _building(cuda, tmp_path)
+    n, T = p.n, 8
+    epochs = torch.zeros(16, dtype=torch.long, device=cuda)
+    big = K.pack_policy_weights(init_policy(
+        n + 4, n, 4096, torch.Generator().manual_seed(0), cuda))
+    with pytest.raises(RuntimeError):
+        K5.building_policy_segment(p, big, epochs, T)
+    with pytest.raises(RuntimeError):
+        K5.building_policy_plan(n, 4096)
+    w = K.pack_policy_weights(init_policy(
+        n + 4, n, 64, torch.Generator().manual_seed(1), cuda))
+    lib = K5.bind("building_rollout", K5._SIGNATURES)
+    out = torch.empty((T, 16, 3), device=cuda)
+    lrn = torch.empty((T, 16, 2 * n + 4), dtype=torch.bfloat16, device=cuda)
+    m = K5._operator(p)           # held: the launches read it by address
+    args = (K5._env_args(p, m, epochs, T, "building_policy_segment")
+            + K.policy_weight_args(w) + [64])
+    tail = [None, 0, out.data_ptr(), lrn.data_ptr(),
+            torch.cuda.current_stream().cuda_stream]
+    assert lib.building_policy_segment_launch_plan(*args, 4, 1, 1, 4, 4,
+                                                   *tail) == 0
+    for plan in ((3, 1, 1, 4, 4), (4, 1, 2, 4, 4), (4, 1, 1, 5, 4),
+                 (4, 2, 1, 4, 4)):
+        assert lib.building_policy_segment_launch_plan(*args, *plan,
+                                                       *tail) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("rows,cols,batch,length", [
@@ -371,6 +421,83 @@ def test_building_policy_segment_kernel_matches_plain(cuda, tmp_path):
     assert np.quantile(dr, 0.99) < 0.02
     assert abs(float(ko[..., 0].mean() - ro[..., 0].mean())) < 5e-3
     assert abs(float(ko[..., 0].std() - ro[..., 0].std())) < 2e-2
+
+
+@pytest.mark.parametrize("H", [64, 256, 384])
+@pytest.mark.parametrize("n", [1, 6, 8])
+def test_building_policy_plan(cuda, n, H):
+    """The launcher's shared-memory plan: 64 envs a CTA; b1, b2 and every
+    k16 step of w1 and wm resident; w2 whole up to H = 256, and at H = 384
+    (w2 alone 288 KB) as many leading steps as fit, one more step of its
+    column pairs overflowing what a CTA may hold; one CTA per SM."""
+    limit = getattr(torch.cuda.get_device_properties(cuda),
+                    "shared_memory_per_block_optin", 232448)   # H100: 227 KB
+    plan = K5.building_policy_plan(n, H)
+    pairs, kc1, kc2 = -(-H // 16), -(-(n + 4) // 16), -(-H // 16)
+    assert (plan["tiles"], plan["bias"], plan["k1"], plan["k3"],
+            plan["ctas"]) == (4, 1, kc1, kc2, 1)
+    assert plan["smem"] <= limit
+    if H <= 256:
+        assert plan["k2"] == kc2
+    else:
+        assert 0 < plan["k2"] < kc2 and plan["smem"] + 512 * pairs > limit
+
+
+@pytest.mark.parametrize("batch,H", [(16 * 64 + 5, 64), (300, 384)])
+def test_building_policy_segment_kernel_tiles(cuda, tmp_path, batch, H):
+    """A batch that fills no 64-env CTA (1029 envs: 16 CTAs and five
+    envs), and H = 384, whose weights exceed the shared memory beside the
+    activation tiles (w2's leading k16 steps resident, the rest read from
+    L2), each against the plain version with chip_smoke's bounds (the JAX
+    package's for its kernel)."""
+    _, p = _building(cuda, tmp_path)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    T, n = 288, p.n
+    plan = K5.building_policy_plan(n, H)
+    assert plan["tiles"] == 4 and (plan["k2"] < H // 16) == (H > 256)
+    w = K.pack_policy_weights(init_policy(n + 4, n, H, g, cuda))
+    epochs = torch.randint(p.length_of_weather - 1, (batch,), generator=g,
+                           device=cuda)
+    noise = torch.randn((T, batch, n), generator=g, device=cuda)
+    before = K5.building_policy_segment.launches
+    kernel = K5.building_policy_segment(p, w, epochs, T, noise=noise)
+    torch.cuda.synchronize()
+    assert K5.building_policy_segment.launches == before + 1
+    plain = K5.building_policy_segment_ref(p, w, epochs, T, noise=noise)
+    assert torch.equal(kernel[1][0, :, :n + 4], plain[1][0, :, :n + 4])
+    chip_smoke.check_building_policy(f"{batch} envs H={H}", n, kernel, plain,
+                                     "")
+
+
+@pytest.mark.parametrize("H,tiles", [(384, 4), (1024, 2), (2048, 1)])
+def test_building_policy_segment_plans_bit_equal(cuda, tmp_path, H, tiles):
+    """Where the actor sits changes no bit: the launcher's plan (64, 32 or
+    16 envs a CTA, weights partly resident) against 16- and (where they
+    fit) 32-env CTAs reading every weight and bias from global memory,
+    launched through the test entry point on the same prescribed noise."""
+    _, p = _building(cuda, tmp_path)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, T, n = 150, 96, p.n
+    assert K5.building_policy_plan(n, H)["tiles"] == tiles
+    w = K.pack_policy_weights(init_policy(n + 4, n, H, g, cuda))
+    epochs = torch.randint(p.length_of_weather - T, (B,), generator=g,
+                           device=cuda)
+    noise = torch.randn((T, B, n), generator=g, device=cuda)
+    want = K5.building_policy_segment(p, w, epochs, T, noise=noise)
+    lib = K5.bind("building_rollout", K5._SIGNATURES)
+    m = K5._operator(p)           # held: the launches read it by address
+    args = (K5._env_args(p, m, epochs, T, "building_policy_segment")
+            + K.policy_weight_args(w) + [H])
+    for plan in ((1, 0, 0, 0, 0), (2, 0, 0, 0, 0)):
+        if plan[0] > tiles:       # the activation tiles alone overflow
+            continue
+        out = torch.empty_like(want[0])
+        lrn = torch.empty_like(want[1])
+        assert lib.building_policy_segment_launch_plan(
+            *args, *plan, noise.data_ptr(), 0, out.data_ptr(),
+            lrn.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[0]) and torch.equal(lrn, want[1]), plan
 
 
 def test_building_fused_paths_on_card(cuda, tmp_path):

@@ -1,50 +1,102 @@
 #!/usr/bin/env python3
-"""Times the PyTorch port's policy and PDHG kernels on one CUDA card.
+"""Times the PyTorch port's EV, building-policy and PDHG kernels on one
+CUDA card, and keeps their outputs for an A/B against another checkout.
 
-    python3 tools/kernel_times.py [--root CHECKOUT]
+    python3 tools/kernel_times.py [--root CHECKOUT] [--save FILE]
+                                  [--compare FILE ...]
 
-Imports ``sustaingym_tpu_torch`` and ``chip_smoke`` from ``CHECKOUT``
-(default: this repository), builds its kernels (printing the compiler's
-registers and spills), and times, by CUDA events over back-to-back calls
-after a warm-up call, at the main paths' shapes:
+Imports ``sustaingym_tpu_torch`` from ``CHECKOUT`` (default: this
+repository) and ``chip_smoke`` from this repository, builds the checkout's
+kernels (printing the compiler's registers and spills), and times, by
+CUDA events over back-to-back calls after a warm-up call, at the main
+paths' shapes:
 
+- ``ev_segment`` at 32768 x 288, caltech, projection on, in-kernel draws
+  (seed 12), and the same with 0 FISTA iterations (the projection's
+  iterations and the rest of the kernel, apart); then on prescribed
+  near-full rates 0.8 + 0.2 U[0, 1), which bind the cones in most steps;
+  each with the mat-vecs with C the kernel ran per env step where it
+  counts them (the full loop runs 32);
 - ``ev_policy_segment`` at 8192 x 288, H = 256, caltech, with the action
-  projection on and off (the env step's projection and the rest of the
-  kernel, apart);
+  projection on and off;
 - ``building_policy_segment`` at 8192 x 288, H = 256, on the 6-zone office
-  of ``chip_smoke.write_building_tables``;
+  of ``chip_smoke.write_building_tables``, and at H = 16 (the actor's
+  products nearly gone: the env step, draws and barriers);
 - ``pdhg_solve_paired`` at B = 4096 on the market's own problems (reset
   envs, bids uniform over the action box): one warm (40 iterations) and one
   cold (200) solve.
 
-Prints one JSON line with the times in ms, the card's name and power
-limit and the checkout. To compare two checkouts on one card, run this on
-each in turns (A B B A) on one machine.
+Each call (the EV and PDHG ones) goes through its wrapper, whose range
+checks wait on the host between launches (~0.1 ms).
+
+Outputs, on inputs that are the same in every run (seeded on the card):
+``ev_segment`` of the two timed calls, ``ev_policy_segment`` and
+``building_policy_segment`` on prescribed noise at the timed shapes, and
+the warm and cold PDHG solves. ``--save`` writes them to FILE (the EV
+policy kernel's 0.9 GB learner block as its SHA-256); each ``--compare``
+loads another run's FILE and prints, per output, bit-equal or max |d|.
+The building output also gets ``chip_smoke.policy_drift`` against its
+plain version. Prints one JSON line with the times in ms, the card's name
+and power limit and the checkout. To compare two checkouts on one card,
+run this on each in turns (A B B A) in one call.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import importlib.util
+import inspect
 import json
 import os
 import shutil
 import sys
 import tempfile
 
-TRAIN_ENVS, STEPS, HIDDEN, MKT_BATCH = 8192, 288, 256, 4096
+TRAIN_ENVS, SIM_ENVS, STEPS, HIDDEN, MKT_BATCH = 8192, 32768, 288, 256, 4096
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    """This repository's chip_smoke.py, whichever checkout is measured."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare(outs: dict, other: dict) -> dict:
+    """Per output: "bit-equal", or max |d| (a digest: "differs")."""
+    import torch
+    res = {}
+    for key, x in outs.items():
+        y = other.get(key)
+        if y is None:
+            res[key] = "missing"
+        elif isinstance(x, str):
+            res[key] = "bit-equal" if x == y else "differs"
+        elif torch.equal(x, y):
+            res[key] = "bit-equal"
+        else:
+            res[key] = float((x.double() - y.double()).abs().max())
+    return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--save")
+    ap.add_argument("--compare", action="append", default=[])
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke as cs
+    cs = _chip_smoke()
     from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.core import replace
     from sustaingym_tpu_torch.envs import building
     from sustaingym_tpu_torch.envs.electricitymarket.env import MAX_BID
     from sustaingym_tpu_torch.ops.cuda import build
@@ -58,7 +110,35 @@ def main() -> int:
                          verbose=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"root": root, "card": cs.card_line()}
+    times = {"root": root, "card": cs.card_line()}
+    outs = {}
+
+    _, p = make("evcharging", device=dev)
+    days = torch.randint(p.n_days, (SIM_ENVS,), generator=gen, device=dev)
+    times["ev_segment"] = cs.cuda_ms(
+        lambda: K.ev_segment(p, days, STEPS, seed=12), 3)
+    outs["ev_segment"] = K.ev_segment(p, days, STEPS, seed=12)[0].cpu()
+    counts = "matvecs" in inspect.signature(K.ev_segment).parameters
+
+    def matvecs_per_step(**kw):
+        if counts:
+            run = torch.zeros((), dtype=torch.long, device=dev)
+            K.ev_segment(p, days, STEPS, matvecs=run, **kw)
+            return int(run) / (SIM_ENVS * STEPS)
+
+    times["ev_segment mat-vecs per env step"] = matvecs_per_step(seed=12)
+    p0 = replace(p, proj=replace(p.proj, iters=0))
+    times["ev_segment 0 FISTA iterations"] = cs.cuda_ms(
+        lambda: K.ev_segment(p0, days, STEPS, seed=12), 3)
+    acts = 0.8 + 0.2 * torch.rand((STEPS, SIM_ENVS, p.n_stations),
+                                  generator=gen, device=dev)
+    times["ev_segment cone-binding actions"] = cs.cuda_ms(
+        lambda: K.ev_segment(p, days, STEPS, actions=acts), 3)
+    times["ev_segment cone-binding mat-vecs per env step"] = \
+        matvecs_per_step(actions=acts)
+    outs["ev_segment cone-binding"] = K.ev_segment(
+        p, days, STEPS, actions=acts)[0].cpu()
+    del acts
 
     for proj in (True, False):
         _, p = make("evcharging", project_action=proj, device=dev)
@@ -67,9 +147,17 @@ def main() -> int:
             2 + 2 * n + k, n, HIDDEN, torch.Generator().manual_seed(2), dev))
         days = torch.randint(p.n_days, (TRAIN_ENVS,), generator=gen,
                              device=dev)
-        out[f"ev_policy_segment projection {'on' if proj else 'off'}"] = \
+        times[f"ev_policy_segment projection {'on' if proj else 'off'}"] = \
             cs.cuda_ms(lambda: K.ev_policy_segment(p, w, days, STEPS, seed=3),
                        3)
+        if proj:
+            noise = torch.randn((STEPS, TRAIN_ENVS, n), generator=gen,
+                                device=dev)
+            out, lrn = K.ev_policy_segment(p, w, days, STEPS, noise=noise)
+            outs["ev_policy_segment out"] = out.cpu()
+            outs["ev_policy_segment learner block"] = hashlib.sha256(
+                lrn.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            del noise, lrn
 
     tables = tempfile.mkdtemp(prefix="building_tables_")
     try:
@@ -82,8 +170,20 @@ def main() -> int:
         p.n + 4, p.n, HIDDEN, torch.Generator().manual_seed(68), dev))
     epochs = torch.randint(p.length_of_weather - 1, (TRAIN_ENVS,),
                            generator=gen, device=dev)
-    out["building_policy_segment"] = cs.cuda_ms(
+    times["building_policy_segment"] = cs.cuda_ms(
         lambda: K5.building_policy_segment(p, w, epochs, STEPS, seed=69), 3)
+    w16 = K.pack_policy_weights(init_policy(
+        p.n + 4, p.n, 16, torch.Generator().manual_seed(68), dev))
+    times["building_policy_segment H=16"] = cs.cuda_ms(
+        lambda: K5.building_policy_segment(p, w16, epochs, STEPS, seed=69), 3)
+    noise = torch.randn((STEPS, TRAIN_ENVS, p.n), generator=gen, device=dev)
+    kernel = K5.building_policy_segment(p, w, epochs, STEPS, noise=noise)
+    plain = K5.building_policy_segment_ref(p, w, epochs, STEPS, noise=noise)
+    print(f"building_policy_segment {TRAIN_ENVS}x{STEPS} drift: "
+          f"{cs.policy_drift(p.n, kernel, plain)} [{root}]", flush=True)
+    outs["building_policy_segment out"] = kernel[0].cpu()
+    outs["building_policy_segment learner block"] = kernel[1].cpu()
+    del noise, kernel, plain
 
     env, p = make("electricitymarket", device=dev)
     op, ms = p.op, p.op.ms
@@ -97,9 +197,17 @@ def main() -> int:
               init.z[:, ms:].contiguous())
     for label, iters, reps in (("warm", p.lp_warm_iters, 10),
                                ("cold", op.iters, 3)):
-        out[f"pdhg_solve_paired {label} ({iters} iterations)"] = cs.cuda_ms(
+        times[f"pdhg_solve_paired {label} ({iters} iterations)"] = cs.cuda_ms(
             lambda: K9.pdhg_solve_paired(kops, *market, iters), reps)
-    print(json.dumps(out), flush=True)
+        for name, x in zip(("x", "y", "zp", "zm"),
+                           K9.pdhg_solve_paired(kops, *market, iters)):
+            outs[f"pdhg_solve_paired {label} {name}"] = x.cpu()
+    print(json.dumps(times), flush=True)
+    if args.save:
+        torch.save(outs, args.save)
+    for path in args.compare:
+        print(f"outputs against {path}: "
+              f"{json.dumps(compare(outs, torch.load(path)))}", flush=True)
     return 0
 
 
