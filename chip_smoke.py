@@ -5,7 +5,28 @@
 
 Drives the port's four slices through their public entry points, after
 checking each hand-written kernel against its plain PyTorch version on the
-card. Slice 1, PPO on EVChargingEnv with the action projection on:
+card. Every trainer runs its train steps as CUDA graphs (``parallel/
+ppo.py``, ``core/graph.py``): the episodic rollout's step loop (one replay
+per episode after an eager episode start), the re-scoring with GAE, and
+each minibatch update (one replay per minibatch), captured at its first
+train step. Each trainer, in every slice below:
+
+- takes its train steps captured, the first one's graph warm-ups and
+  captures printed apart, with the trainer's peak device memory;
+- runs its lr=0 exact-ratio step through the captured path (|pg_loss| <
+  1e-5);
+- after its slice's launches are read: one train step captured against
+  the same step eager (``capture=False``) from the same carry and
+  generator state, at 1024 envs with the main path's minibatch rows, the
+  largest parameter and metric differences printed, gated by
+  ``CAPTURE_GATE``; then its graphs are freed.
+
+The kernel wrappers count their kernels' launches on the card: a captured
+loop's wrappers count at its warm-up, the capture takes its count back
+(nothing runs), and each replay adds the launches it holds
+(``core/graph.py::count_launches``).
+
+Slice 1, PPO on EVChargingEnv with the action projection on:
 
 1. card: name and power limit (``nvidia-smi``), ``torch.cuda`` device;
 2. build: compiles every ``sustaingym_tpu_torch/ops/cuda/csrc/*.cu`` (one
@@ -75,9 +96,14 @@ Slice 3, DataCenterEnv and ElectricityMarketEnv:
     max |d| within 2.0 or twice that of the plain version against itself
     summing in float64;
 14. the market main path with its count from 0: the simulation tier
-    (``batch_unroll`` with the random policy at 4096 x 288: one launch per
-    step), two PPO train steps at 4096 x 288 (H = 256, 36 minibatches, 4
-    epochs, f32 obs) and the lr=0 step at 1024 envs; then the kernel's
+    (``batch_rollout`` with the random policy at 4096 x 288 through the
+    captured episode loop, a solve launch per step inside the graph: 2 x
+    288 launches at the first call (warm-up and one replay), 288 at the
+    second (one replay); bit-equal to the eager ``batch_unroll`` from the
+    same generator state), two PPO train steps at 4096 x 288 (H = 256, 36 minibatches, 4
+    epochs, f32 obs) with Box bids and two with ``discrete=True``
+    (Discrete(3) bids, the categorical head), each with its lr=0 step at
+    1024 envs; then the kernel's
     time per warm and per cold solve (CUDA events over back-to-back
     launches, which its wrapper never separates by a host wait), the
     plain warm solve, the kernel's CTAs resident per SM, and a warm solve's
@@ -113,10 +139,14 @@ weather rows):
     and its actor's three bf16 ``torch.matmul`` calls per step over 288
     steps, a yardstick the port never calls.
 
-``python3 chip_smoke.py --profile`` adds each trainer's phases (rollout,
-re-scoring + GAE, minibatch updates) on the host clock with
-``torch.cuda.synchronize()`` between them, and the device's busy time over
-one whole train step from ``torch.profiler``.
+``python3 chip_smoke.py --profile`` adds, for each trainer captured and
+the same trainer eager (``capture=False``, the before): its phases
+(rollout, re-scoring + GAE, minibatch updates) on the host clock with
+``torch.cuda.synchronize()`` between them; the host's CUDA runtime calls
+in each phase (``cudaLaunchKernel``, ``cudaGraphLaunch``, memcpy and
+memset, from ``torch.profiler``) and the update's calls per minibatch;
+the graphs' warm-up and capture + instantiate time; and the device's busy
+time over one whole train step from ``torch.profiler``.
 
 Every phase raises on failure (exit code 1). The line before the last is
 a JSON object with, for each TPU kernel's counterpart (the slice gather
@@ -140,12 +170,16 @@ import time
 
 import numpy as np
 
-SIM_BATCH, TRAIN_ENVS, STEPS, HIDDEN = 32768, 8192, 288, 256
-CHECK_BATCH = 1024
-COGEN_SIM, COGEN_TRAIN, COGEN_STEPS, COGEN_CHECK = 262144, 8192, 96, 4096
-DC_SIM, DC_TRAIN, DC_STEPS, DC_CHECK = 262144, 4096, 672, 4096
-MKT_BATCH, MKT_STEPS = 4096, 288
-BLD_SIM, BLD_CHECK = 524288, 4096
+# the episodes' lengths; the configurations' batches and widths are those
+# of sustaingym_tpu_torch/bench.py (trainer_configs)
+STEPS, CHECK_BATCH = 288, 1024
+# the gate of check_captured, and why
+CAPTURE_GATE = ("gate: bit-equal, the graph replays the eager step's "
+                "kernels on the same inputs and Philox offsets")
+COGEN_STEPS, COGEN_CHECK = 96, 4096
+DC_STEPS, DC_CHECK = 672, 4096
+MKT_STEPS = 288
+BLD_CHECK = 4096
 # NVIDIA H100 SXM peaks (data sheet, dense, 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -155,95 +189,13 @@ def fail(msg: str):
     raise RuntimeError(msg)
 
 
-# The synthetic building: one storey of an office, a 27.69 m x 18.46 m
-# footprint 3.05 m high, cut into a core (x 3.73-23.96, y 3.73-14.73) and
-# four perimeter zones 3.73 m deep (south and north span the whole x
-# range, east and west the whole y range, as EnergyPlus reports a
-# trapezoidal zone's bounding box), under an attic over the whole
-# footprint (z 3.05-4.88). Per zone: (name, z origin, x min, x max, y min,
-# y max, z min, z max, floor area m^2, exterior gross wall or roof area
-# m^2, window area m^2).
-BUILDING_ZONES = (
-    ("CORE_ZN", 0.0, 3.73, 23.96, 3.73, 14.73, 0.0, 3.05, 222.53, 0.0, 0.0),
-    ("PERIMETER_ZN_1", 0.0, 0.0, 27.69, 0.0, 3.73, 0.0, 3.05, 89.37, 84.45,
-     20.64),
-    ("PERIMETER_ZN_2", 0.0, 23.96, 27.69, 0.0, 18.46, 0.0, 3.05, 54.86,
-     56.30, 11.61),
-    ("PERIMETER_ZN_3", 0.0, 0.0, 27.69, 14.73, 18.46, 0.0, 3.05, 89.37,
-     84.45, 16.51),
-    ("PERIMETER_ZN_4", 0.0, 0.0, 3.73, 0.0, 18.46, 0.0, 3.05, 54.86, 56.30,
-     11.61),
-    ("ATTIC", 3.05, 0.0, 27.69, 0.0, 18.46, 3.05, 4.88, 511.16, 568.12, 0.0),
-)
-
-
-def write_building_tables(dirpath: str, seed: int = 0) -> tuple[str, str]:
-    """Writes the building's zone table and a year of hourly weather into
-    ``dirpath``, in the formats BuildingEnv reads, and returns their file
-    names (htm, epw):
-
-    - ``office_small.table.htm``: an EnergyPlus tabular HTM "Zone
-      Information" table of ``BUILDING_ZONES`` (6 zones: the storey's five
-      and the attic), each value a ``<td>`` line at its field's offset of
-      the table's 32-line zone record;
-    - ``tucson_synthetic.epw``: 8 header rows and 8760 hourly records of a
-      year in Tucson's range, drawn from ``seed``: dry bulb (field 6) with
-      a seasonal cycle (monthly means 11-31 C), a daily one (amplitude
-      6-9 C, peak at 15:00) and noise; global horizontal irradiance
-      (field 13) from the sun's elevation at 32.1 N, scaled by drawn cloud
-      cover and zero at night.
-    """
-    # line offsets after the table's heading line of each field of zone 0;
-    # zone k's are 32 k lines further
-    offsets = (35, 42, 46, 47, 48, 49, 50, 51, 56, 58, 59)
-    cell = '    <td align="right">'          # 22 characters before a value
-    values = {}
-    for k, zone in enumerate(BUILDING_ZONES):
-        for off, value in zip(offsets, zone):
-            text = value if isinstance(value, str) else f"{value:.2f}"
-            values[off + 32 * k] = f"{cell}{text}</td>\n"
-    lines = ["<html><body>\n", "<b>Zone Information</b><br><br>\n"]
-    lines += [values.get(rel, "    <td>&nbsp;</td>\n")
-              for rel in range(1, max(values) + 1)]
-    lines += ["<b>Zone Internal Gains Nominal</b>\n", "</body></html>\n"]
-    htm = "office_small.table.htm"
-    with open(os.path.join(dirpath, htm), "w") as f:
-        f.writelines(lines)
-
-    rng = np.random.default_rng(seed)
-    hours = np.arange(8760)
-    doy, hod = hours // 24, hours % 24
-    season = -np.cos(2 * np.pi * (doy - 15) / 365.0)      # -1 mid-January
-    daily = np.cos(2 * np.pi * (hod - 15) / 24.0)         # +1 at 15:00
-    temp = (21.0 + 10.0 * season + (7.5 + 1.5 * season) * daily
-            + rng.normal(0.0, 1.2, 8760))
-    decl = np.radians(23.44) * np.sin(2 * np.pi * (284 + doy) / 365.0)
-    lat, omega = np.radians(32.1), np.radians(15.0 * (hod + 0.5 - 12.0))
-    sin_elev = (np.sin(lat) * np.sin(decl)
-                + np.cos(lat) * np.cos(decl) * np.cos(omega))
-    clouds = rng.uniform(0.55, 1.0, 366)[doy]
-    ghi = np.rint(1050.0 * np.clip(sin_elev, 0.0, None) ** 1.15 * clouds)
-    header = ["LOCATION,Tucson Synthetic,AZ,USA,TMY3,722745,32.13,-110.95,"
-              "-7.0,779.0\n",
-              "DESIGN CONDITIONS,0\n", "TYPICAL/EXTREME PERIODS,0\n",
-              "GROUND TEMPERATURES,0\n",
-              "HOLIDAYS/DAYLIGHT SAVINGS,No,0,0,0\n",
-              f"COMMENTS 1,synthetic year drawn from seed {seed}\n",
-              "COMMENTS 2,\n", "DATA PERIODS,1,1,Data,Sunday, 1/ 1,12/31\n"]
-    month_starts = np.cumsum([0, 31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30])
-    records = []
-    for h in range(8760):
-        month = int(np.searchsorted(month_starts, doy[h], side="right"))
-        day = int(doy[h] - month_starts[month - 1]) + 1
-        records.append(
-            f"1990,{month},{day},{hod[h] + 1},60,?9?9?9?9E0?9?9?9?9?9?9?9?9?9"
-            f"?9?9?9?9?9*9*9,{temp[h]:.1f},{temp[h] - 15.0:.1f},25,92500,0,"
-            f"0,300,{int(ghi[h])},{int(0.8 * ghi[h])},{int(0.2 * ghi[h])},0,"
-            f"0,0,0,0,0,0,0,0,0,0,0,0,0.1,0,0,0,0,0\n")
-    epw = "tucson_synthetic.epw"
-    with open(os.path.join(dirpath, epw), "w") as f:
-        f.writelines(header + records)
-    return htm, epw
+def trainer_configs(label: str):
+    """(cfg, cfg0) of trainer ``label`` of the bench's ``TRAINERS``: its
+    ``PPOConfig`` and the lr=0 check's, at ``CHECK_BATCH`` envs, 4
+    minibatches and one epoch."""
+    from sustaingym_tpu_torch.bench import train_config
+    return train_config(label), train_config(
+        label, num_envs=CHECK_BATCH, minibatches=4, epochs=1, lr=0.0)
 
 
 def card_line() -> str:
@@ -380,12 +332,53 @@ def check_policy(case: str, n: int, D: int, kernel, plain, tag: str
     return float(dr.max())
 
 
-def profile_train_step(train_step, carry, generator, cfg, tag: str):
+def free_cuda():
+    """Releases what dropped trainers held: their graphs, pools and
+    buffers."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# host-side CUDA runtime calls that put work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+PHASES = ("rollout", "score", "update")
+
+# (label, env, params, cfg, seed) of each trainer that ``--profile``
+# profiles at the end of the run, after every kernel's device time is
+# taken: the profiler's trace lost kernel launches after large traces
+PROFILE_JOBS = []
+
+
+def phase_launches(prof) -> dict:
+    """The host's CUDA runtime calls that issue work (``LAUNCH_CALLS``)
+    in each ``record_function`` range of ``PHASES`` of a trace."""
+    from torch.autograd import DeviceType
+    ranges = {e.name: e.time_range for e in prof.events()
+              if e.name in PHASES and e.device_type == DeviceType.CPU}
+    calls = {phase: {} for phase in ranges}
+    for e in prof.events():
+        if e.name not in LAUNCH_CALLS:
+            continue
+        for phase, r in ranges.items():
+            if r.start <= e.time_range.start <= r.end:
+                calls[phase][e.name] = calls[phase].get(e.name, 0) + 1
+    return calls
+
+
+def profile_train_step(label: str, train_step, carry, generator, cfg,
+                       tag: str):
     """Phase times of the train step (host clock, synchronised between
-    phases) and the device's busy time over one whole step."""
+    phases), then one traced step (``torch.profiler``, the phases in
+    ``record_function`` ranges): the host's launch calls in each phase,
+    the graphs' warm-up and capture time, and the device's busy time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -402,13 +395,31 @@ def profile_train_step(train_step, carry, generator, cfg, tag: str):
         _, upd_ms = timed(lambda: train_step.update(policy, opt, flat,
                                                     generator))
         _, step_ms = timed(lambda: train_step(carry, generator))
-        print(f"profile {i}: train step {step_ms:.1f} ms; rollout "
+        print(f"profile {label} {i}: train step {step_ms:.1f} ms; rollout "
               f"{roll_ms:.1f} ms, re-scoring + GAE {score_ms:.1f} ms, "
               f"{updates} minibatch updates {upd_ms:.1f} ms = "
               f"{upd_ms / updates:.3f} ms each {tag}", flush=True)
+    graphs = train_step.graphs
+    if graphs is not None:
+        print(f"profile {label}: {graphs.captures} graphs, warm-up "
+              f"{graphs.warmup_s:.3f} s, capture + instantiate "
+              f"{graphs.capture_s:.3f} s {tag}", flush=True)
+
+    def phases():
+        with record_function("rollout"):
+            out = train_step.rollout(policy, generator)
+        with record_function("score"):
+            flat = train_step.score(policy, out)
+        with record_function("update"):
+            train_step.update(policy, opt, flat, generator)
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, traced_ms = timed(lambda: train_step(carry, generator))
+        _, traced_ms = timed(phases)
+    calls = phase_launches(prof)
+    per_mb = sum(calls.get("update", {}).values()) / updates
+    print(f"profile {label}: host launch calls per phase {calls}; update: "
+          f"{per_mb:.3f} per minibatch {tag}", flush=True)
 
     # device-side kernels and copies only: CPU ops carry their kernels'
     # time as well, and device-side user annotations (Optimizer.step) span
@@ -419,28 +430,51 @@ def profile_train_step(train_step, carry, generator, cfg, tag: str):
                     key=_dev_us, reverse=True)
     busy_ms = sum(_dev_us(e) for e in events) / 1e3
     if busy_ms == 0:
-        print(f"profile: the trace holds no device time (not measured) "
-              f"{tag}")
+        print(f"profile {label}: the trace holds no device time (not "
+              f"measured) {tag}")
         return
-    print(f"profile: traced train step {traced_ms:.1f} ms wall, device busy "
-          f"{busy_ms:.1f} ms = {busy_ms / step_ms:.1%} of the untraced "
+    print(f"profile {label}: traced phases {traced_ms:.1f} ms wall, device "
+          f"busy {busy_ms:.1f} ms = {busy_ms / step_ms:.1%} of the untraced "
           f"step {step_ms:.1f} ms {tag}")
     for e in events[:10]:
         print(f"  {_dev_us(e) / 1e3:9.1f} ms device  {e.count:6d} calls  "
               f"{e.key[:90]}")
 
 
-def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
-                steps: int = 2):
-    """``steps`` PPO train steps at ``cfg`` (host clock, synchronised
-    around each), then the lr=0 exact-ratio check at ``cfg0`` (|pg_loss| <
-    1e-5). Returns (train_step, carry, generator)."""
+def profile_trainers(tag: str):
+    """``--profile``: each trainer of ``PROFILE_JOBS`` captured and the
+    same trainer eager (``capture=False``, the before), each profiled by
+    ``profile_train_step`` and freed."""
     import torch
     from sustaingym_tpu_torch.parallel import make_train_step
+    for label, env, p, cfg, seed in PROFILE_JOBS:
+        for capture in (True, False):
+            free_cuda()
+            init_state, step = make_train_step(env, p, cfg, capture=capture)
+            tgen = torch.Generator(device=p.device).manual_seed(seed)
+            carry = init_state(tgen)
+            profile_train_step(f"{label} {'captured' if capture else 'eager'}",
+                               step, carry, tgen, cfg, tag)
+            del init_state, step, carry
+    free_cuda()
+
+
+def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
+                steps: int = 2):
+    """``steps`` captured PPO train steps at ``cfg`` (host clock,
+    synchronised around each; the first holds the graphs' warm-ups and
+    captures, printed apart), the trainer's peak device memory, then the
+    lr=0 exact-ratio check at ``cfg0`` through the captured path
+    (|pg_loss| < 1e-5); then frees both trainers."""
+    import torch
+    from sustaingym_tpu_torch.parallel import make_train_step
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
     init_state, train_step = make_train_step(env, p, cfg)
     tgen = torch.Generator(device=p.device).manual_seed(seed)
     carry = init_state(tgen)
     env_steps = cfg.num_envs * env.episode_steps(p)
+    graphs = train_step.graphs
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -450,16 +484,74 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
         m = {key: float(v) for key, v in metrics.items()}
         if not all(np.isfinite(v) for v in m.values()):
             fail(f"{label} train step {i}: non-finite metrics {m}")
-        print(f"{label} train step {i}: {dt:.3f} s = {env_steps / dt:.0f} "
-              f"env-steps/s; {json.dumps(m)} {tag}", flush=True)
+        held = (f" (of which {graphs.captures} graphs' warm-up "
+                f"{graphs.warmup_s:.3f} s, capture + instantiate "
+                f"{graphs.capture_s:.3f} s)" if i == 0 else "")
+        print(f"{label} train step {i}: {dt:.3f} s{held} = "
+              f"{env_steps / dt:.0f} env-steps/s; {json.dumps(m)} {tag}",
+              flush=True)
+    print(f"{label} trainer: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {tag}",
+          flush=True)
     init0, step0 = make_train_step(env, p, cfg0)
     _, m0 = step0(init0(tgen), tgen)
     pg0 = float(m0["pg_loss"])
-    print(f"{label} lr=0 train step at {cfg0.num_envs} envs: pg_loss "
-          f"{pg0:.3e} {tag}", flush=True)
+    print(f"{label} lr=0 train step at {cfg0.num_envs} envs (captured): "
+          f"pg_loss {pg0:.3e} {tag}", flush=True)
     if not abs(pg0) < 1e-5:
         fail(f"{label} lr=0 exact-ratio invariant broken: pg_loss {pg0}")
-    return train_step, carry, tgen
+    del train_step, carry, step0
+    free_cuda()
+
+
+def check_captured(label: str, env, p, cfg, seed: int, tag: str):
+    """One train step captured against the same step eager
+    (``capture=False``) from the same initial carry and generator state,
+    at ``CHECK_BATCH`` envs with the main path's minibatch rows: the
+    largest differences of the parameters and metrics, and whether the
+    generators end in the same state. Gate: bit-equal parameters,
+    metrics and generator state (CAPTURE_GATE)."""
+    import dataclasses
+
+    import torch
+    from sustaingym_tpu_torch.parallel import make_train_step
+    small = dataclasses.replace(
+        cfg, num_envs=CHECK_BATCH,
+        minibatches=max(1, cfg.minibatches * CHECK_BATCH // cfg.num_envs))
+    runs = {}
+    for capture in (True, False):
+        free_cuda()
+        init_state, step = make_train_step(env, p, small, capture=capture)
+        gen = torch.Generator(device=p.device).manual_seed(seed)
+        carry = init_state(gen)
+        _, metrics = step(carry, gen)
+        runs[capture] = ([w.detach().clone()
+                          for w in carry["policy"].parameters()],
+                         {k: float(v) for k, v in metrics.items()},
+                         gen.get_state())
+        del init_state, step, carry
+    (pc, mc, gc), (pe, me, ge) = runs[True], runs[False]
+    d_param = max(float((a - b).abs().max()) for a, b in zip(pc, pe))
+    d_metric = {k: abs(mc[k] - me[k]) for k in mc}
+    equal = (all(torch.equal(a, b) for a, b in zip(pc, pe)) and mc == me
+             and torch.equal(gc, ge))
+    print(f"{label} captured vs eager, one train step at {CHECK_BATCH} envs "
+          f"({small.minibatches} minibatches x {small.epochs} epochs): "
+          f"params max|d| {d_param:.3e}; metrics |d| {d_metric}; generator "
+          f"states equal {torch.equal(gc, ge)}; bit-equal {equal} "
+          f"({CAPTURE_GATE}) {tag}", flush=True)
+    if not equal:
+        fail(f"{label}: the captured train step differs from the eager one")
+    free_cuda()
+
+
+def finish_trainer(label: str, env, p, cfg, seed: int, tag: str,
+                   want_profile: bool):
+    """After a trainer's launches are read: its captured-vs-eager check
+    and, with ``--profile``, its place in ``profile_trainers``' queue."""
+    check_captured(label, env, p, cfg, seed, tag)
+    if want_profile:
+        PROFILE_JOBS.append((label, env, p, cfg, seed))
 
 
 def check_cogen(case: str, ko, ro, tag: str) -> float:
@@ -517,9 +609,9 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
     the ``kernels`` line."""
     import torch
     from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.bench import SIM_TIERS
     from sustaingym_tpu_torch.ops.cuda import cogen_rollout as KB
     from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
-    from sustaingym_tpu_torch.parallel import PPOConfig
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -527,7 +619,7 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
     L, C = p.timesteps_per_day, p.ambients.shape[2]
     rows = p.ambients.shape[1]
     flat = p.ambients.reshape(-1, C)
-    B, T = COGEN_SIM, COGEN_STEPS
+    B, T = SIM_TIERS["cogen"], COGEN_STEPS
 
     # ---- 7. episode_slice_gather vs plain, bit-equal --------------------
     ev_env, ev_p = make("evcharging", device=dev)
@@ -603,18 +695,13 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
         fail("cogen simulation tier: bad rewards or obs")
     mean_reward = float(roll.reward.mean())
     del roll
-    cfg = PPOConfig(num_envs=COGEN_TRAIN, hidden=HIDDEN, minibatches=24,
-                    epochs=4, reward_scale=1e-4)
-    train_step, carry, tgen = run_trainer(
-        "cogen", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
-                                        minibatches=4, epochs=1, lr=0.0,
-                                        reward_scale=1e-4), 34, tag)
+    cfg, cfg0 = trainer_configs("cogen")
+    run_trainer("cogen", env, p, cfg, cfg0, 34, tag)
     launches = {"episode_slice_gather": KA.episode_slice_gather.launches,
                 "cogen_segment": KB.cogen_segment.launches}
     if min(launches.values()) == 0:
         fail(f"a kernel of the cogen main path never launched: {launches}")
-    if want_profile:
-        profile_train_step(train_step, carry, tgen, cfg, tag)
+    finish_trainer("cogen", env, p, cfg, 34, tag, want_profile)
 
     seg_ms = device_ms(lambda: KB.cogen_segment(p, days, prev, T, seed=35),
                        "cogen_segment_kernel", 10)
@@ -674,14 +761,14 @@ def dc_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     ``kernels`` line and the slice-gather launches of its main path."""
     import torch
     from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.bench import SIM_TIERS
     from sustaingym_tpu_torch.ops.cuda import dc_rollout as K8
     from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
-    from sustaingym_tpu_torch.parallel import PPOConfig
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(41)
     env, p = make("datacenter", device=dev)
-    B, T = DC_SIM, DC_STEPS
+    B, T = SIM_TIERS["datacenter"], DC_STEPS
 
     # ---- 11. dc_segment vs plain, bit-equal ------------------------------
     months = torch.randint(p.n_months, (DC_CHECK,), generator=gen, device=dev)
@@ -713,20 +800,14 @@ def dc_slice(tag: str, want_profile: bool) -> tuple[list, int]:
         fail("datacenter simulation tier: bad rewards or obs")
     mean_reward = float(roll.reward.mean())
     del roll
-    cfg = PPOConfig(num_envs=DC_TRAIN, hidden=HIDDEN, minibatches=84,
-                    epochs=4)
-    train_step, carry, tgen = run_trainer(
-        "datacenter", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH,
-                                             hidden=HIDDEN, minibatches=4,
-                                             epochs=1, lr=0.0), 44, tag)
+    cfg, cfg0 = trainer_configs("datacenter")
+    run_trainer("datacenter", env, p, cfg, cfg0, 44, tag)
     launches = {"episode_slice_gather": KA.episode_slice_gather.launches,
                 "dc_segment": K8.dc_segment.launches}
     if min(launches.values()) == 0:
         fail(f"a kernel of the datacenter main path never launched: "
              f"{launches}")
-    if want_profile:
-        profile_train_step(train_step, carry, tgen, cfg, tag)
-    del carry, train_step
+    finish_trainer("datacenter", env, p, cfg, 44, tag, want_profile)
 
     seg_ms = device_ms(lambda: K8.dc_segment(p, months, T, seed=45),
                        "dc_segment_kernel", 10)
@@ -838,18 +919,20 @@ def market_slice(tag: str, want_profile: bool) -> list:
     ``kernels`` line."""
     import torch
     from sustaingym_tpu_torch import make
-    from sustaingym_tpu_torch.core import random_policy
+    from sustaingym_tpu_torch.bench import SIM_TIERS, TRAINERS
+    from sustaingym_tpu_torch.core import (batch_rollout, random_policy,
+                                           tree_map)
+    from sustaingym_tpu_torch.core.graph import Graphs, tree_leaves
     from sustaingym_tpu_torch.envs.electricitymarket import uses_solve_kernel
     from sustaingym_tpu_torch.envs.electricitymarket.env import MAX_BID
     from sustaingym_tpu_torch.ops.cuda import lp_solve as K9
-    from sustaingym_tpu_torch.parallel import PPOConfig
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(51)
     env, p = make("electricitymarket", device=dev)
     if not uses_solve_kernel(p):
         fail("the card's default market does not solve through the kernel")
-    op, B, T = p.op, MKT_BATCH, MKT_STEPS
+    op, B, T = p.op, SIM_TIERS["electricitymarket"], MKT_STEPS
     n, me, ms = op.n, op.me, op.ms
     kops = K9.pack_pdhg_operands(op)
 
@@ -930,31 +1013,64 @@ def market_slice(tag: str, want_profile: bool) -> list:
     solve_err = max(solve_err, dp[2])
 
     # ---- 14. the market main path: counts from 0 ----------------------------
-    K9.pdhg_solve_paired.launches = 0
-    sim_gen = torch.Generator(device=dev).manual_seed(52)
+    # the simulation tier eager first, to hold the captured one against it
+    policy = random_policy(env, p, B)
+    eager_gen = torch.Generator(device=dev).manual_seed(52)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    roll = env.batch_unroll(p, random_policy(env, p, B), None, B, T, sim_gen)
+    eager = env.batch_unroll(p, policy, None, B, T, eager_gen)
     torch.cuda.synchronize()
-    sim_s = time.perf_counter() - t0
+    eager_s = time.perf_counter() - t0
+    K9.pdhg_solve_paired.launches = 0
+    sim_gen = torch.Generator(device=dev).manual_seed(52)
+    graphs = Graphs(dev)
+    sim_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        roll = batch_rollout(env, p, policy, None, sim_gen, B, T,
+                             graphs=graphs)
+        torch.cuda.synchronize()
+        sim_s.append(time.perf_counter() - t0)
+        if len(sim_s) == 1:
+            first_launches = K9.pdhg_solve_paired.launches
+            first = tree_map(torch.clone, roll)
+    replay_launches = K9.pdhg_solve_paired.launches - first_launches
     if roll.reward.shape != (T, B) \
             or not bool(torch.isfinite(roll.reward).all()):
         fail("market simulation tier: bad rewards")
-    per_episode = K9.pdhg_solve_paired.launches
+    sim_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(first),
+                                                      tree_leaves(eager)))
+    print(f"market simulation tier {B}x{T} through the captured episode "
+          f"loop: bit-equal to the eager batch_unroll from the same "
+          f"generator state {sim_equal}; first call {sim_s[0] * 1e3:.1f} ms "
+          f"(warm-up {graphs.warmup_s * 1e3:.1f} ms, capture + instantiate "
+          f"{graphs.capture_s * 1e3:.1f} ms), second call (one replay) "
+          f"{sim_s[1] * 1e3:.1f} ms, eager {eager_s * 1e3:.1f} ms; "
+          f"pdhg_solve_paired launches {first_launches} at the first call "
+          f"(warm-up and one replay), {replay_launches} at the second (one "
+          f"replay) {tag}", flush=True)
+    if not sim_equal:
+        fail("market simulation tier: the captured loop differs from eager")
+    if first_launches != 2 * T or replay_launches != T:
+        fail(f"pdhg_solve_paired launches: {first_launches} at the warm-up "
+             f"and first replay of a {T}-step episode, {replay_launches} at "
+             f"a replay")
     mean_reward = float(roll.reward.mean())
-    del roll
-    cfg = PPOConfig(num_envs=B, hidden=HIDDEN, minibatches=36, epochs=4)
-    train_step, carry, tgen = run_trainer(
-        "market", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
-                                         minibatches=4, epochs=1, lr=0.0),
-        53, tag)
+    del roll, first, eager, graphs
+    free_cuda()
+    cfg, cfg0 = trainer_configs("market")
+    dcfg, dcfg0 = trainer_configs("market discrete")
+    run_trainer("market", env, p, cfg, cfg0, 53, tag)
+    denv, dparams = make("electricitymarket", device=dev,
+                         **TRAINERS["market discrete"][2])
+    run_trainer("market discrete", denv, dparams, dcfg, dcfg0, 54, tag)
     launches = K9.pdhg_solve_paired.launches
-    if per_episode != T or launches == 0:
-        fail(f"pdhg_solve_paired launches: {per_episode} in a {T}-step "
-             f"episode, {launches} on the main path")
-    if want_profile:
-        profile_train_step(train_step, carry, tgen, cfg, tag)
-    del carry, train_step
+    if launches == 0:
+        fail("pdhg_solve_paired never launched on the market main path")
+    finish_trainer("market", env, p, cfg, 53, tag, want_profile)
+    finish_trainer("market discrete", denv, dparams, dcfg, 54, tag,
+                   want_profile)
 
     warm, cold = p.lp_warm_iters, op.iters
     # device time by CUDA events over back-to-back launches: the wrapper
@@ -988,16 +1104,18 @@ def market_slice(tag: str, want_profile: bool) -> list:
           f"{solve_bound(warm, 'f32_ops')[0]:.4f} ms at the f32 peak); cold "
           f"solve ({cold} iterations) {cold_ms:.4f} ms, bound "
           f"{cold_bound[0]:.4f} ms; plain warm solve {plain_ms:.3f} ms; "
-          f"launches {per_episode} per {T}-step episode, {launches} on the "
-          f"main path; {ctas} CTA(s) of {envs} envs resident per SM {tag}",
+          f"launches {launches} on the main path (one a step of each "
+          f"episode replayed, and of each graph's warm-up); {ctas} CTA(s) "
+          f"of {envs} envs resident per SM {tag}",
           flush=True)
     print(f"yardstick, not called by the port: a warm solve's products as "
           f"{2 * warm} bf16 torch.matmul calls (K x-bar, K' w at B = {B}) "
           f"{products_ms:.4f} ms (CUDA events) {tag}", flush=True)
     steps = B * T
-    print(f"market simulation tier {B}x{T}: whole batch_unroll "
-          f"{sim_s * 1e3:.1f} ms = {steps / sim_s:.0f} env-steps/s, of which "
-          f"the kernel ~{cold_ms + (T - 1) * warm_ms:.1f} ms; mean reward "
+    print(f"market simulation tier {B}x{T}: whole batch_rollout (one "
+          f"replay) {sim_s[1] * 1e3:.1f} ms = {steps / sim_s[1]:.0f} "
+          f"env-steps/s, of which the kernel ~"
+          f"{cold_ms + (T - 1) * warm_ms:.1f} ms; mean reward "
           f"{mean_reward:.6f} {tag}", flush=True)
     return [
         {"name": "pdhg_solve_paired", "route": "cuda",
@@ -1094,25 +1212,28 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     import tempfile
 
     import torch
+    from sustaingym_tpu_torch.bench import HIDDEN, SIM_TIERS, TRAINERS
     from sustaingym_tpu_torch.envs import building
+    from sustaingym_tpu_torch.envs.building import synthetic
     from sustaingym_tpu_torch.ops.cuda import building_rollout as K5
     from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
     from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
     from sustaingym_tpu_torch.ops.cuda.wrap import bind, raise_on
-    from sustaingym_tpu_torch.parallel import PPOConfig, init_policy
+    from sustaingym_tpu_torch.parallel import init_policy
 
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(61)
     tables = tempfile.mkdtemp(prefix="building_tables_")
     try:
-        htm, epw = write_building_tables(tables)
+        htm, epw = synthetic.write_building_tables(tables)
         env, p = building.make_env(
             htm, epw, "Tucson", device=dev, root=tables,
             u_wall=building.BUILDINGS["OfficeSmall"][1])
     finally:
         shutil.rmtree(tables)
-    n, T, B = p.n, p.episode_len, BLD_SIM
+    n, T, B = p.n, p.episode_len, SIM_TIERS["building"]
+    train_envs = TRAINERS["building fused"][3]["num_envs"]
     print(f"building: {n} zones, operator {tuple(p.BD_d.shape)}, "
           f"{p.length_of_weather} weather rows {tag}", flush=True)
 
@@ -1143,7 +1264,7 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
 
     # ---- 16. building_policy_segment vs plain ------------------------------
     pol_err = 0.0
-    for batch in (CHECK_BATCH, TRAIN_ENVS):
+    for batch in (CHECK_BATCH, train_envs):
         w = K.pack_policy_weights(init_policy(
             n + 4, n, HIDDEN, torch.Generator().manual_seed(batch), dev))
         e = torch.randint(p.length_of_weather - 1, (batch,), generator=gen,
@@ -1182,15 +1303,10 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
         fail("building simulation tier: bad rewards, obs or done")
     mean_reward = float(roll.reward.mean())
     del roll
-    trainers = {}
-    for label, bf16, steps in (("building fused", True, 2),
-                               ("building episodic", False, 1)):
-        cfg = PPOConfig(num_envs=TRAIN_ENVS, hidden=HIDDEN, minibatches=96,
-                        epochs=4, obs_bf16=bf16)
-        trainers[label] = (cfg, run_trainer(
-            label, env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
-                                          minibatches=4, epochs=1, lr=0.0,
-                                          obs_bf16=bf16), 66, tag, steps))
+    configs = {}
+    for label, steps in (("building fused", 2), ("building episodic", 1)):
+        configs[label], cfg0 = trainer_configs(label)
+        run_trainer(label, env, p, configs[label], cfg0, 66, tag, steps)
     launches = {"episode_slice_gather": KA.episode_slice_gather.launches,
                 "building_segment": K5.building_segment.launches,
                 "building_policy_segment":
@@ -1198,10 +1314,8 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     if min(launches.values()) == 0:
         fail(f"a kernel of the building main path never launched: "
              f"{launches}")
-    if want_profile:
-        for cfg, (train_step, carry, tgen) in trainers.values():
-            profile_train_step(train_step, carry, tgen, cfg, tag)
-    del trainers
+    for label, cfg in configs.items():
+        finish_trainer(label, env, p, cfg, 66, tag, want_profile)
 
     # device time by CUDA events over back-to-back launches of the kernels'
     # C entry points into outputs allocated once: the wrappers' range
@@ -1232,9 +1346,9 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
           flush=True)
     w = K.pack_policy_weights(init_policy(
         n + 4, n, HIDDEN, torch.Generator().manual_seed(68), dev))
-    e = epochs[:TRAIN_ENVS]
-    pol_out = torch.empty((T, TRAIN_ENVS, 3), device=dev)
-    pol_lrn = torch.empty((T, TRAIN_ENVS, 2 * n + 4), dtype=torch.bfloat16,
+    e = epochs[:train_envs]
+    pol_out = torch.empty((T, train_envs, 3), device=dev)
+    pol_lrn = torch.empty((T, train_envs, 2 * n + 4), dtype=torch.bfloat16,
                           device=dev)
     pol_args = (K5._env_args(p, m, e, T, "building_policy_segment")
                 + K.policy_weight_args(w)
@@ -1250,12 +1364,12 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     plan = K5.building_policy_plan(n, HIDDEN)
     ctas = plan["ctas"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = -(-TRAIN_ENVS // (16 * plan["tiles"]))
+    grid = -(-train_envs // (16 * plan["tiles"]))
     print(f"building_policy_segment H={HIDDEN}: plan {plan}; {ctas} CTA(s) "
           f"of {16 * plan['tiles']} envs resident per SM, {grid} CTAs = "
           f"{grid / (ctas * sms):.3f} waves on {sms} SMs {tag}", flush=True)
-    obs = torch.randn((TRAIN_ENVS, D), generator=gen, device=dev).bfloat16()
-    hid = torch.randn((TRAIN_ENVS, HIDDEN), generator=gen,
+    obs = torch.randn((train_envs, D), generator=gen, device=dev).bfloat16()
+    hid = torch.randn((train_envs, HIDDEN), generator=gen,
                       device=dev).bfloat16()
 
     def actor_matmuls():
@@ -1265,17 +1379,17 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
             torch.matmul(hid, w.wm)
 
     print(f"yardstick, not called by the port: the building actor's three "
-          f"bf16 torch.matmul per step at {TRAIN_ENVS} rows x {T} steps "
+          f"bf16 torch.matmul per step at {train_envs} rows x {T} steps "
           f"{cuda_ms(actor_matmuls, 2):.3f} ms (CUDA events) {tag}",
           flush=True)
     del obs, hid
-    pol_flops = TRAIN_ENVS * T * 2 * (D * HIDDEN + HIDDEN * HIDDEN
+    pol_flops = train_envs * T * 2 * (D * HIDDEN + HIDDEN * HIDDEN
                                       + HIDDEN * n)
     pol_bound = bound(
         nbytes(p.exog, e) + actor_bytes(w)
-        + TRAIN_ENVS * T * (4 * 3 + 2 * (2 * n + 4)),
-        f32_ops=TRAIN_ENVS * T * K5.ops_per_step(n), bf16_ops=pol_flops)
-    print(f"building_policy_segment {TRAIN_ENVS}x{T} H={HIDDEN}: kernel "
+        + train_envs * T * (4 * 3 + 2 * (2 * n + 4)),
+        f32_ops=train_envs * T * K5.ops_per_step(n), bf16_ops=pol_flops)
+    print(f"building_policy_segment {train_envs}x{T} H={HIDDEN}: kernel "
           f"{pol_ms:.3f} ms (CUDA events) = {pol_flops / pol_ms / 1e9:.3f} "
           f"TFLOP/s in the actor, bound {pol_bound[0]:.4f} ms "
           f"({pol_bound[1]}, the actor at the bf16 peak; "
@@ -1305,9 +1419,10 @@ def main() -> int:
     want_profile = "--profile" in sys.argv[1:]
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.bench import HIDDEN, SIM_TIERS, TRAINERS
     from sustaingym_tpu_torch.ops.cuda import build
     from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
-    from sustaingym_tpu_torch.parallel import PPOConfig, init_policy
+    from sustaingym_tpu_torch.parallel import init_policy
 
     # plain versions are the oracle: full-f32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1329,6 +1444,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s {tag}", flush=True)
 
     dev = torch.device("cuda")
+    sim_batch, train_envs = (SIM_TIERS["evcharging"],
+                             TRAINERS["EV"][3]["num_envs"])
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"ev_segment": 0.0, "ev_policy_segment": 0.0}
 
@@ -1360,10 +1477,10 @@ def main() -> int:
     env, p = make("evcharging", device=dev)
     n, k = p.n_stations, p.moer_forecast_steps
     D = 2 + 2 * n + k
-    days = torch.randint(p.n_days, (SIM_BATCH,), generator=gen, device=dev)
+    days = torch.randint(p.n_days, (sim_batch,), generator=gen, device=dev)
     ko, acts = K.ev_segment(p, days, STEPS, seed=7, record_actions=True)
     ro, _ = K.ev_segment_ref(p, days, STEPS, actions=acts)
-    e = check_segment(f"caltech projection=on {SIM_BATCH}x{STEPS} in-kernel "
+    e = check_segment(f"caltech projection=on {sim_batch}x{STEPS} in-kernel "
                       f"draws", ko, ro, tag)
     err["ev_segment"] = max(err["ev_segment"], e)
 
@@ -1379,9 +1496,9 @@ def main() -> int:
 
     w = K.pack_policy_weights(init_policy(
         D, n, HIDDEN, torch.Generator().manual_seed(2), dev))
-    days = torch.randint(p.n_days, (TRAIN_ENVS,), generator=gen, device=dev)
-    noise = torch.randn((STEPS, TRAIN_ENVS, n), generator=gen, device=dev)
-    e = check_policy(f"caltech projection=on {TRAIN_ENVS}x{STEPS} H={HIDDEN}",
+    days = torch.randint(p.n_days, (train_envs,), generator=gen, device=dev)
+    noise = torch.randn((STEPS, train_envs, n), generator=gen, device=dev)
+    e = check_policy(f"caltech projection=on {train_envs}x{STEPS} H={HIDDEN}",
                      n, D, K.ev_policy_segment(p, w, days, STEPS, noise=noise),
                      K.ev_policy_segment_ref(p, w, days, STEPS, noise=noise),
                      tag)
@@ -1399,18 +1516,18 @@ def main() -> int:
         p, w, days, STEPS, seed=3), 1)
     ctas = K.ev_policy_occupancy(D, HIDDEN, n)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = -(-TRAIN_ENVS // 16)
-    print(f"ev_policy_segment {TRAIN_ENVS}x{STEPS} H={HIDDEN}: kernel "
+    grid = -(-train_envs // 16)
+    print(f"ev_policy_segment {train_envs}x{STEPS} H={HIDDEN}: kernel "
           f"{pol_ms:.3f} ms (device) with the projection on, "
           f"{pol_off_ms:.3f} ms with it off (the projection "
           f"{pol_ms - pol_off_ms:.3f} ms); plain {pol_plain_ms:.3f} ms; "
           f"{ctas} CTAs of 16 warps resident per SM = {16 * ctas} warps, "
           f"{grid} CTAs = {grid / (ctas * sms):.3f} waves on {sms} SMs "
           f"{tag}", flush=True)
-    print(f"ev_policy_segment {TRAIN_ENVS}x{STEPS}: whole wrapper call "
+    print(f"ev_policy_segment {train_envs}x{STEPS}: whole wrapper call "
           f"{pol_call_ms:.3f} ms (CUDA events) {tag}", flush=True)
-    obs = torch.randn((TRAIN_ENVS, D), generator=gen, device=dev).bfloat16()
-    hid = torch.randn((TRAIN_ENVS, HIDDEN), generator=gen,
+    obs = torch.randn((train_envs, D), generator=gen, device=dev).bfloat16()
+    hid = torch.randn((train_envs, HIDDEN), generator=gen,
                       device=dev).bfloat16()
 
     def actor_matmuls():
@@ -1420,7 +1537,7 @@ def main() -> int:
             torch.matmul(hid, w.wm)
 
     print(f"yardstick, not called by the port: the actor's three bf16 "
-          f"torch.matmul per step at {TRAIN_ENVS} rows x {STEPS} steps "
+          f"torch.matmul per step at {train_envs} rows x {STEPS} steps "
           f"{cuda_ms(actor_matmuls, 2):.3f} ms (CUDA events) {tag}",
           flush=True)
     del obs, hid
@@ -1445,32 +1562,27 @@ def main() -> int:
 
     # ---- 5. simulation tier -----------------------------------------------
     sim_gen = torch.Generator(device=dev).manual_seed(11)
-    roll = env.fused_rollout(p, SIM_BATCH, STEPS, generator=sim_gen)
-    if roll.reward.shape != (STEPS, SIM_BATCH) \
+    roll = env.fused_rollout(p, sim_batch, STEPS, generator=sim_gen)
+    if roll.reward.shape != (STEPS, sim_batch) \
             or not bool(torch.isfinite(roll.reward).all()):
         fail("simulation tier: bad rewards")
     ev_mean_reward = float(roll.reward.mean())
     del roll
 
     # ---- 6. trainer --------------------------------------------------------
-    cfg = PPOConfig(num_envs=TRAIN_ENVS, hidden=HIDDEN, minibatches=96,
-                    epochs=4, obs_bf16=True)
-    train_step, carry, tgen = run_trainer(
-        "EV", env, p, cfg, PPOConfig(num_envs=CHECK_BATCH, hidden=HIDDEN,
-                                     minibatches=4, epochs=1, lr=0.0,
-                                     obs_bf16=True), 21, tag)
+    cfg, cfg0 = trainer_configs("EV")
+    run_trainer("EV", env, p, cfg, cfg0, 21, tag)
 
     launches = {"ev_segment": K.ev_segment.launches,
                 "ev_policy_segment": K.ev_policy_segment.launches}
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
-    if want_profile:
-        profile_train_step(train_step, carry, tgen, cfg, tag)
+    finish_trainer("EV", env, p, cfg, 21, tag, want_profile)
 
     # simulation-tier times, after the counts were read
-    sim_ms = cuda_ms(lambda: env.fused_rollout(p, SIM_BATCH, STEPS,
+    sim_ms = cuda_ms(lambda: env.fused_rollout(p, sim_batch, STEPS,
                                                generator=sim_gen), 3)
-    days = torch.randint(p.n_days, (SIM_BATCH,), generator=gen, device=dev)
+    days = torch.randint(p.n_days, (sim_batch,), generator=gen, device=dev)
     seg_ms = device_ms(lambda: K.ev_segment(p, days, STEPS, seed=12),
                        "ev_segment_kernel", 3)
     # the mat-vecs with C the kernel ran on these inputs (it stops an env
@@ -1480,11 +1592,11 @@ def main() -> int:
     matvecs = int(matvecs)
     seg_plain_ms = cuda_ms(lambda: K.ev_segment_ref(p, days, STEPS,
                                                     seed=12), 1)
-    steps = SIM_BATCH * STEPS
+    steps = sim_batch * STEPS
     m2, iters = int(p.proj.C.shape[0]), int(p.proj.iters)
     seg_ctas, seg_warps = K.ev_segment_occupancy(m2)
-    seg_grid = -(-SIM_BATCH // seg_warps)
-    print(f"simulation tier {SIM_BATCH}x{STEPS} projection on: kernel "
+    seg_grid = -(-sim_batch // seg_warps)
+    print(f"simulation tier {sim_batch}x{STEPS} projection on: kernel "
           f"{seg_ms:.3f} ms (device) = {steps / seg_ms * 1e3:.0f} "
           f"env-steps/s; plain {seg_plain_ms:.3f} ms = "
           f"{steps / seg_plain_ms * 1e3:.0f} env-steps/s; mean reward "
@@ -1494,7 +1606,7 @@ def main() -> int:
           f"{seg_grid / (seg_ctas * sms):.3f} waves on {sms} SMs; mat-vecs "
           f"with C run {matvecs} = {matvecs / steps:.4f} per env step (the "
           f"full loop: {2 * iters + 2}) {tag}", flush=True)
-    print(f"simulation tier {SIM_BATCH}x{STEPS}: whole fused_rollout call "
+    print(f"simulation tier {sim_batch}x{STEPS}: whole fused_rollout call "
           f"{sim_ms:.3f} ms (CUDA events) = {steps / sim_ms * 1e3:.0f} "
           f"env-steps/s {tag}", flush=True)
 
@@ -1503,13 +1615,13 @@ def main() -> int:
     # ran; the policy kernel runs 2 per FISTA iteration, the final C' y and
     # the reward's C p in every step
     step_ops = (2 * iters + 2) * 2 * m2 * n
-    seg_bound = bound(nbytes(p.step_table) + SIM_BATCH * (8 + 16 * STEPS),
+    seg_bound = bound(nbytes(p.step_table) + sim_batch * (8 + 16 * STEPS),
                       f32_ops=matvecs * 2 * m2 * n)
     pol_bound = bound(
         nbytes(p.step_table, p.moer) + actor_bytes(w)
-        + TRAIN_ENVS * (8 + STEPS * (16 + 2 * (D + n))),
-        f32_ops=TRAIN_ENVS * STEPS * step_ops,
-        bf16_ops=TRAIN_ENVS * STEPS * 2 * (D * HIDDEN + HIDDEN * HIDDEN
+        + train_envs * (8 + STEPS * (16 + 2 * (D + n))),
+        f32_ops=train_envs * STEPS * step_ops,
+        bf16_ops=train_envs * STEPS * 2 * (D * HIDDEN + HIDDEN * HIDDEN
                                            + HIDDEN * n))
     src = "sustaingym_tpu_torch/ops/cuda/csrc/ev_rollout.cu"
     kernels = [
@@ -1538,6 +1650,7 @@ def main() -> int:
     kernels.insert(3, {
         **kernels[2], "name": "hbm_slice_gather",
         "replaces": "sustaingym_tpu/ops/pallas/exog_gather.py:210"})
+    profile_trainers(tag)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,235 @@
+"""Benchmark lines of the PyTorch port: env-steps/s of each trainer and
+each simulation tier on one card.
+
+    python3 sustaingym_tpu_torch/bench.py --env all
+    python3 sustaingym_tpu_torch/bench.py --env market
+
+Prints one JSON line per configuration, in the shape of the JAX package's
+``bench.py`` lines: ``metric``, ``value``, ``unit``, ``batch``,
+``rollout_len``, the configuration's flags, ``device`` (the card's name
+and power limit as ``nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader`` gives them) and ``vs_baseline`` (null: the JAX
+bench's reference baselines were measured on another host). No floors:
+``bench_expected.json`` holds the TPU's, which never apply here.
+
+Each value is the best of ``REPEATS`` synchronised calls after one
+warm-up call; the warm-up holds each trainer's CUDA-graph captures
+(``parallel/ppo.py``) and the market tier's (``core/graph.py``).
+
+Configurations (``PERF.md`` section 4; ``TRAINERS`` and ``SIM_TIERS``,
+which ``chip_smoke.py`` runs too):
+
+- trainers: EV 8192 x 288 (bf16 obs, 96 minibatches, projection on: the
+  policy-in-kernel path); building fused (bf16 obs) and episodic (float32
+  obs), 8192 x 288, 96 minibatches, on the tables of
+  ``envs/building/synthetic.py``; cogen 8192 x 96, 24 minibatches;
+  datacenter 4096 x 672, 84 minibatches; market 4096 x 288, 36
+  minibatches, with Box bids and with ``discrete=True``;
+- simulation tiers: EV 32768 x 288, cogen 262144 x 96, datacenter
+  262144 x 672, building 524288 x 288 (each env's ``fused_rollout``, the
+  episode kernels with in-kernel random actions), market 4096 x 288
+  (``batch_rollout`` with random bids through the captured episode loop).
+
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+if __package__ in (None, ""):
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+# PERF.md section 4's configurations, run by this bench and by
+# chip_smoke.py. Trainers: label -> (metric, env, make kwargs, PPOConfig
+# kwargs besides ``HIDDEN`` and ``EPOCHS``).
+HIDDEN, EPOCHS = 256, 4
+TRAINERS = {
+    "EV": ("ppo_evcharging_train_env_steps_per_s_per_chip", "evcharging",
+           {}, dict(num_envs=8192, minibatches=96, obs_bf16=True)),
+    "building fused": ("ppo_building_train_env_steps_per_s_per_chip",
+                       "building", {},
+                       dict(num_envs=8192, minibatches=96, obs_bf16=True)),
+    "building episodic": (
+        "ppo_building_episodic_train_env_steps_per_s_per_chip", "building",
+        {}, dict(num_envs=8192, minibatches=96)),
+    "cogen": ("ppo_cogen_train_env_steps_per_s_per_chip", "cogen", {},
+              dict(num_envs=8192, minibatches=24, reward_scale=1e-4)),
+    "datacenter": ("ppo_datacenter_train_env_steps_per_s_per_chip",
+                   "datacenter", {}, dict(num_envs=4096, minibatches=84)),
+    "market": ("ppo_electricitymarket_train_env_steps_per_s_per_chip",
+               "electricitymarket", {}, dict(num_envs=4096, minibatches=36)),
+    "market discrete": (
+        "ppo_electricitymarket_discrete_train_env_steps_per_s_per_chip",
+        "electricitymarket", {"discrete": True},
+        dict(num_envs=4096, minibatches=36)),
+}
+# simulation tiers: env -> batch
+SIM_TIERS = {"evcharging": 32768, "cogen": 262144, "datacenter": 262144,
+             "building": 524288, "electricitymarket": 4096}
+ENVS = tuple(SIM_TIERS)
+REPEATS = 3
+
+
+def train_config(label: str, **overrides):
+    """The ``PPOConfig`` of trainer ``label`` of ``TRAINERS``, with
+    ``overrides``."""
+    from sustaingym_tpu_torch.parallel import PPOConfig
+    kwargs = dict(hidden=HIDDEN, epochs=EPOCHS, **TRAINERS[label][3])
+    kwargs.update(overrides)
+    return PPOConfig(**kwargs)
+
+
+def card() -> str:
+    """The card as ``nvidia-smi`` names it, with its power limit."""
+    import torch
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return line[torch.cuda.current_device()]
+
+
+def best_of(fn) -> float:
+    """Best wall seconds of ``REPEATS`` synchronised calls of ``fn`` after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+def free():
+    """Releases what the last line's trainer or rollout held."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def make_env(name: str, device, tables: str | None, **kwargs):
+    """``make(name)``, the building on the tables written into
+    ``tables``."""
+    from sustaingym_tpu_torch import make
+    if name != "building":
+        return make(name, device=device, **kwargs)
+    from sustaingym_tpu_torch.envs import building
+    from sustaingym_tpu_torch.envs.building.synthetic import (
+        write_building_tables)
+    htm, epw = write_building_tables(tables)
+    return building.make_env(htm, epw, "Tucson", device=device, root=tables,
+                             u_wall=building.BUILDINGS["OfficeSmall"][1],
+                             **kwargs)
+
+
+def bench_train(label: str, device, tables) -> dict:
+    """Env-steps/s of one PPO train step (rollout, re-scoring + GAE,
+    minibatch epochs) of trainer ``label`` as CUDA graphs."""
+    import torch
+    from sustaingym_tpu_torch.parallel import make_train_step
+    metric, name, make_kwargs, _ = TRAINERS[label]
+    env, params = make_env(name, device, tables, **make_kwargs)
+    cfg = train_config(label)
+    init_state, train_step = make_train_step(env, params, cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    carry = init_state(gen)
+    steps = env.episode_steps(params)
+    fused = bool(cfg.obs_bf16 and hasattr(env, "fused_policy_unroll")
+                 and env.fused_policy_unroll_supported(params, cfg.num_envs))
+    best = best_of(lambda: train_step(carry, gen))
+    result = {"metric": metric,
+              "value": round(cfg.num_envs * steps / best, 1),
+              "unit": "env-steps/s", "batch": cfg.num_envs,
+              "rollout_len": steps, "device": card(),
+              "vs_baseline": None, "episodic_rollout": True,
+              "minibatches": cfg.minibatches,
+              "cuda_graphs": train_step.graphs is not None}
+    if fused:
+        result["fused_policy_rollout"] = True
+    if cfg.obs_bf16:
+        result["obs_bf16"] = True
+    if make_kwargs.get("discrete"):
+        result["discrete"] = True
+    return result
+
+
+def bench_sim(name: str, batch: int, device, tables) -> dict:
+    """Env-steps/s of the simulation tier: the env's ``fused_rollout``
+    (episode kernels, in-kernel random actions), or for the market
+    ``batch_rollout`` with random bids through the captured episode
+    loop."""
+    import torch
+    from sustaingym_tpu_torch.core import batch_rollout, random_policy
+    from sustaingym_tpu_torch.core.graph import Graphs
+    env, params = make_env(name, device, tables)
+    steps = env.episode_steps(params)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if name == "electricitymarket":
+        policy, graphs = random_policy(env, params, batch), Graphs(device)
+        mode = "captured_episode_loop"
+
+        def run():
+            batch_rollout(env, params, policy, None, gen, batch, steps,
+                          graphs=graphs)
+    else:
+        mode = "fused_kernel_rollout"
+
+        def run():
+            env.fused_rollout(params, batch, steps, generator=gen)
+    best = best_of(run)
+    result = {"metric": f"{name}_env_steps_per_s_per_chip",
+              "value": round(batch * steps / best, 1),
+              "unit": "env-steps/s", "batch": batch, "rollout_len": steps,
+              "device": card(), "vs_baseline": None, "mode": mode}
+    if name == "evcharging":
+        result["project_action"] = True
+    return result
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--env", default="all",
+                        choices=("all", "market") + ENVS,
+                        help="one env's lines (trainers and simulation "
+                             "tier; 'market' = electricitymarket), or all")
+    args = parser.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("bench: no CUDA device")
+    device = torch.device("cuda")
+    # the plain full-f32 matmuls the port's numerics assume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = "electricitymarket" if args.env == "market" else args.env
+    tables = tempfile.mkdtemp(prefix="bench_building_tables_")
+    try:
+        for label, (_, env, _, _) in TRAINERS.items():
+            if name in ("all", env):
+                print(json.dumps(bench_train(label, device, tables)),
+                      flush=True)
+                free()
+        for env, batch in SIM_TIERS.items():
+            if name in ("all", env):
+                print(json.dumps(bench_sim(env, batch, device, tables)),
+                      flush=True)
+                free()
+    finally:
+        shutil.rmtree(tables)
+
+
+if __name__ == "__main__":
+    main()

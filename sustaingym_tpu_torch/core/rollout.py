@@ -7,15 +7,17 @@ observations; every random draw comes from the caller's
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Callable
 
 import torch
 
 from .env import FunctionalEnv, TimeStep, autoreset_step
-from .struct import tree_stack
+from .graph import Graphs, tree_leaves
+from .struct import tree_map, tree_stack
 
 __all__ = ["batch_reset", "batch_rollout", "episode_return",
-           "random_policy"]
+           "random_policy", "episode_loop", "join_episodes"]
 
 PolicyFn = Callable[[Any, Any, torch.Generator], Any]
 
@@ -26,20 +28,59 @@ def batch_reset(env: FunctionalEnv, params, generator: torch.Generator,
     return env.reset(params, generator, batch)
 
 
+def episode_loop(graphs: Graphs | None, step_loop: partial, *inputs,
+                 generator: torch.Generator | None = None,
+                 clone: bool = False):
+    """The step loop of one episode of a lockstep ``batch_unroll``,
+    ``step_loop(*inputs)``: called as it is when ``graphs`` is None, else
+    one replay of its graph in ``graphs``, captured at the first call with
+    the same function, bound arguments (by identity; the graph holds them)
+    and input shapes, drawing from ``generator``. Its slot is the
+    function, integer arguments and input shapes: other bound objects (a
+    new policy) replace the slot's graph. A replay's outputs are
+    rewritten by the next one: ``clone`` copies them out, for a caller
+    that replays the graph again before it is done with them."""
+    if graphs is None:
+        return step_loop(*inputs)
+    ints = tuple(a for a in step_loop.args if isinstance(a, int))
+    slot = ((step_loop.func,) + ints
+            + tuple((x.shape, x.dtype) for x in tree_leaves(inputs)))
+    key = slot + tuple(id(a) for a in step_loop.args
+                       if not isinstance(a, int))
+    out = graphs(key, step_loop, *inputs, slot=slot,
+                 generators=() if generator is None else (generator,))
+    return tree_map(torch.clone, out) if clone else out
+
+
+def join_episodes(parts: list[TimeStep]) -> TimeStep:
+    """The episodes' trajectories as one, along the time axis."""
+    if len(parts) == 1:
+        return parts[0]
+    return tree_map(lambda *xs: torch.cat(xs), *parts)
+
+
 def batch_rollout(env: FunctionalEnv, params, policy: PolicyFn, policy_params,
                   generator: torch.Generator, batch: int, num_steps: int,
-                  auto_reset: bool = True, fast: bool = True) -> TimeStep:
+                  auto_reset: bool = True, fast: bool = True,
+                  graphs: Graphs | None = None) -> TimeStep:
     """Rolls ``batch`` env instances for ``num_steps`` in lockstep. The
     returned ``TimeStep`` leaves have shape (num_steps, batch, ...).
 
     Envs with fixed episode lengths may provide a lockstep ``batch_unroll``
     that prefetches each episode's exogenous data once; it is used whenever
-    ``fast`` and ``auto_reset`` are set. Otherwise each step goes through
-    ``env.step`` (with :func:`autoreset_step` if ``auto_reset``)."""
+    ``fast`` and ``auto_reset`` are set. It calls ``policy`` at every step,
+    unless ``graphs`` is given: on a CUDA device each episode's step loop
+    is then one replay of a CUDA graph kept in ``graphs``, captured at the
+    first call (``policy`` runs at its warm-up and capture only, so it
+    must draw from ``generator`` and neither synchronise nor keep Python
+    state), and the result holds the graph's outputs until its next
+    replay. A graph pays off only when it is replayed: keep ``graphs``
+    across calls with the same policy and shapes. Otherwise each step goes
+    through ``env.step`` (with :func:`autoreset_step` if ``auto_reset``)."""
     unroll = getattr(env, "batch_unroll", None)
     if fast and auto_reset and unroll is not None:
         return unroll(params, policy, policy_params, batch, num_steps,
-                      generator)
+                      generator, graphs=graphs)
     step = autoreset_step(env) if auto_reset else env.step
     states, ts = batch_reset(env, params, generator, batch)
     obs, traj = ts.obs, []

@@ -15,6 +15,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from .graph import device_const
+
 __all__ = ["Space", "Box", "Discrete", "MultiDiscrete", "DictSpace",
            "flatdim", "flatten"]
 
@@ -45,8 +47,7 @@ class Box(Space):
         float32, u ~ U[0, 1) from ``generator``."""
         dev = generator.device
         u = torch.rand((batch,) + self.shape, generator=generator, device=dev)
-        low = torch.as_tensor(self.low, dtype=torch.float32, device=dev)
-        high = torch.as_tensor(self.high, dtype=torch.float32, device=dev)
+        low, high = device_const(self.low, dev), device_const(self.high, dev)
         return low + u * (high - low)
 
     def __repr__(self) -> str:
@@ -92,7 +93,7 @@ class MultiDiscrete(Space):
         from ``generator``, as the JAX package samples."""
         dev = generator.device
         u = torch.rand((batch,) + self.shape, generator=generator, device=dev)
-        nvec = torch.as_tensor(self.nvec, dtype=torch.float32, device=dev)
+        nvec = device_const(self.nvec, dev)
         return torch.floor(u * nvec).long()
 
     def __repr__(self) -> str:

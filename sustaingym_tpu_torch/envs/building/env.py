@@ -23,14 +23,17 @@ so that the generic step and the lockstep paths agree bit for bit.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any
 
 import numpy as np
 import torch
 
 from ...core import (Box, FunctionalEnv, MultiDiscrete, TimeStep, dataclass,
-                     kernel_seed, random_policy, replace, resolve_device,
-                     tree_map, tree_stack)
+                     kernel_seed, random_policy, resolve_device, tree_map,
+                     tree_stack)
+from ...core.graph import device_const
+from ...core.rollout import episode_loop, join_episodes
 
 # Occupancy sensible-heat polynomial coefficients, EnergyPlus engineering
 # reference p.1299.
@@ -128,7 +131,7 @@ def make_params(p: dict[str, Any], device="cuda",
 def div(x: torch.Tensor, k: float) -> torch.Tensor:
     """``x / k`` as an IEEE division on every device (CUDA PyTorch divides
     by a Python scalar as a multiply by its reciprocal)."""
-    return x / torch.tensor(k, dtype=x.dtype, device=x.device)
+    return x / device_const(k, x.device, x.dtype)
 
 
 def calc_occupower(temp: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
@@ -315,7 +318,7 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
     def batch_unroll(self, params: BuildingParams, policy, policy_params,
                      batch: int, num_steps: int,
                      generator: torch.Generator | None = None,
-                     epochs=None) -> TimeStep:
+                     epochs=None, graphs=None) -> TimeStep:
         """Lockstep rollout with one exogenous-row gather per episode: each
         env's ``episode_len`` rows are one contiguous slice of the padded
         table, fetched with the slice-gather kernel
@@ -324,30 +327,51 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
         returns (B, n) actions. At each episode boundary the last step's
         obs is the next episode's reset obs (autoreset). Resets are drawn
         from ``generator`` in the order the generic autoreset path draws
-        them, or prescribed by ``epochs`` ((num_steps // L + 1, B))."""
+        them, or prescribed by ``epochs`` ((num_steps // L + 1, B)).
+
+        Each episode starts eagerly (the reset draws and the gather, whose
+        range check waits on the host); its step loop
+        (:meth:`_episode_steps`) is one replay of a CUDA graph in
+        ``graphs`` when given (:func:`core.rollout.episode_loop`), which
+        the result then holds until the graph's next replay."""
         from ...ops.cuda.exog_gather import episode_slice_gather
 
         L = params.episode_len
         e0 = self._episode_epochs(params, 0, batch, generator, epochs)
         state, ts = self.reset_at_epoch(params, e0)
-        x, obs, traj = state.x, ts.obs, []
+        x, obs, parts = state.x, ts.obs, []
         for ep, t0 in enumerate(range(0, num_steps, L)):
             seg = min(L, num_steps - t0)
             block = episode_slice_gather(params.exog, state.epoch,
                                          seg).transpose(0, 1)  # (seg, B, 4)
-            no = torch.zeros(batch, dtype=torch.bool, device=params.device)
-            for t in range(seg):
-                actions = policy(policy_params, obs, generator)
-                x, _, reward, obs, info = self._step_exog(params, x, actions,
-                                                          block[t])
-                done = no | (t == L - 1)
-                traj.append(TimeStep(obs=obs, reward=reward, terminated=done,
-                                     truncated=done.clone(), info=info))
+            traj = episode_loop(
+                graphs, partial(self._episode_steps, params, policy,
+                                policy_params, generator),
+                x, obs, block, generator=generator,
+                clone=t0 + seg < num_steps)
             if seg == L:
                 state, ts_r = self.reset_at_epoch(params, self._episode_epochs(
                     params, ep + 1, batch, generator, epochs))
                 x, obs = state.x, ts_r.obs
-                traj[-1] = replace(traj[-1], obs=obs)
+                traj.obs[-1] = obs
+            parts.append(traj)
+        return join_episodes(parts)
+
+    def _episode_steps(self, params: BuildingParams, policy, policy_params,
+                       generator, x, obs, block) -> TimeStep:
+        """The steps of an episode from zone temperatures ``x`` and reset
+        ``obs`` over its gathered exogenous ``block`` (seg, B, 4): the part
+        of :meth:`batch_unroll` that a CUDA graph captures."""
+        L = params.episode_len
+        no = torch.zeros(x.shape[0], dtype=torch.bool, device=params.device)
+        traj = []
+        for t in range(block.shape[0]):
+            actions = policy(policy_params, obs, generator)
+            x, _, reward, obs, info = self._step_exog(params, x, actions,
+                                                      block[t])
+            done = no | (t == L - 1)
+            traj.append(TimeStep(obs=obs, reward=reward, terminated=done,
+                                 truncated=done.clone(), info=info))
         return tree_stack(traj)
 
     def fused_rollout(self, params: BuildingParams, batch: int,

@@ -18,12 +18,16 @@ and the episode kernel). Random draws come from a ``torch.Generator``.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from ...core import (Box, DictSpace, FunctionalEnv, TimeStep, dataclass,
-                     kernel_seed, replace, resolve_device, tree_map,
+                     kernel_seed, resolve_device, tree_map,
                      tree_stack)
+from ...core.graph import device_index
+from ...core.rollout import episode_loop, join_episodes
 from . import plant
 
 # Flat action layout, in the reference Dict's insertion order.
@@ -118,7 +122,9 @@ def pack_model_input(ambient_row: torch.Tensor, action: torch.Tensor
                      ) -> torch.Tensor:
     """The 18-wide plant-model input from the true ambient rows (..., 7)
     and the flat actions (..., 15)."""
-    return torch.cat([ambient_row[..., :3], action[..., _MODEL_INPUT_ACTION]],
+    return torch.cat([ambient_row[..., :3],
+                      action[..., device_index(_MODEL_INPUT_ACTION,
+                                               action.device)]],
                      -1)
 
 
@@ -148,7 +154,7 @@ def step_core(params: CogenParams, prev_action: torch.Tensor,
     info)."""
     x = pack_model_input(ambient_now, action)
     y = plant.plant_model(x)
-    pwr = list(PWR_IDX)
+    pwr = device_index(PWR_IDX, action.device)
     ramp = params.ramp_penalty * torch.abs(action[..., pwr]
                                            - prev_action[..., pwr])
     cv = dyn_constraint_violation(x, y)
@@ -305,7 +311,7 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
     def batch_unroll(self, params: CogenParams, policy, policy_params,
                      batch: int, num_steps: int,
                      generator: torch.Generator | None = None, days=None,
-                     prev_action=None) -> TimeStep:
+                     prev_action=None, graphs=None) -> TimeStep:
         """Lockstep rollout with one ambient gather per episode: each env's
         padded day (96 + h + 1 rows) is fetched once with the slice-gather
         kernel (``ops/cuda/exog_gather.py``) and stepped time-major by
@@ -315,37 +321,60 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
         next episode's reset obs (autoreset). Resets are drawn from
         ``generator`` in the order :func:`core.batch_rollout`'s autoreset
         path draws them, or prescribed by ``days`` / ``prev_action``
-        ((num_steps // 96 + 1, B) / (..., B, 15))."""
+        ((num_steps // 96 + 1, B) / (..., B, 15)).
+
+        Each episode starts eagerly (the reset draws and the gather, whose
+        range check waits on the host); its step loop
+        (:meth:`_episode_steps`) is one replay of a CUDA graph in
+        ``graphs`` when given (:func:`core.rollout.episode_loop`), which
+        the result then holds until the graph's next replay."""
         from ...ops.cuda.exog_gather import episode_slice_gather
 
         L, h = params.timesteps_per_day, params.forecast_horizon
-        rows, dev = L + h + 1, params.device
+        rows = L + h + 1
         flat = params.ambients.reshape(-1, params.ambients.shape[-1])
         day, prev, obs = self._episode_start(params, 0, batch, generator,
                                              days, prev_action)
-        traj = []
+        parts = []
         for ep, t0 in enumerate(range(0, num_steps, L)):
             seg = min(L, num_steps - t0)
             block = episode_slice_gather(flat, day * rows, rows).transpose(0, 1)
-            for t in range(seg):
-                actions = torch.as_tensor(policy(policy_params, obs, generator),
-                                          dtype=torch.float32, device=dev)
-                reward, info = step_core(params, prev, actions, block[t])
-                t_next = torch.full((batch,), t + 1, dtype=torch.long,
-                                    device=dev)
-                window = self._noisy(
-                    params, block[t + 1:t + h + 2].transpose(0, 1), generator)
-                obs = self._obs(params, t_next, actions, window)
-                traj.append(TimeStep(
-                    obs=obs, reward=reward, terminated=t_next >= L,
-                    truncated=torch.zeros_like(t_next, dtype=torch.bool),
-                    info=info))
-                prev = actions
+            traj = episode_loop(
+                graphs, partial(self._episode_steps, params, policy,
+                                policy_params, seg, generator),
+                obs, prev, block, generator=generator,
+                clone=t0 + seg < num_steps)
             if seg == L:
                 day, prev, obs = self._episode_start(params, ep + 1, batch,
                                                      generator, days,
                                                      prev_action)
-                traj[-1] = replace(traj[-1], obs=obs)
+                for k, v in obs.items():
+                    traj.obs[k][-1] = v
+            parts.append(traj)
+        return join_episodes(parts)
+
+    def _episode_steps(self, params: CogenParams, policy, policy_params,
+                       seg: int, generator, obs, prev, block) -> TimeStep:
+        """``seg`` steps of an episode from its reset ``obs`` and previous
+        actions ``prev`` over its gathered ambient ``block`` (rows, B, 7):
+        the part of :meth:`batch_unroll` that a CUDA graph captures."""
+        L, h = params.timesteps_per_day, params.forecast_horizon
+        batch, dev = prev.shape[0], params.device
+        traj = []
+        for t in range(seg):
+            actions = torch.as_tensor(policy(policy_params, obs, generator),
+                                      dtype=torch.float32, device=dev)
+            reward, info = step_core(params, prev, actions, block[t])
+            t_next = torch.full((batch,), t + 1, dtype=torch.long,
+                                device=dev)
+            window = self._noisy(
+                params, block[t + 1:t + h + 2].transpose(0, 1), generator)
+            obs = self._obs(params, t_next, actions, window)
+            traj.append(TimeStep(
+                obs=obs, reward=reward, terminated=t_next >= L,
+                truncated=torch.zeros_like(t_next, dtype=torch.bool),
+                info=info))
+            prev = actions
         return tree_stack(traj)
 
     def fused_rollout(self, params: CogenParams, batch: int, num_steps: int,

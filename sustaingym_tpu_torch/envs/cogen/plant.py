@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...core.graph import device_const, device_index
+
 __all__ = ["plant_model", "sum_last", "GT_PWR_LO", "GT_PWR_HI", "HR_LO", "HR_HI",
            "ST_LO", "ST_HI", "IP_LO", "IP_HI"]
 
@@ -71,14 +73,17 @@ def plant_model(x: torch.Tensor) -> torch.Tensor:
     model.json order; returns (..., 29) float32 outputs in model.json
     order."""
     def const(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=x.device)
+        return device_const(a, x.device)
+
+    def cols(idx):
+        return x[..., device_index(idx, x.device)]
 
     tamb, pamb, rh = x[..., TAMB:TAMB + 1], x[..., PAMB:PAMB + 1], \
         x[..., RHAMB:RHAMB + 1]
-    pac = x[..., list(GT_PAC)]
-    evc = x[..., list(GT_EVC)]
-    pwr = x[..., list(GT_PWR)]
-    hr_steam = x[..., list(HR_PROC)]
+    pac = cols(GT_PAC)
+    evc = cols(GT_EVC)
+    pwr = cols(GT_PWR)
+    hr_steam = cols(HR_PROC)
     st_pwr, ipproc, nbays = x[..., ST_PWR], x[..., IPPROC_M], x[..., CT_NRBAYS]
     gt_pwr_hi, hr_lo, hr_hi = const(GT_PWR_HI), const(HR_LO), const(HR_HI)
 

@@ -24,11 +24,14 @@ from __future__ import annotations
 
 import datetime as dt
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from ...core import (Box, FunctionalEnv, TimeStep, dataclass, kernel_seed,
-                     replace, resolve_device, tree_map, tree_stack)
+                     resolve_device, tree_map, tree_stack)
+from ...core.rollout import episode_loop, join_episodes
 
 HOURS_PER_DAY = 24
 EPISODE_DAYS = 28
@@ -219,7 +222,7 @@ class DataCenterEnv(FunctionalEnv[DCParams, DCState]):
     def batch_unroll(self, params: DCParams, policy, policy_params,
                      batch: int, num_steps: int,
                      generator: torch.Generator | None = None,
-                     months=None) -> TimeStep:
+                     months=None, graphs=None) -> TimeStep:
         """Lockstep rollout with one month-row gather per episode: each
         env's 696 [arrivals, MOER] rows are fetched once with the
         slice-gather kernel (``ops/cuda/exog_gather.py``) and stepped
@@ -229,29 +232,50 @@ class DataCenterEnv(FunctionalEnv[DCParams, DCState]):
         step's obs is the next episode's reset obs (autoreset). Resets are
         drawn from ``generator`` in the order the generic autoreset path
         draws them, or prescribed by ``months`` ((num_steps // 672 + 1,
-        B))."""
+        B)).
+
+        Each episode starts eagerly (the reset draws and the gather, whose
+        range check waits on the host); its step loop
+        (:meth:`_episode_steps`) is one replay of a CUDA graph in
+        ``graphs`` when given (:func:`core.rollout.episode_loop`), which
+        the result then holds until the graph's next replay."""
         from ...ops.cuda.exog_gather import episode_slice_gather
 
         L, rows = EPISODE_LEN, params.table.shape[1]
         flat = params.table.reshape(-1, 2)
         state, ts = self._episode_start(params, 0, batch, generator, months)
-        obs, traj = ts.obs, []
+        obs, parts = ts.obs, []
         for ep, t0 in enumerate(range(0, num_steps, L)):
             seg = min(L, num_steps - t0)
             block = episode_slice_gather(flat, state.month * rows,
                                          rows).transpose(0, 1)  # (rows, B, 2)
-            for t in range(seg):
-                actions = policy(policy_params, obs, generator)
-                state, ts = self._step_exog(
-                    params, state, actions, block[t, :, 0], block[t, :, 1],
-                    block[t + 1:t + 1 + FORECAST_H, :, 1].T)
-                obs = ts.obs
-                traj.append(ts)
+            traj = episode_loop(
+                graphs, partial(self._episode_steps, params, policy,
+                                policy_params, seg, generator),
+                state, obs, block, generator=generator,
+                clone=t0 + seg < num_steps)
             if seg == L:
                 state, ts_r = self._episode_start(params, ep + 1, batch,
                                                   generator, months)
                 obs = ts_r.obs
-                traj[-1] = replace(traj[-1], obs=obs)
+                traj.obs[-1] = obs
+            parts.append(traj)
+        return join_episodes(parts)
+
+    def _episode_steps(self, params: DCParams, policy, policy_params,
+                       seg: int, generator, state: DCState, obs,
+                       block) -> TimeStep:
+        """``seg`` steps of an episode from ``state`` and its ``obs`` over
+        its gathered month ``block`` (rows, B, 2): the part of
+        :meth:`batch_unroll` that a CUDA graph captures."""
+        traj = []
+        for t in range(seg):
+            actions = policy(policy_params, obs, generator)
+            state, ts = self._step_exog(
+                params, state, actions, block[t, :, 0], block[t, :, 1],
+                block[t + 1:t + 1 + FORECAST_H, :, 1].T)
+            obs = ts.obs
+            traj.append(ts)
         return tree_stack(traj)
 
     def fused_rollout(self, params: DCParams, batch: int, num_steps: int,

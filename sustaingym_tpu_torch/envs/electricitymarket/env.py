@@ -26,12 +26,15 @@ runs each lockstep step's solve through the whole-solve CUDA kernel
 from __future__ import annotations
 
 import datetime as dt
+from functools import partial
 
 import numpy as np
 import torch
 
 from ...core import (Box, DictSpace, Discrete, FunctionalEnv, TimeStep,
-                     dataclass, replace, resolve_device, tree_stack)
+                     dataclass, resolve_device, tree_stack)
+from ...core.graph import device_const
+from ...core.rollout import episode_loop, join_episodes
 from ...ops import lp
 from . import network as net_mod
 from .network import (BATTERY_CAPACITY_MWH, BATTERY_EFFICIENCY,
@@ -288,9 +291,10 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
         dev = params.device
         if params.discrete:
             idx = torch.as_tensor(action, device=dev).long().reshape(-1)
-            table = torch.tensor(DISCRETE_BIDS, dtype=torch.float32,
-                                 device=dev)
-            return table[idx].repeat_interleave(params.horizon, dim=-1)
+            bids = device_const(DISCRETE_BIDS, dev)[idx]          # (B, 2)
+            # each bid repeated over the horizon, as repeat_interleave
+            return bids[:, :, None].expand(-1, -1, params.horizon).reshape(
+                idx.shape[0], -1)
         return torch.as_tensor(action, dtype=torch.float32,
                                device=dev).clamp(0.0, MAX_BID)
 
@@ -362,7 +366,7 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
     def batch_unroll(self, params: MarketParams, policy, policy_params,
                      batch: int, num_steps: int,
                      generator: torch.Generator | None = None,
-                     days=None) -> TimeStep:
+                     days=None, graphs=None) -> TimeStep:
         """Lockstep rollout: every env is at the same episode step, so the
         solve's budget is fixed by position, cold at an episode's first
         step and warm after, and one batched solve a step serves all envs.
@@ -374,13 +378,48 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
         each episode boundary the last step's obs is the next episode's
         reset obs (autoreset). Resets are drawn from ``generator`` in the
         order the generic autoreset path draws them, or prescribed by
-        ``days`` ((num_steps // 288 + 1, B))."""
-        from ...ops.cuda.lp_solve import pack_pdhg_operands, pdhg_solve_paired
+        ``days`` ((num_steps // 288 + 1, B)).
 
-        op, L = params.op, T_STEPS
+        Each episode starts eagerly (the reset draws and the kernel's
+        operands); its step loop (:meth:`_episode_steps`) is one replay of
+        a CUDA graph in ``graphs`` when given
+        (:func:`core.rollout.episode_loop`), solve launches included,
+        which the result then holds until the graph's next replay."""
+        from ...ops.cuda.lp_solve import pack_pdhg_operands
+
+        L = T_STEPS
+        kops = (pack_pdhg_operands(params.op) if uses_solve_kernel(params)
+                else None)
+        state, ts = self._episode_start(params, 0, batch, generator, days)
+        obs, parts = ts.obs, []
+        for ep, t0 in enumerate(range(0, num_steps, L)):
+            seg = min(L, num_steps - t0)
+            traj = episode_loop(
+                graphs, partial(self._episode_steps, params, policy,
+                                policy_params, seg, generator),
+                state, obs, kops, generator=generator,
+                clone=t0 + seg < num_steps)
+            if seg == L:
+                state, ts_r = self._episode_start(params, ep + 1, batch,
+                                                  generator, days)
+                obs = ts_r.obs
+                for k, v in obs.items():
+                    traj.obs[k][-1] = v
+            parts.append(traj)
+        return join_episodes(parts)
+
+    def _episode_steps(self, params: MarketParams, policy, policy_params,
+                       seg: int, generator, state: MarketState, obs,
+                       kops) -> TimeStep:
+        """``seg`` steps of an episode from ``state`` and its ``obs``, each
+        solve through ``pdhg_solve_paired`` on ``kops`` (the packed
+        operator) or, when it is None, through ``solve_lp``: the part of
+        :meth:`batch_unroll` that a CUDA graph captures."""
+        from ...ops.cuda.lp_solve import pdhg_solve_paired
+
+        op = params.op
         ms = op.ms
         lb = torch.zeros_like(params.ub)
-        kops = pack_pdhg_operands(op) if uses_solve_kernel(params) else None
 
         def solve(c, b, h, init, iters):
             if kops is None:
@@ -392,21 +431,15 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
                 init.z[:, ms:].contiguous(), iters)
             return lp.LPSolution(x=x, y=y, z=torch.cat([zp, zm], -1))
 
-        state, ts = self._episode_start(params, 0, batch, generator, days)
-        obs, traj = ts.obs, []
-        for i in range(num_steps):
-            t_in_ep = i % L
+        traj = []
+        for t in range(seg):
             actions = self._prep_action(
                 params, policy(policy_params, obs, generator))
             c, b, h, init, load0 = self._sced_problem(params, state, actions)
             sol = solve(c, b, h, init,
-                        op.iters if t_in_ep == 0 else params.lp_warm_iters)
+                        op.iters if t == 0 else params.lp_warm_iters)
             state, ts = self._apply_cleared(
                 params, state, actions, self._cleared(params, sol, load0))
-            if t_in_ep == L - 1:
-                state, ts_r = self._episode_start(params, i // L + 1, batch,
-                                                  generator, days)
-                ts = replace(ts, obs=ts_r.obs)
             obs = ts.obs
             traj.append(ts)
         return tree_stack(traj)

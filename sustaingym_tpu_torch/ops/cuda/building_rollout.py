@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.graph import count_launches
 from ...envs.building.env import (MAX_KERNEL_ZONES, OCCU_COEF, BuildingParams,
                                   _seq_sum, div, kernel_config)
 from .ev_rollout import (PolicyWeights, _actor_ref, check_policy_weights,
@@ -254,7 +255,7 @@ def building_segment(params: BuildingParams, epochs: torch.Tensor, T: int,
     return out
 
 
-building_segment.launches = 0
+count_launches(building_segment)
 
 
 def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
@@ -294,7 +295,7 @@ def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
     return out, lrn
 
 
-building_policy_segment.launches = 0
+count_launches(building_policy_segment)
 
 
 def building_policy_plan(n: int, H: int) -> dict:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.graph import count_launches
 from ...envs.cogen.env import CogenParams, sample_action, step_core
 from .wrap import F, I, P, U64, bind, check, on_card, ptr, raise_on, seeded
 
@@ -116,4 +117,4 @@ def cogen_segment(params: CogenParams, days: torch.Tensor,
     return out
 
 
-cogen_segment.launches = 0
+count_launches(cogen_segment)

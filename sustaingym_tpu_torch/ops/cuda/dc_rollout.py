@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.graph import count_launches
 from ...envs.datacenter.env import DCParams, step_core
 from .wrap import I, P, U64, bind, check, on_card, ptr, raise_on, seeded
 
@@ -92,4 +93,4 @@ def dc_segment(params: DCParams, months: torch.Tensor, T: int,
     return out
 
 
-dc_segment.launches = 0
+count_launches(dc_segment)

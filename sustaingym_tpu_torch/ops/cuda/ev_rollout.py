@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from ...core import dataclass
+from ...core.graph import count_launches
 from ...envs.evcharging.env import EVParams, EVState, MAX_TIMESTEP, advance
 from .wrap import (I, P, PI, U64, bind, check, ctas_per_sm, on_card, pad16,
                    ptr, raise_on, seeded)
@@ -311,7 +312,7 @@ def ev_segment(params: EVParams, days: torch.Tensor, T: int,
     return out, acts_out
 
 
-ev_segment.launches = 0
+count_launches(ev_segment)
 
 
 def ev_policy_segment(params: EVParams, weights: PolicyWeights,
@@ -351,7 +352,7 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
     return out, lrn
 
 
-ev_policy_segment.launches = 0
+count_launches(ev_policy_segment)
 
 
 def ev_policy_occupancy(D: int, H: int, n: int) -> int:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.graph import count_launches
 from .wrap import I, P, bind, check, on_card, raise_on
 
 __all__ = ["episode_slice_gather", "episode_slice_gather_ref",
@@ -63,7 +64,7 @@ def episode_slice_gather(table: torch.Tensor, starts: torch.Tensor,
     return out
 
 
-episode_slice_gather.launches = 0
+count_launches(episode_slice_gather)
 
 # the JAX package's wide-table variant computes the same function
 hbm_slice_gather = episode_slice_gather

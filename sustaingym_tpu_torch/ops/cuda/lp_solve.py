@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..lp import LPOperator, LPSolution, solve_lp
+from ...core.graph import count_launches
 from ...core.struct import dataclass, replace
 from .wrap import I, P, PI, bind, check, ctas_per_sm, on_card, pad16, raise_on
 
@@ -123,7 +124,7 @@ def pdhg_solve_paired(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
     return x, y, zp, zm
 
 
-pdhg_solve_paired.launches = 0
+count_launches(pdhg_solve_paired)
 
 
 def pdhg_occupancy(op: LPOperator) -> tuple[int, int]:

@@ -1,9 +1,9 @@
-"""PPO learner: the episodic paths of ``sustaingym_tpu.parallel.ppo``.
+"""PPO and A2C learner: the episodic paths of ``sustaingym_tpu.parallel.ppo``.
 
 One train step = one rollout of whole episodes, a re-scoring of (logp,
 value) in one batched pass, GAE on ``reward * reward_scale``, and
-clipped-PPO epochs over ``torch.randperm`` minibatches of all T x B
-samples. The rollout goes one of two ways, as in the JAX package:
+clipped-PPO (or A2C) epochs over ``torch.randperm`` minibatches of all
+T x B samples. The rollout goes one of two ways, as in the JAX package:
 
 - **fused** (EVChargingEnv or BuildingEnv with ``obs_bf16``, in a
   configuration its kernel computes): the actor runs inside the env's
@@ -12,30 +12,44 @@ samples. The rollout goes one of two ways, as in the JAX package:
   (:func:`policy_apply_bf16`);
 - **episodic** (otherwise, an env with a lockstep ``batch_unroll``:
   BuildingEnv, CogenEnv, DataCenterEnv, ElectricityMarketEnv): the
-  sampling policy applies the f32 :func:`policy_apply` to the flat obs,
-  draws a Gaussian ``u`` from the generator and squashes it into the Box
-  action space; the obs it saw (bf16 if ``obs_bf16``) and ``u`` are
-  recorded and re-scored afterwards.
+  sampling policy applies the f32 :func:`policy_apply` to the flat obs and
+  draws ``u`` from the generator: a Gaussian squashed into the Box action
+  space, or, for a Discrete or MultiDiscrete action space, the bins of a
+  categorical head (uniform bins, as the JAX package requires). The obs it
+  saw (bf16 if ``obs_bf16``) and ``u`` are recorded and re-scored
+  afterwards.
 
 Either way, with lr=0 every ratio is exactly 1 (the exact-ratio invariant
 of the JAX package's tests).
 
-Not ported yet: the generic (non-episodic) rollout, A2C, the multi-agent
-and per-agent paths, categorical heads and sharding.
+On a CUDA device a train step is the counterpart of the JAX package's one
+jitted program: the episode's step loop, the re-scoring with GAE, and each
+minibatch update (gather, forward, backward, global-norm clip, Adam) are
+CUDA graphs (``core/graph.py``), captured at the first train step and
+replayed after. ``make_train_step(..., capture=False)`` builds the same
+step without graphs, for comparisons.
+
+Not ported yet: the generic (non-episodic) rollout, the multi-agent and
+per-agent paths and sharding.
 """
 from __future__ import annotations
 
 import math
 import warnings
+from functools import partial
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core import Discrete, MultiDiscrete, dataclass, flatdim, flatten
+from ..core.graph import Graphs, device_const
 
 __all__ = ["PPOConfig", "ActorCritic", "init_policy", "policy_apply",
            "policy_apply_bf16", "default_act_transform", "gae", "loss_fn",
            "clip_by_global_norm", "make_train_step"]
+
+METRICS = ("pg_loss", "vf_loss", "entropy")
 
 
 @dataclass
@@ -62,11 +76,14 @@ class PPOConfig:
     # every update epoch score the SAME bf16 values. Required by the fused
     # EV path, whose kernel writes a bf16 learner block
     obs_bf16: bool = False
+    # "ppo" (clipped ratio) or "a2c" (-(logp * adv).mean(), same learner)
+    algo: str = "ppo"
 
 
 class ActorCritic(nn.Module):
     """Diag-Gaussian tanh MLP actor-critic over flat observations (the
-    JAX package's trunk1/trunk2/mu/value/log_std policy tree)."""
+    JAX package's trunk1/trunk2/mu/value/log_std policy tree). With a
+    categorical head ``mu`` holds the logits, act_dim x n_bins wide."""
 
     def __init__(self, obs_dim: int, act_dim: int, hidden: int = 256,
                  device=None):
@@ -132,15 +149,37 @@ def _gauss_logp(mu, log_std, a):
     return torch.sum(terms, -1)
 
 
+def _categorical_logp(logits, idx):
+    """Sum over action dims of log softmax(logits) at the chosen bins.
+    logits (..., act_dim, n_bins), idx (..., act_dim) int."""
+    logp = torch.log_softmax(logits, -1)
+    return torch.sum(torch.gather(logp, -1, idx[..., None].long())[..., 0],
+                     -1)
+
+
+def _categorical_entropy(logits):
+    """Entropy summed over action dims, logits (..., act_dim, n_bins)."""
+    logp = torch.log_softmax(logits, -1)
+    return -torch.sum(torch.exp(logp) * logp, (-2, -1))
+
+
+def _sample_categorical(logits, generator):
+    """Bins drawn by the Gumbel-max rule, as ``jax.random.categorical``:
+    argmax(logits - log(-log U)), U ~ U[tiny, 1) from ``generator``."""
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device)
+    u = u.clamp_min(torch.finfo(u.dtype).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), -1)
+
+
 def default_act_transform(env, params):
     """Maps the policy's unbounded output to the env's Box action space by
     tanh squashing (the kernel bakes in Box(0, 1))."""
     space = env.action_space(params)
-    low = torch.as_tensor(space.low, dtype=torch.float32)
-    high = torch.as_tensor(space.high, dtype=torch.float32)
 
     def fn(u):
-        lo, hi = low.to(u.device), high.to(u.device)
+        lo = device_const(space.low, u.device)
+        hi = device_const(space.high, u.device)
         return lo + (torch.tanh(u) * 0.5 + 0.5) * (hi - lo)
 
     return fn
@@ -165,22 +204,37 @@ def _apply_f32(policy: ActorCritic, obs: torch.Tensor):
     return policy_apply(policy, obs.float())
 
 
+def _logits(mu: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """The categorical head's (..., act_dim, n_bins) logits."""
+    return mu.reshape(mu.shape[:-1] + (-1, n_bins))
+
+
 def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig,
-            apply=policy_apply_bf16):
-    """Clipped-PPO loss on one minibatch, scored by ``apply`` (the same
-    function that scored the rollout); returns (loss, {pg_loss, vf_loss,
-    entropy})."""
+            apply=policy_apply_bf16, n_bins: int = 0):
+    """Clipped-PPO (or, with ``cfg.algo == "a2c"``, A2C) loss on one
+    minibatch, scored by ``apply`` (the same function that scored the
+    rollout), with a Gaussian head or, for ``n_bins`` > 0, a categorical
+    one; returns (loss, {pg_loss, vf_loss, entropy})."""
     mu, log_std, value = apply(policy, batch["obs"])
-    logp = _gauss_logp(mu, log_std, batch["u"])
+    if n_bins:
+        logits = _logits(mu, n_bins)
+        logp = _categorical_logp(logits, batch["u"])
+        ent = torch.mean(_categorical_entropy(logits))
+    else:
+        logp = _gauss_logp(mu, log_std, batch["u"])
+        ent = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
     adv = batch["adv"]
     # population std, as jnp.std
     adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-    ratio = torch.exp(logp - batch["logp"])
-    pg = -torch.minimum(
-        ratio * adv,
-        torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv).mean()
+    if cfg.algo == "a2c":
+        pg = -(logp * adv).mean()
+    else:
+        ratio = torch.exp(logp - batch["logp"])
+        pg = -torch.minimum(
+            ratio * adv,
+            torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
+        ).mean()
     vf = 0.5 * torch.mean((value - batch["ret"]) ** 2)
-    ent = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
     loss = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
     return loss, {"pg_loss": pg, "vf_loss": vf, "entropy": ent}
 
@@ -197,7 +251,88 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def make_train_step(env, env_params, cfg: PPOConfig):
+def _adam(params, cfg: PPOConfig, device: torch.device):
+    """optax.adam(cfg.lr) as ``torch.optim.Adam``; on a CUDA device its
+    capturable foreach form, whose step count lives on the card, for the
+    captured update and the eager one alike."""
+    if device.type == "cuda":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8, capturable=True, foreach=True)
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _adam_state(opt: torch.optim.Adam) -> list[torch.Tensor]:
+    """The tensors of ``opt``'s state, made first (zeros, as its first
+    step makes them) where a parameter has none yet: the captured update
+    binds them, and a warm-up restores them."""
+    out = []
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=torch.float32,
+                                         device=p.device)
+                st["exp_avg"] = torch.zeros_like(p)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+            out += [st["step"], st["exp_avg"], st["exp_avg_sq"]]
+    return out
+
+
+def _action_head(space) -> tuple[int, int]:
+    """(act_dim, n_bins) of ``space``: n_bins 0 for a Box; for a Discrete
+    or MultiDiscrete space one categorical of n_bins per action dim, which
+    must all be equal and at least 2 (the JAX package's check)."""
+    if not isinstance(space, (Discrete, MultiDiscrete)):
+        return flatdim(space), 0
+    nvec = (np.asarray([space.n]) if isinstance(space, Discrete)
+            else np.asarray(space.nvec))
+    if not np.all(nvec == nvec.flat[0]):
+        raise ValueError(
+            f"categorical PPO needs uniform bins, got nvec={nvec}")
+    n_bins = int(nvec.flat[0])
+    if n_bins < 2:
+        raise ValueError(f"categorical PPO needs >= 2 bins, got {n_bins}")
+    return int(nvec.size), n_bins
+
+
+class _SamplingPolicy:
+    """The episodic rollout's policy, built once per trainer and policy:
+    flattens the obs (bf16 if ``obs_bf16``), applies ``apply``, draws
+    ``u`` from the generator (Gaussian, or categorical bins when
+    ``n_bins``) and records the obs and ``u`` of step t in row t of
+    ``obs`` / ``u`` (steps, B, ...), which it allocates at step 0. Inside
+    a captured episode the rows are the graph's outputs, rewritten by
+    each replay."""
+
+    def __init__(self, obs_space, apply, obs_bf16: bool, act, n_bins: int,
+                 steps: int):
+        self.obs_space, self.apply, self.obs_bf16 = obs_space, apply, obs_bf16
+        self.act, self.n_bins, self.steps = act, n_bins, steps
+        self.t = 0
+        self.obs = self.u = None
+
+    def __call__(self, policy, obs_raw, generator):
+        obs = flatten(self.obs_space, obs_raw, batch_dims=1)
+        if self.obs_bf16:
+            obs = obs.to(torch.bfloat16)
+        mu, log_std, _ = self.apply(policy, obs)
+        if self.n_bins:
+            u = action = _sample_categorical(_logits(mu, self.n_bins),
+                                             generator)
+        else:
+            u = mu + torch.exp(log_std) * torch.randn(
+                mu.shape, generator=generator, device=generator.device)
+            action = self.act(u)
+        if self.t == 0:
+            self.obs = obs.new_empty((self.steps,) + obs.shape)
+            self.u = u.new_empty((self.steps,) + u.shape)
+        self.obs[self.t] = obs
+        self.u[self.t] = u
+        self.t = (self.t + 1) % self.steps
+        return action
+
+
+def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     """Builds (init_state, train_step).
 
     ``init_state(generator) -> carry`` with the policy and its Adam state;
@@ -206,12 +341,28 @@ def make_train_step(env, env_params, cfg: PPOConfig):
     (no host synchronisation). Its three phases are also attributes of
     ``train_step``, for timing them apart: ``rollout(policy, generator) ->
     out``, ``score(policy, out) -> samples`` (re-scoring and GAE) and
-    ``update(policy, opt, samples, generator) -> summed metrics``.
+    ``update(policy, opt, samples, generator) -> summed metrics``; and
+    ``train_step.graphs``, the trainer's :class:`core.graph.Graphs` (None
+    without capture).
 
     The rollout is the fused path when ``cfg.obs_bf16``, the env has a
     ``fused_policy_unroll`` and ``env.fused_policy_unroll_supported(params,
-    num_envs)``; else the episodic path when the env has a lockstep
-    ``batch_unroll`` (module docstring); anything else raises."""
+    num_envs)``; else the
+    episodic path when the env has a lockstep ``batch_unroll`` (module
+    docstring); anything else raises.
+
+    On a CUDA device, with ``capture`` (the default), the episodic
+    rollout's step loop, the scoring and each minibatch update run as CUDA
+    graphs captured at the first train step (never here: a checkpoint
+    restored after ``init_state`` replaces the optimizer state they bind).
+    A phase holds one graph: another policy or optimizer state (a carry
+    made earlier, ``opt.load_state_dict``) replaces it, and
+    ``init_state`` drops them all with their memory pool.
+    What a phase returns is then the graph's output, rewritten when that
+    phase runs again. ``capture=False`` runs the same step eagerly (for
+    comparisons); on the CPU every step is eager."""
+    if cfg.algo not in ("ppo", "a2c"):
+        raise ValueError(f"unknown on-policy algo {cfg.algo!r}")
     has_fused = hasattr(env, "fused_policy_unroll")
     fused = (cfg.obs_bf16 and has_fused and env.fused_policy_unroll_supported(
         env_params, cfg.num_envs))
@@ -227,17 +378,15 @@ def make_train_step(env, env_params, cfg: PPOConfig):
             "(episodic path) or a fused_policy_unroll (fused path, obs_bf16); "
             "the generic rollout is not ported yet (ROADMAP Queue 1, 'EV "
             "lockstep rollouts')")
-    if isinstance(env.action_space(env_params), (Discrete, MultiDiscrete)):
-        raise ValueError(
-            f"{type(env).__name__} has a discrete action space (the market's "
-            f"discrete=True, the building's is_continuous_action=False), "
-            f"which needs the categorical PPO head; it is not ported yet "
-            f"(ROADMAP Queue 1, 'categorical PPO head')")
+    # the fused kernels compute Box actions only: their
+    # fused_policy_unroll_supported is False for a discrete space
+    act_dim, n_bins = _action_head(env.action_space(env_params))
     device = env_params.device
+    graphs = Graphs(device) if capture and device.type == "cuda" else None
     ep_len = env.episode_steps(env_params)
     obs_space = env.observation_space(env_params)
     obs_dim = flatdim(obs_space)
-    act_dim = flatdim(env.action_space(env_params))
+    head_dim = act_dim * n_bins if n_bins else act_dim
     if fused:
         apply = policy_apply_bf16
         layout = env.fused_layout(env_params)
@@ -255,49 +404,74 @@ def make_train_step(env, env_params, cfg: PPOConfig):
                     "reward": out["reward"], "done": out["done"]}
     else:
         apply = _apply_f32
-        act = default_act_transform(env, env_params)
+        act = None if n_bins else default_act_transform(env, env_params)
+        # the sampling policy of the last policy rolled out: a captured
+        # episode writes the buffers of the sampler it was captured with,
+        # and a new policy's episode (a new key) replaces that graph
+        samplers = {}
 
         def unroll(policy, generator):
-            seen, drawn = [], []
-
-            def sampling_policy(p, obs_raw, gen):
-                obs = flatten(obs_space, obs_raw, batch_dims=1)
-                if cfg.obs_bf16:
-                    obs = obs.to(torch.bfloat16)
-                mu, log_std, _ = apply(p, obs)
-                u = mu + torch.exp(log_std) * torch.randn(
-                    mu.shape, generator=gen, device=gen.device)
-                seen.append(obs)
-                drawn.append(u)
-                return act(u)
-
-            ts = env.batch_unroll(env_params, sampling_policy, policy,
-                                  cfg.num_envs, ep_len, generator)
-            return {"obs": torch.stack(seen), "u": torch.stack(drawn),
+            sampler = samplers.get(policy)
+            if sampler is None:
+                samplers.clear()
+                sampler = samplers[policy] = _SamplingPolicy(
+                    obs_space, apply, cfg.obs_bf16, act, n_bins, ep_len)
+            ts = env.batch_unroll(env_params, sampler, policy, cfg.num_envs,
+                                  ep_len, generator, graphs=graphs)
+            return {"obs": sampler.obs, "u": sampler.u,
                     "reward": ts.reward, "done": ts.done}
 
+    def logp_of(mu, log_std, u):
+        if n_bins:
+            return _categorical_logp(_logits(mu, n_bins), u)
+        return _gauss_logp(mu, log_std, u)
+
     def init_state(generator: torch.Generator) -> dict:
-        policy = init_policy(obs_dim, act_dim, cfg.hidden, generator, device)
-        opt = torch.optim.Adam(policy.parameters(), lr=cfg.lr,
-                               betas=(0.9, 0.999), eps=1e-8)
-        return {"policy": policy, "opt": opt}
+        if graphs is not None:
+            graphs.clear()          # the last carry's captures and pool
+        policy = init_policy(obs_dim, head_dim, cfg.hidden, generator,
+                             device)
+        return {"policy": policy, "opt": _adam(policy.parameters(), cfg,
+                                               device)}
 
     @torch.no_grad()
     def rollout(policy: ActorCritic, generator: torch.Generator) -> dict:
         return unroll(policy, generator)
 
-    @torch.no_grad()
-    def score(policy: ActorCritic, out: dict) -> dict:
-        obs, u = out["obs"], out["u"]
+    def score_body(policy, obs, u, reward, done):
         mu, log_std, value = apply(policy, obs)
-        logp = _gauss_logp(mu, log_std, u)
+        logp = logp_of(mu, log_std, u)
         # episodes terminate on the last step: no bootstrap value
-        advs, rets = gae(cfg, value, out["reward"] * cfg.reward_scale,
-                         out["done"], torch.zeros_like(value[0]))
+        advs, rets = gae(cfg, value, reward * cfg.reward_scale, done,
+                         torch.zeros_like(value[0]))
         n = logp.numel()
         return {"obs": obs.reshape(n, obs_dim), "u": u.reshape(n, act_dim),
                 "logp": logp.reshape(n), "adv": advs.reshape(n),
                 "ret": rets.reshape(n)}
+
+    @torch.no_grad()
+    def score(policy: ActorCritic, out: dict) -> dict:
+        args = (out["obs"], out["u"], out["reward"], out["done"])
+        if graphs is None:
+            return score_body(policy, *args)
+        key = ("score", id(policy)) + tuple(
+            (a.shape, a.dtype) for a in args)
+        return graphs(key, partial(score_body, policy), *args, slot="score")
+
+    def minibatch_body(policy, opt, flat, mb_idx, counter, sums):
+        """One minibatch update: the rows ``mb_idx[counter]``, then
+        ``counter`` += 1 and the metrics added to ``sums``."""
+        idx = mb_idx.index_select(0, counter)[0]
+        batch = {key: v[idx] for key, v in flat.items()}
+        loss, metrics = loss_fn(policy, batch, cfg, apply, n_bins)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        clip_by_global_norm(policy.parameters(), cfg.max_grad_norm)
+        opt.step()
+        with torch.no_grad():
+            counter.add_(1)
+            sums.add_(torch.stack([metrics[k].detach() for k in METRICS]))
+        return sums
 
     def update(policy: ActorCritic, opt, flat: dict,
                generator: torch.Generator) -> dict:
@@ -309,32 +483,38 @@ def make_train_step(env, env_params, cfg: PPOConfig):
         if n % cfg.minibatches:
             warnings.warn(f"PPO minibatching drops {n - mb * cfg.minibatches}"
                           f"/{n} samples per epoch", stacklevel=2)
-        sums = {}
-        for _ in range(cfg.epochs):
-            perm = torch.randperm(n, generator=generator,
-                                  device=generator.device).to(device)
-            for k in range(cfg.minibatches):
-                idx = perm[k * mb:(k + 1) * mb]
-                batch = {key: v[idx] for key, v in flat.items()}
-                loss, metrics = loss_fn(policy, batch, cfg, apply)
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                clip_by_global_norm(policy.parameters(), cfg.max_grad_norm)
-                opt.step()
-                for key, v in metrics.items():
-                    sums[key] = sums.get(key, 0.0) + v.detach()
-        return sums
+        # every epoch's permutation first, in the order the epochs use them
+        perms = [torch.randperm(n, generator=generator,
+                                device=generator.device).to(device)
+                 for _ in range(cfg.epochs)]
+        count = cfg.epochs * cfg.minibatches
+        mb_idx = torch.stack([p[:cfg.minibatches * mb] for p in perms]
+                             ).reshape(count, mb)
+        counter = torch.zeros(1, dtype=torch.long, device=device)
+        sums = torch.zeros(len(METRICS), device=device)
+        body = partial(minibatch_body, policy, opt)
+        if graphs is None:
+            for _ in range(count):
+                body(flat, mb_idx, counter, sums)
+        else:
+            state = list(policy.parameters()) + _adam_state(opt)
+            key = ("update", id(opt), n, mb) + tuple(map(id, state))
+            sums = graphs(key, body, flat, mb_idx, counter, sums,
+                          state=state, repeat=count, slot="update")
+        return dict(zip(METRICS, sums))
 
     def train_step(carry: dict, generator: torch.Generator):
         policy, opt = carry["policy"], carry["opt"]
         out = rollout(policy, generator)
+        # read before the later phases' graphs run: a graph captured after
+        # them may hold its outputs in their scratch memory
+        metrics = {"mean_reward": out["reward"].mean(),
+                   "episode_done_frac": out["done"].float().mean()}
         sums = update(policy, opt, score(policy, out), generator)
         count = cfg.epochs * cfg.minibatches
-        metrics = {"mean_reward": out["reward"].mean(),
-                   "episode_done_frac": out["done"].float().mean(),
-                   **{key: v / count for key, v in sums.items()}}
+        metrics.update({key: v / count for key, v in sums.items()})
         return carry, metrics
 
     train_step.rollout, train_step.score = rollout, score
-    train_step.update = update
+    train_step.update, train_step.graphs = update, graphs
     return init_state, train_step

@@ -1,5 +1,5 @@
-"""Training CLI of the PyTorch port: PPO on EVChargingEnv, BuildingEnv,
-CogenEnv, DataCenterEnv or ElectricityMarketEnv.
+"""Training CLI of the PyTorch port: PPO or A2C on EVChargingEnv,
+BuildingEnv, CogenEnv, DataCenterEnv or ElectricityMarketEnv.
 
     python -m sustaingym_tpu_torch.train --env evcharging --algo ppo \
         --num-envs 8192 --rollout-len 288 --minibatches 96 --obs-bf16
@@ -13,13 +13,18 @@ CogenEnv, DataCenterEnv or ElectricityMarketEnv.
         --rollout-len 672 --minibatches 84
     python -m sustaingym_tpu_torch.train --env electricitymarket \
         --num-envs 4096 --rollout-len 288 --minibatches 36
+    python -m sustaingym_tpu_torch.train --env electricitymarket \
+        --env-kwargs '{"discrete": true}' --algo a2c --num-envs 4096 \
+        --minibatches 36
 
 Writes per-iteration metrics to ``<log-dir>/train_results.csv``, saves the
 policy, optimizer and generator state with ``torch.save`` every
 ``--save-every`` iterations (``<log-dir>/checkpoints/step_<i>.pt``), and
 resumes from the newest checkpoint of ``--restore``. Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; asking
-for ``cuda`` without a CUDA device is an error.
+for ``cuda`` without a CUDA device is an error. On the card each train
+step replays CUDA graphs captured at the first one (``parallel/ppo.py``),
+after any restore; the first iteration's time includes the captures.
 """
 from __future__ import annotations
 
@@ -66,7 +71,7 @@ def main(argv: list[str] | None = None) -> None:
                              "e.g. '{\"site\": \"jpl\"}'; building's "
                              "default reads the raw OfficeSmall/Tucson "
                              "tables")
-    parser.add_argument("--algo", default="ppo", choices=["ppo"])
+    parser.add_argument("--algo", default="ppo", choices=["ppo", "a2c"])
     parser.add_argument("--device", default="cuda",
                         help="torch device, e.g. cuda (default) or cpu")
     parser.add_argument("--iterations", type=int, default=50)
@@ -119,7 +124,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = PPOConfig(num_envs=args.num_envs, hidden=args.hidden, lr=args.lr,
                     gamma=args.gamma, epochs=args.epochs,
                     minibatches=args.minibatches, reward_scale=reward_scale,
-                    obs_bf16=args.obs_bf16)
+                    obs_bf16=args.obs_bf16, algo=args.algo)
     init_state, train_step = make_train_step(env, env_params, cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

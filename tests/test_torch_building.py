@@ -3,7 +3,7 @@ rollout paths, the plain versions of the two building episode kernels and
 PPO on building, against the JAX package.
 
 Both packages compile the same files: the zone table and the weather year
-that ``chip_smoke.write_building_tables`` writes (6 zones, a seeded year
+that ``envs/building/synthetic.py`` writes (6 zones, a seeded year
 in Tucson's range), through their own ``generate_building_params``. Inputs
 are made with numpy from a seed. Tolerances, each with its reason:
 - the host compiler's arrays and ``make_params``' tensors: bit-equal (the
@@ -28,10 +28,12 @@ import torch
 import chip_smoke
 from sustaingym_tpu.core import flatten as jflatten
 from sustaingym_tpu.envs import building as jb
+from sustaingym_tpu.parallel import ppo as jppo
 from sustaingym_tpu_torch import make
 from sustaingym_tpu_torch.core import (MultiDiscrete, batch_rollout, flatdim,
                                        flatten, random_policy, replace)
 from sustaingym_tpu_torch.envs import building as tb
+from sustaingym_tpu_torch.envs.building import synthetic
 from sustaingym_tpu_torch.ops.cuda import building_rollout as K5
 from sustaingym_tpu_torch.ops.cuda import exog_gather as KA
 from sustaingym_tpu_torch.ops.cuda.ev_rollout import pack_policy_weights
@@ -44,7 +46,7 @@ KERNEL_TOL = dict(rtol=2e-5, atol=2e-4)
 @pytest.fixture(scope="module")
 def tables(tmp_path_factory):
     root = tmp_path_factory.mktemp("building_tables")
-    htm, epw = chip_smoke.write_building_tables(str(root))
+    htm, epw = synthetic.write_building_tables(str(root))
     return str(root), htm, epw
 
 
@@ -399,9 +401,10 @@ def test_ppo_lr0_on_both_paths(dicts, obs_bf16, path):
 
 def test_ppo_gate_other_configurations(dicts):
     """A building configuration the kernels do not compute takes the
-    episodic path even with bf16 obs; discrete actions need the categorical
-    head; EV with float32 obs still raises its own message (no EV
-    batch_unroll yet)."""
+    episodic path even with bf16 obs; discrete actions train on the
+    categorical head where their bins are uniform and raise the JAX
+    package's error where they are not; EV with float32 obs still raises
+    its own message (no EV batch_unroll yet)."""
     jd, td = dicts
     tp = tb.make_params({**td, "episode_len": 24, "reward_pnorm": 1},
                         device="cpu")
@@ -414,9 +417,25 @@ def test_ppo_gate_other_configurations(dicts):
     gen = torch.Generator().manual_seed(1)
     train_step(init_state(gen), gen)
     assert calls == ["batch_unroll"]
-    _, tpd = _params(dicts, is_continuous_action=False)
-    with pytest.raises(ValueError, match="categorical"):
-        make_train_step(tb.BuildingEnv(), tpd, PPOConfig())
+    # discrete actions: uniform bins (2 ac 100 = 200 per zone here) train
+    # on the categorical head, the lr=0 ratio exact; bins that differ by
+    # zone raise as the JAX package raises
+    _, tpd = _params(dicts, episode_len=24, is_continuous_action=False)
+    assert tb.BuildingEnv().action_space(tpd).nvec.tolist() == [200] * 6
+    init_state, train_step = make_train_step(
+        tb.BuildingEnv(), tpd, PPOConfig(num_envs=8, hidden=16,
+                                         minibatches=2, epochs=1, lr=0.0,
+                                         obs_bf16=True))
+    _, m = train_step(init_state(gen), gen)
+    assert abs(float(m["pg_loss"])) < 1e-5, m
+    ac = np.array(jd["ac_map"], dtype=np.float64)
+    ac[1] = 0.5
+    jpn, tpn = _params(dicts, is_continuous_action=False, ac_map=ac)
+    with pytest.raises(ValueError, match="uniform bins") as theirs:
+        jppo.make_train_step(jb.BuildingEnv(), jpn, jppo.PPOConfig())
+    with pytest.raises(ValueError, match="uniform bins") as ours:
+        make_train_step(tb.BuildingEnv(), tpn, PPOConfig())
+    assert str(ours.value) == str(theirs.value)
     ev, evp = make("evcharging", site="caltech", project_action=False,
                    device="cpu")
     with pytest.raises(ValueError, match="EV lockstep rollouts"):
@@ -502,3 +521,53 @@ def test_policy_drift_finds_the_first_flip(flip, verdict):
     if flip is not None:
         assert f"first differs at step {flip} in u[1] 0.5 vs 0" in msg
     assert msg.endswith(verdict)
+
+
+def _present_batch_unroll(env, p, policy, batch, num_steps, generator):
+    """BuildingEnv.batch_unroll as one loop over every step, as it was
+    before its step loop became the part a CUDA graph captures."""
+    from sustaingym_tpu_torch.core import TimeStep, tree_stack
+    L = p.episode_len
+    e0 = env._episode_epochs(p, 0, batch, generator, None)
+    state, ts = env.reset_at_epoch(p, e0)
+    x, obs, traj = state.x, ts.obs, []
+    for ep, t0 in enumerate(range(0, num_steps, L)):
+        seg = min(L, num_steps - t0)
+        block = KA.episode_slice_gather(p.exog, state.epoch,
+                                        seg).transpose(0, 1)
+        no = torch.zeros(batch, dtype=torch.bool)
+        for t in range(seg):
+            actions = policy(None, obs, generator)
+            x, _, reward, obs, info = env._step_exog(p, x, actions, block[t])
+            done = no | (t == L - 1)
+            traj.append(TimeStep(obs=obs, reward=reward, terminated=done,
+                                 truncated=done.clone(), info=info))
+        if seg == L:
+            state, ts_r = env.reset_at_epoch(p, env._episode_epochs(
+                p, ep + 1, batch, generator, None))
+            x, obs = state.x, ts_r.obs
+            traj[-1] = replace(traj[-1], obs=obs)
+    return tree_stack(traj)
+
+
+@pytest.mark.parametrize("continuous", [True, False])
+def test_split_batch_unroll_matches_the_present_loop(dicts, continuous):
+    """batch_unroll split into an eager episode start and a step loop
+    (_episode_steps, which a CUDA graph captures on the card), called
+    directly and through a CPU Graphs, against the loop it replaces: bit
+    for bit across two episode boundaries, with Box and MultiDiscrete
+    actions."""
+    from sustaingym_tpu_torch.core import tree_map
+    from sustaingym_tpu_torch.core.graph import Graphs
+    _, tp = _params(dicts, episode_len=10, is_continuous_action=continuous)
+    env, B, T = tb.BuildingEnv(), 4, 25
+    policy = random_policy(env, tp, B)
+    want = _present_batch_unroll(env, tp, policy, B, T,
+                                 torch.Generator().manual_seed(3))
+    for graphs in (None, Graphs("cpu")):
+        got = env.batch_unroll(tp, policy, None, B, T,
+                               torch.Generator().manual_seed(3),
+                               graphs=graphs)
+        tree_map(lambda a, b: np.testing.assert_array_equal(a.numpy(),
+                                                            b.numpy()),
+                 got, want)

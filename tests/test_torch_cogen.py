@@ -331,3 +331,55 @@ def test_train_cli_cogen_cpu(tmp_path):
                 "--iterations", "1", "--log-dir", str(tmp_path)])
     rows = (tmp_path / "train_results.csv").read_text().splitlines()
     assert len(rows) == 2 and "pg_loss" in rows[0]
+
+
+def _present_batch_unroll(env, p, policy, batch, num_steps, generator):
+    """CogenEnv.batch_unroll as one loop over every step, as it was before
+    its step loop became the part a CUDA graph captures."""
+    from sustaingym_tpu_torch.core import TimeStep, replace, tree_stack
+    L, h = p.timesteps_per_day, p.forecast_horizon
+    rows = L + h + 1
+    flat = p.ambients.reshape(-1, p.ambients.shape[-1])
+    day, prev, obs = env._episode_start(p, 0, batch, generator, None, None)
+    traj = []
+    for ep, t0 in enumerate(range(0, num_steps, L)):
+        seg = min(L, num_steps - t0)
+        block = KA.episode_slice_gather(flat, day * rows, rows).transpose(0, 1)
+        for t in range(seg):
+            actions = policy(None, obs, generator)
+            reward, info = tenv_mod.step_core(p, prev, actions, block[t])
+            t_next = torch.full((batch,), t + 1, dtype=torch.long)
+            window = env._noisy(p, block[t + 1:t + h + 2].transpose(0, 1),
+                                generator)
+            obs = env._obs(p, t_next, actions, window)
+            traj.append(TimeStep(
+                obs=obs, reward=reward, terminated=t_next >= L,
+                truncated=torch.zeros_like(t_next, dtype=torch.bool),
+                info=info))
+            prev = actions
+        if seg == L:
+            day, prev, obs = env._episode_start(p, ep + 1, batch, generator,
+                                                None, None)
+            traj[-1] = replace(traj[-1], obs=obs)
+    return tree_stack(traj)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.05])
+def test_split_batch_unroll_matches_the_present_loop(noise):
+    """batch_unroll split into an eager episode start and a step loop
+    (_episode_steps, which a CUDA graph captures on the card), called
+    directly and through a CPU Graphs, against the loop it replaces: bit
+    for bit across the episode boundary."""
+    from sustaingym_tpu_torch.core.graph import Graphs
+    env, p = make("cogen", forecast_noise_std=noise, device="cpu")
+    B, T = 4, 98
+    policy = random_policy(env, p, B)
+    want = _present_batch_unroll(env, p, policy, B, T,
+                                 torch.Generator().manual_seed(5))
+    for graphs in (None, Graphs("cpu")):
+        got = env.batch_unroll(p, policy, None, B, T,
+                               torch.Generator().manual_seed(5),
+                               graphs=graphs)
+        tree_map(lambda x, y: np.testing.assert_array_equal(x.numpy(),
+                                                            y.numpy()),
+                 got, want)

@@ -189,3 +189,50 @@ def test_spaces_match_jax(both):
         np.testing.assert_array_equal(js.low, ts.low)
         np.testing.assert_array_equal(js.high, ts.high)
     assert tenv.episode_steps(tp) == jenv.episode_steps(jp) == L
+
+
+def _present_batch_unroll(env, p, policy, batch, num_steps, generator):
+    """DataCenterEnv.batch_unroll as one loop over every step, as it was
+    before its step loop became the part a CUDA graph captures."""
+    from sustaingym_tpu_torch.core import replace, tree_stack
+    L, rows = tdc_env.EPISODE_LEN, p.table.shape[1]
+    flat = p.table.reshape(-1, 2)
+    state, ts = env._episode_start(p, 0, batch, generator, None)
+    obs, traj = ts.obs, []
+    for ep, t0 in enumerate(range(0, num_steps, L)):
+        seg = min(L, num_steps - t0)
+        block = KA.episode_slice_gather(flat, state.month * rows,
+                                        rows).transpose(0, 1)
+        for t in range(seg):
+            actions = policy(None, obs, generator)
+            state, ts = env._step_exog(
+                p, state, actions, block[t, :, 0], block[t, :, 1],
+                block[t + 1:t + 1 + tdc_env.FORECAST_H, :, 1].T)
+            obs = ts.obs
+            traj.append(ts)
+        if seg == L:
+            state, ts_r = env._episode_start(p, ep + 1, batch, generator,
+                                             None)
+            obs = ts_r.obs
+            traj[-1] = replace(traj[-1], obs=obs)
+    return tree_stack(traj)
+
+
+def test_split_batch_unroll_matches_the_present_loop():
+    """batch_unroll split into an eager episode start and a step loop
+    (_episode_steps, which a CUDA graph captures on the card), called
+    directly and through a CPU Graphs, against the loop it replaces: bit
+    for bit across the episode boundary."""
+    from sustaingym_tpu_torch.core.graph import Graphs
+    env, p = make("datacenter", device="cpu")
+    B, T = 4, L + 5
+    policy = random_policy(env, p, B)
+    want = _present_batch_unroll(env, p, policy, B, T,
+                                 torch.Generator().manual_seed(5))
+    for graphs in (None, Graphs("cpu")):
+        got = env.batch_unroll(p, policy, None, B, T,
+                               torch.Generator().manual_seed(5),
+                               graphs=graphs)
+        tree_map(lambda x, y: np.testing.assert_array_equal(x.numpy(),
+                                                            y.numpy()),
+                 got, want)

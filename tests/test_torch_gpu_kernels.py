@@ -14,6 +14,7 @@ import chip_smoke
 from sustaingym_tpu_torch import make
 from sustaingym_tpu_torch.core import random_policy
 from sustaingym_tpu_torch.envs import building as tb
+from sustaingym_tpu_torch.envs.building import synthetic
 from sustaingym_tpu_torch.ops.cuda import building_rollout as K5
 from sustaingym_tpu_torch.ops.cuda import cogen_rollout as KB
 from sustaingym_tpu_torch.ops.cuda import dc_rollout as K8
@@ -354,8 +355,9 @@ def test_market_batch_unroll_on_card(cuda):
 
 
 def _building(dev, tmp_path, **kw):
-    """BuildingEnv on the synthetic tables of chip_smoke.py (6 zones)."""
-    htm, epw = chip_smoke.write_building_tables(str(tmp_path))
+    """BuildingEnv on the synthetic tables of envs/building/synthetic.py
+    (6 zones)."""
+    htm, epw = synthetic.write_building_tables(str(tmp_path))
     return tb.make_env(htm, epw, "Tucson", device=dev, root=str(tmp_path),
                        u_wall=tb.BUILDINGS["OfficeSmall"][1], **kw)
 
@@ -524,3 +526,212 @@ def test_building_fused_paths_on_card(cuda, tmp_path):
         _, m = train_step(init_state(g), g)
         assert kernel.launches - before == 1
         assert abs(float(m["pg_loss"])) < 1e-5
+
+
+@pytest.mark.parametrize("name,kwargs,cfg_kwargs", [
+    ("evcharging", {}, dict(obs_bf16=True)),
+    ("cogen", {}, dict(reward_scale=1e-4)),
+    ("electricitymarket", {}, {}),
+    ("electricitymarket", {"discrete": True}, dict(algo="a2c")),
+])
+def test_captured_train_step_matches_eager(cuda, name, kwargs, cfg_kwargs):
+    """One train step as CUDA graphs (the fused EV rollout's scoring and
+    update; cogen's and the market's episode loop too, the market's with
+    its pdhg_solve_paired launches) against the same step eager, from the
+    same carry and generator state: parameters, metrics and the
+    generator's state bit-equal."""
+    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    env, p = make(name, device=cuda, **kwargs)
+    cfg = PPOConfig(num_envs=64, hidden=64, minibatches=4, epochs=2,
+                    **cfg_kwargs)
+    runs = []
+    for capture in (True, False):
+        init_state, step = make_train_step(env, p, cfg, capture=capture)
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        carry = init_state(gen)
+        for _ in range(2):
+            carry, metrics = step(carry, gen)
+        runs.append(([w.detach().clone()
+                      for w in carry["policy"].parameters()],
+                     {k: float(v) for k, v in metrics.items()},
+                     gen.get_state()))
+        assert (step.graphs is not None) == capture
+    (pc, mc, gc), (pe, me, ge) = runs
+    assert mc == me
+    assert all(torch.equal(a, b) for a, b in zip(pc, pe))
+    assert torch.equal(gc, ge)
+
+
+@pytest.mark.parametrize("grad_scale", [1.0, 1e-3])
+def test_captured_adam_matches_optax_float64(cuda, grad_scale):
+    """The captured update's optimizer, capturable Adam after the global-
+    norm clip, replayed through three updates of prescribed gradients,
+    against optax's clip_by_global_norm + adam computed in float64 with
+    numpy: the clip active (norm >> 0.5) and inactive."""
+    from sustaingym_tpu_torch.core.graph import Graphs
+    from sustaingym_tpu_torch.parallel import PPOConfig
+    from sustaingym_tpu_torch.parallel import ppo as tppo
+    policy = init_policy(12, 3, 16,
+                         torch.Generator(device=cuda).manual_seed(0), cuda)
+    params = list(policy.parameters())
+    opt = tppo._adam(params, PPOConfig(lr=3e-4), cuda)
+    rng = np.random.default_rng(1)
+    grads = [[rng.normal(0, 1, tuple(w.shape)) * grad_scale for w in params]
+             for _ in range(3)]
+    for w in params:
+        w.grad = torch.zeros_like(w)
+
+    def body(g):
+        for w, gi in zip(params, g):
+            w.grad.copy_(gi)
+        tppo.clip_by_global_norm(params, 0.5)
+        opt.step()
+
+    graphs = Graphs(cuda)
+    state = params + tppo._adam_state(opt)
+    want = [w.detach().double().cpu().numpy() for w in params]
+    m = [np.zeros_like(x) for x in want]
+    v = [np.zeros_like(x) for x in want]
+    for t, g in enumerate(grads, 1):
+        graphs("adam", body, [torch.as_tensor(x, dtype=torch.float32,
+                                              device=cuda) for x in g],
+               state=state)
+        g32 = [np.float32(x).astype(np.float64) for x in g]
+        norm = np.sqrt(sum(np.sum(x * x) for x in g32))
+        if norm >= 0.5:
+            g32 = [x / norm * 0.5 for x in g32]
+        for i, x in enumerate(g32):
+            m[i] = 0.9 * m[i] + 0.1 * x
+            v[i] = 0.999 * v[i] + 0.001 * x * x
+            want[i] = want[i] - 3e-4 * (m[i] / (1 - 0.9 ** t)) / (
+                np.sqrt(v[i] / (1 - 0.999 ** t)) + 1e-8)
+    assert graphs.captures == 1
+    for w, x in zip(params, want):
+        np.testing.assert_allclose(w.detach().double().cpu().numpy(), x,
+                                   rtol=0, atol=1e-6)
+
+
+def test_captured_trainer_save_restore(cuda, tmp_path):
+    """A captured cogen trainer saved after one step and restored into a
+    fresh trainer (before its first step, which captures) takes the same
+    second step as the trainer that ran on: bit-equal parameters."""
+    from sustaingym_tpu_torch import train
+    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    env, p = make("cogen", device=cuda)
+    cfg = PPOConfig(num_envs=64, hidden=64, minibatches=4, epochs=2,
+                    reward_scale=1e-4)
+    init_state, step = make_train_step(env, p, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    carry = init_state(gen)
+    carry, _ = step(carry, gen)
+    train.save_checkpoint(str(tmp_path), carry, gen, 1)
+    carry, _ = step(carry, gen)
+    init2, step2 = make_train_step(env, p, cfg)
+    gen2 = torch.Generator(device=cuda).manual_seed(99)
+    carry2 = init2(gen2)
+    assert train.restore_checkpoint(str(tmp_path), carry2, gen2) == 1
+    carry2, _ = step2(carry2, gen2)
+    for a, b in zip(carry["policy"].parameters(),
+                    carry2["policy"].parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(gen.get_state(), gen2.get_state())
+
+
+def test_graphs_count_replayed_launches_and_hold_one_capture_a_slot(cuda):
+    """A registered wrapper's count holds the warm-up's launch and each
+    replay's, not the capture's; a slot holds one capture, replaced under
+    another key; clear drops them all."""
+    from sustaingym_tpu_torch.core import graph
+    acc = torch.zeros((), device=cuda)
+
+    @graph.count_launches
+    def bump(x):
+        acc.add_(x.sum())
+        bump.launches += 1
+        return x * 2
+
+    try:
+        graphs = graph.Graphs(cuda)
+        ones = torch.ones(4, device=cuda)
+        out = graphs(("a", 1), bump, ones, state=(acc,), repeat=3, slot="s")
+        assert bump.launches == 1 + 3 and float(acc) == 12.0
+        assert torch.equal(out, 2 * ones)
+        graphs(("a", 1), bump, ones, state=(acc,), repeat=2, slot="s")
+        assert bump.launches == 6 and float(acc) == 20.0
+        assert graphs.captures == 1
+        graphs(("a", 2), bump, ones, state=(acc,), slot="s")
+        assert graphs.captures == 2 and len(graphs._captured) == 1
+        assert bump.launches == 8 and float(acc) == 24.0
+        graphs.clear()
+        assert not graphs._captured
+    finally:
+        graph._COUNTED.remove(bump)
+
+
+def test_market_episode_replay_counts_its_solve_launches(cuda):
+    """batch_rollout through a kept Graphs: the first call launches
+    pdhg_solve_paired at each step of the warm-up and of the replay, a
+    later call once a step (its replay); the captured loop is bit-equal to
+    the eager one from the same generator state."""
+    from sustaingym_tpu_torch.core import batch_rollout, tree_map
+    from sustaingym_tpu_torch.core.graph import Graphs, tree_leaves
+    env, p = make("electricitymarket", device=cuda)
+    B, T = 64, env.episode_steps(p)
+    policy = random_policy(env, p, B)
+    eager = batch_rollout(env, p, policy, None,
+                          torch.Generator(device=cuda).manual_seed(3), B, T)
+    graphs, gen = Graphs(cuda), torch.Generator(device=cuda).manual_seed(3)
+    K9.pdhg_solve_paired.launches = 0
+    first = tree_map(torch.clone, batch_rollout(env, p, policy, None, gen, B,
+                                                T, graphs=graphs))
+    assert K9.pdhg_solve_paired.launches == 2 * T
+    batch_rollout(env, p, policy, None, gen, B, T, graphs=graphs)
+    assert K9.pdhg_solve_paired.launches == 3 * T
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(first),
+                                                 tree_leaves(eager)))
+
+
+@pytest.mark.parametrize("name", ["cogen", "electricitymarket"])
+def test_batch_rollout_without_graphs_calls_the_policy_every_step(cuda,
+                                                                   name):
+    """On the card too, batch_rollout without ``graphs`` is eager: a
+    policy that reads the obs on the host and counts its calls sees every
+    step."""
+    from sustaingym_tpu_torch.core import batch_rollout
+    env, p = make(name, device=cuda)
+    B, T = 8, env.episode_steps(p) + 2
+    draw, seen = random_policy(env, p, B), []
+
+    def policy(_, obs, generator):
+        leaves = obs.values() if isinstance(obs, dict) else [obs]
+        seen.append(sum(float(x.sum()) for x in leaves))
+        return draw(None, obs, generator)
+
+    traj = batch_rollout(env, p, policy, None,
+                         torch.Generator(device=cuda).manual_seed(0), B, T)
+    assert len(seen) == T and traj.reward.shape == (T, B)
+
+
+def test_captured_trainer_reinit_drops_its_graphs(cuda):
+    """init_state drops the trainer's graphs: a second carry of one
+    trainer takes the step a fresh trainer takes from the same seed, and
+    the trainer holds one graph per phase (rollout, scoring, update)."""
+    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    env, p = make("cogen", device=cuda)
+    cfg = PPOConfig(num_envs=64, hidden=64, minibatches=4, epochs=2,
+                    reward_scale=1e-4)
+    runs = []
+    for reinit in (True, False):
+        init_state, step = make_train_step(env, p, cfg)
+        if reinit:
+            gen = torch.Generator(device=cuda).manual_seed(8)
+            step(init_state(gen), gen)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        carry, metrics = step(init_state(gen), gen)
+        assert len(step.graphs._captured) == 3
+        runs.append(([w.detach().clone()
+                      for w in carry["policy"].parameters()],
+                     {k: float(v) for k, v in metrics.items()}))
+    (pa, ma), (pb, mb) = runs
+    assert ma == mb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))

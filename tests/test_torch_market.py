@@ -209,9 +209,92 @@ def test_episodic_ppo_lr0_exact_ratio(name, kwargs, obs_dim, act_dim):
 
 
 def test_discrete_market_ppo_is_refused():
+    """The discrete market (Discrete(3) bids), once refused for want of a
+    categorical head, now trains on the episodic path: integer bins drawn
+    and re-scored by the categorical head; with lr=0 every ratio is
+    exactly 1 (PPO's |pg_loss| < 1e-5) and the weights stay put; A2C runs
+    the same rollout with its own policy loss."""
     env, p = make("electricitymarket", discrete=True, device="cpu", **SMALL)
-    with pytest.raises(ValueError, match="categorical PPO head"):
-        make_train_step(env, p, PPOConfig(num_envs=2))
+    for algo in ("ppo", "a2c"):
+        cfg = PPOConfig(num_envs=4, hidden=16, minibatches=2, epochs=1,
+                        lr=0.0, algo=algo)
+        init_state, train_step = make_train_step(env, p, cfg)
+        gen = torch.Generator().manual_seed(0)
+        carry = init_state(gen)
+        assert carry["policy"].mu.weight.shape == (3, 16)
+        w0 = carry["policy"].trunk1.weight.detach().clone()
+        out = train_step.rollout(carry["policy"], gen)
+        assert out["u"].shape == (288, 4, 1) and out["u"].dtype == torch.long
+        assert int(out["u"].min()) >= 0 and int(out["u"].max()) <= 2
+        carry, metrics = train_step(carry, gen)
+        m = {k: float(v) for k, v in metrics.items()}
+        if algo == "ppo":
+            assert abs(m["pg_loss"]) < 1e-5, m
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert 0 < m["entropy"] <= np.log(3) + 1e-6
+        assert torch.equal(carry["policy"].trunk1.weight, w0)
+
+
+def _present_batch_unroll(env, p, policy, batch, num_steps, generator):
+    """ElectricityMarketEnv.batch_unroll as one loop over every step, as it
+    was before its step loop became the part a CUDA graph captures."""
+    from sustaingym_tpu_torch.core import replace, tree_stack
+    from sustaingym_tpu_torch.ops import lp
+    op, L, ms = p.op, tem_env.T_STEPS, p.op.ms
+    lb = torch.zeros_like(p.ub)
+    kops = K9.pack_pdhg_operands(op) if tem.uses_solve_kernel(p) else None
+
+    def solve(c, b, h, init, iters):
+        if kops is None:
+            return lp.solve_lp(op, c, b, h, lb, p.ub, init=init, iters=iters)
+        x, y, zp, zm = K9.pdhg_solve_paired(
+            kops, c, b, h[:, :ms].contiguous(), h[:, ms:].contiguous(),
+            p.ub, init.x, init.y, init.z[:, :ms].contiguous(),
+            init.z[:, ms:].contiguous(), iters)
+        return lp.LPSolution(x=x, y=y, z=torch.cat([zp, zm], -1))
+
+    state, ts = env._episode_start(p, 0, batch, generator, None)
+    obs, traj = ts.obs, []
+    for i in range(num_steps):
+        t_in_ep = i % L
+        actions = env._prep_action(p, policy(None, obs, generator))
+        c, b, h, init, load0 = env._sced_problem(p, state, actions)
+        sol = solve(c, b, h, init,
+                    op.iters if t_in_ep == 0 else p.lp_warm_iters)
+        state, ts = env._apply_cleared(p, state, actions,
+                                       env._cleared(p, sol, load0))
+        if t_in_ep == L - 1:
+            state, ts_r = env._episode_start(p, i // L + 1, batch, generator,
+                                             None)
+            ts = replace(ts, obs=ts_r.obs)
+        obs = ts.obs
+        traj.append(ts)
+    return tree_stack(traj)
+
+
+@pytest.mark.parametrize("bf16,discrete", [(False, False), (True, False),
+                                           (True, True)])
+def test_split_batch_unroll_matches_the_present_loop(bf16, discrete):
+    """batch_unroll split into an eager episode start and a step loop
+    (_episode_steps, which a CUDA graph captures on the card, solve
+    launches included), called directly and through a CPU Graphs, against
+    the loop it replaces: bit for bit across the episode boundary, through
+    solve_lp and through pdhg_solve_paired's plain version, with Box and
+    with Discrete(3) bids."""
+    from sustaingym_tpu_torch.core.graph import Graphs
+    env, p = tem.make_env(lp_bf16=bf16, discrete=discrete, device="cpu",
+                          **SMALL)
+    B, T = 2, 288 + 3
+    policy = random_policy(env, p, B)
+    want = _present_batch_unroll(env, p, policy, B, T,
+                                 torch.Generator().manual_seed(5))
+    for graphs in (None, Graphs("cpu")):
+        got = env.batch_unroll(p, policy, None, B, T,
+                               torch.Generator().manual_seed(5),
+                               graphs=graphs)
+        tree_map(lambda x, y: np.testing.assert_array_equal(x.numpy(),
+                                                            y.numpy()),
+                 got, want)
 
 
 @pytest.mark.parametrize("name", ["datacenter", "electricitymarket"])

@@ -135,6 +135,179 @@ def test_clip_adam_update_matches_optax(grad_scale):
         np.testing.assert_allclose(b, np.asarray(a), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("act_dim,n_bins", [(1, 3), (6, 5)])
+def test_categorical_logp_and_entropy_match_jax(act_dim, n_bins):
+    """The categorical head's log-prob at the chosen bins and its entropy,
+    against the JAX package's functions on the same logits."""
+    rng = np.random.default_rng(act_dim)
+    logits = rng.normal(0, 2, (32, act_dim, n_bins)).astype(np.float32)
+    idx = rng.integers(0, n_bins, (32, act_dim))
+    jl = jppo._categorical_logp(jnp.asarray(logits), jnp.asarray(idx))
+    tl = tppo._categorical_logp(torch.from_numpy(logits),
+                                torch.from_numpy(idx))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6,
+                               atol=1e-6)
+    je = jppo._categorical_entropy(jnp.asarray(logits))
+    te = tppo._categorical_entropy(torch.from_numpy(logits))
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_categorical_draws_are_gumbel_max():
+    """The sampling policy's bins: argmax of logits plus Gumbel noise
+    from the generator (jax.random.categorical's rule), so a dominant
+    logit always wins and equal logits give uniform bins."""
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.zeros((20000, 2, 4))
+    logits[:, 1, 2] = 50.0
+    u = tppo._sample_categorical(logits, gen)
+    assert u.shape == (20000, 2) and u.dtype == torch.long
+    assert torch.equal(u[:, 1], torch.full((20000,), 2))
+    share = torch.bincount(u[:, 0], minlength=4).float() / 20000
+    assert torch.all((share - 0.25).abs() < 0.015), share
+
+
+@pytest.mark.parametrize("discrete", [False, True])
+def test_a2c_pg_loss_matches_jax_formula(discrete):
+    """A2C's policy loss, -(logp * normalised adv).mean() (the JAX
+    package's loss, sustaingym_tpu/parallel/ppo.py:572-573), on the same
+    policy and batch, with the Gaussian and the categorical head."""
+    n_bins = 3 if discrete else 0
+    width = 2 * n_bins if discrete else N
+    tree = _jax_policy(8)
+    rng = np.random.default_rng(8)
+    tree["mu"]["w"] = rng.normal(0, 0.1, (H, width)).astype(np.float32)
+    tree["mu"]["b"] = rng.normal(0, 0.1, (width,)).astype(np.float32)
+    tree["log_std"] = rng.normal(-0.5, 0.2, (width,)).astype(np.float32)
+    obs = rng.normal(0, 1, (64, D)).astype(np.float32)
+    u = (rng.integers(0, 3, (64, 2)) if discrete
+         else rng.normal(0, 1, (64, N)).astype(np.float32))
+    adv = rng.normal(0, 2, (64,)).astype(np.float32)
+    jtree = jax.tree.map(jnp.asarray, tree)
+    mu, ls, _ = jppo.policy_apply(jtree, jnp.asarray(obs))
+    if discrete:
+        jl = jppo._categorical_logp(mu.reshape(64, 2, 3), jnp.asarray(u))
+    else:
+        jl = jppo._gauss_logp(mu, ls, jnp.asarray(u))
+    a = jnp.asarray(adv)
+    want = -(jl * ((a - a.mean()) / (a.std() + 1e-8))).mean()
+    batch = {"obs": torch.from_numpy(obs), "u": torch.from_numpy(u),
+             "adv": torch.from_numpy(adv), "logp": torch.zeros(64),
+             "ret": torch.zeros(64)}
+    _, m = tppo.loss_fn(from_jax(tree, device="cpu"), batch,
+                        PPOConfig(algo="a2c"), tppo._apply_f32, n_bins)
+    np.testing.assert_allclose(float(m["pg_loss"].detach()), float(want),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _present_update(policy, opt, flat, cfg, generator, apply):
+    """The minibatch epochs as the port ran them before the captured
+    update: a randperm per epoch, minibatch by minibatch."""
+    n = flat["logp"].shape[0]
+    mb = n // cfg.minibatches
+    sums = {}
+    for _ in range(cfg.epochs):
+        perm = torch.randperm(n, generator=generator)
+        for k in range(cfg.minibatches):
+            idx = perm[k * mb:(k + 1) * mb]
+            batch = {key: v[idx] for key, v in flat.items()}
+            loss, metrics = tppo.loss_fn(policy, batch, cfg, apply)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            tppo.clip_by_global_norm(policy.parameters(), cfg.max_grad_norm)
+            opt.step()
+            for key, v in metrics.items():
+                sums[key] = sums.get(key, 0.0) + v.detach()
+    return sums
+
+
+@pytest.mark.parametrize("algo", ["ppo", "a2c"])
+def test_update_and_score_match_the_present_loop(algo):
+    """The refactored score (re-scoring + GAE) and update (the body a CUDA
+    graph captures, run eagerly on the CPU) against the loop they replace,
+    from the same carry and generator state: bit for bit."""
+    env, params = make("cogen", device="cpu")
+    cfg = PPOConfig(num_envs=16, hidden=32, minibatches=4, epochs=3,
+                    reward_scale=1e-4, algo=algo)
+    init_state, train_step = make_train_step(env, params, cfg)
+    assert train_step.graphs is None
+    gen = torch.Generator().manual_seed(3)
+    carry = init_state(gen)
+    out = train_step.rollout(carry["policy"], gen)
+    flat = train_step.score(carry["policy"], out)
+    mu, log_std, value = tppo._apply_f32(carry["policy"], out["obs"])
+    adv, ret = tppo.gae(cfg, value, out["reward"] * cfg.reward_scale,
+                        out["done"], torch.zeros_like(value[0]))
+    want = {"logp": tppo._gauss_logp(mu, log_std, out["u"]).reshape(-1),
+            "adv": adv.reshape(-1), "ret": ret.reshape(-1)}
+    for key, v in want.items():
+        assert torch.equal(flat[key], v), key
+    twin = init_state(torch.Generator().manual_seed(3))
+    twin["policy"].load_state_dict(carry["policy"].state_dict())
+    state = gen.get_state()
+    sums = train_step.update(carry["policy"], carry["opt"], flat, gen)
+    gen2 = torch.Generator().manual_seed(0)
+    gen2.set_state(state)
+    ref = _present_update(twin["policy"], twin["opt"], flat, cfg, gen2,
+                          tppo._apply_f32)
+    for key in ref:
+        assert torch.equal(sums[key], ref[key]), key
+    for a, b in zip(carry["policy"].parameters(),
+                    twin["policy"].parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(gen.get_state(), gen2.get_state())
+
+
+def test_graphs_on_the_cpu_call_the_function():
+    """On the CPU a Graphs object calls the function (repeat times) and
+    captures nothing; device constants are made once per value."""
+    from sustaingym_tpu_torch.core.graph import (Graphs, device_const,
+                                                 device_index)
+    graphs = Graphs("cpu")
+    counter = torch.zeros(1)
+
+    def fn(x, c):
+        c.add_(1)
+        return x * c
+
+    out = graphs("k", fn, torch.ones(3), counter, repeat=4)
+    assert torch.equal(out, torch.full((3,), 4.0))
+    assert graphs.captures == 0 and not graphs.on_card
+    a = device_const(np.array([1.5, 2.0]), "cpu")
+    assert a is device_const(np.array([1.5, 2.0]), "cpu")
+    assert a.dtype == torch.float32
+    assert torch.equal(device_index((2, 0), "cpu"), torch.tensor([2, 0]))
+
+
+@pytest.mark.parametrize("name", ["cogen", "datacenter",
+                                  "electricitymarket"])
+def test_batch_rollout_calls_a_stateful_policy_every_step(name):
+    """Without ``graphs`` batch_rollout's lockstep path calls the policy at
+    every step: a policy with Python state (a step counter, host copies
+    of the obs) sees each step, across an episode boundary too."""
+    from sustaingym_tpu_torch.core import batch_rollout, random_policy
+    env, params = make(name, device="cpu")
+    B, T = 2, env.episode_steps(params) + 3
+    draw, seen = random_policy(env, params, B), []
+
+    def policy(_, obs, generator):
+        seen.append(float(np.sum([np.sum(x.numpy()) for x in
+                                  (obs.values() if isinstance(obs, dict)
+                                   else [obs])])))
+        return draw(None, obs, generator)
+
+    traj = batch_rollout(env, params, policy, None,
+                         torch.Generator().manual_seed(0), B, T)
+    assert len(seen) == T and traj.reward.shape == (T, B)
+    assert all(np.isfinite(seen))
+
+
+def test_make_train_step_rejects_unknown_algo():
+    env, params = make("cogen", device="cpu")
+    with pytest.raises(ValueError, match="algo"):
+        make_train_step(env, params, PPOConfig(algo="sac"))
+
+
 def test_train_step_lr0_exact_ratio():
     """lr=0: the stored behaviour logp equals every re-scored logp, so each
     ratio is exactly 1 and pg_loss vanishes (the JAX package's
@@ -185,7 +358,9 @@ def test_package_imports_no_jax():
             "sustaingym_tpu_torch.ops.cuda.build, "
             "sustaingym_tpu_torch.ops.cuda.building_rollout, "
             "sustaingym_tpu_torch.envs.building, "
-            "sustaingym_tpu_torch.core.rollout; "
+            "sustaingym_tpu_torch.envs.building.synthetic, "
+            "sustaingym_tpu_torch.core.rollout, "
+            "sustaingym_tpu_torch.core.graph, sustaingym_tpu_torch.bench; "
             "sustaingym_tpu_torch.make('evcharging', device='cpu'); "
             "sustaingym_tpu_torch.make('cogen', device='cpu'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("

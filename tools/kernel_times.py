@@ -6,7 +6,9 @@ CUDA card, and keeps their outputs for an A/B against another checkout.
                                   [--compare FILE ...]
 
 Imports ``sustaingym_tpu_torch`` from ``CHECKOUT`` (default: this
-repository) and ``chip_smoke`` from this repository, builds the checkout's
+repository), and ``chip_smoke`` and the synthetic building
+(``sustaingym_tpu_torch/envs/building/synthetic.py``) from this
+repository, builds the checkout's
 kernels (printing the compiler's registers and spills), and times, by
 CUDA events over back-to-back calls after a warm-up call, at the main
 paths' shapes:
@@ -20,7 +22,7 @@ paths' shapes:
 - ``ev_policy_segment`` at 8192 x 288, H = 256, caltech, with the action
   projection on and off;
 - ``building_policy_segment`` at 8192 x 288, H = 256, on the 6-zone office
-  of ``chip_smoke.write_building_tables``, and at H = 16 (the actor's
+  of ``synthetic.write_building_tables``, and at H = 16 (the actor's
   products nearly gone: the env step, draws and barriers);
 - ``pdhg_solve_paired`` at B = 4096 on the market's own problems (reset
   envs, bids uniform over the action box): one warm (40 iterations) and one
@@ -56,10 +58,11 @@ TRAIN_ENVS, SIM_ENVS, STEPS, HIDDEN, MKT_BATCH = 8192, 32768, 288, 256, 4096
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _chip_smoke():
-    """This repository's chip_smoke.py, whichever checkout is measured."""
+def _load(name: str, path: str):
+    """This repository's module at ``path``, whichever checkout is
+    measured."""
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+        name, os.path.join(HERE, path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -94,7 +97,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
-    cs = _chip_smoke()
+    cs = _load("chip_smoke", "chip_smoke.py")
+    synthetic = _load("synthetic",
+                      "sustaingym_tpu_torch/envs/building/synthetic.py")
     from sustaingym_tpu_torch import make
     from sustaingym_tpu_torch.core import replace
     from sustaingym_tpu_torch.envs import building
@@ -161,7 +166,7 @@ def main() -> int:
 
     tables = tempfile.mkdtemp(prefix="building_tables_")
     try:
-        htm, epw = cs.write_building_tables(tables)
+        htm, epw = synthetic.write_building_tables(tables)
         _, p = building.make_env(htm, epw, "Tucson", device=dev, root=tables,
                                  u_wall=building.BUILDINGS["OfficeSmall"][1])
     finally:
