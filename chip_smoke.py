@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four slices through their public entry points, after
+Drives the port's five slices through their public entry points, after
 checking each hand-written kernel against its plain PyTorch version on the
 card. Every trainer runs its train steps as CUDA graphs (``parallel/
 ppo.py``, ``core/graph.py``): the episodic rollout's step loop (one replay
@@ -139,6 +139,32 @@ weather rows):
     and its actor's three bf16 ``torch.matmul`` calls per step over 288
     steps, a yardstick the port never calls.
 
+Slice 5, EV's lockstep and generic training paths:
+
+18. ``ev_segment``'s ADMM branch (``proj_method="admm"``, 30 iterations)
+    vs its plain version with ``check_segment``'s bounds (those of the JAX
+    ADMM kernel test, ``tests/test_ops_pallas.py:64-103``): both sites at
+    1024 x 288 on prescribed actions, caltech at 32768 x 288 in RNG mode
+    with the plain version replaying the kernel's recorded actions; then
+    the ADMM simulation tier (``fused_rollout`` at 32768 x 288, its count
+    from 0), the kernel timed against the dual branch at the same shape,
+    its plain version, its mat-vecs as ``torch.matmul`` calls (a
+    yardstick the port never calls), and its bound from the K mat-vecs
+    and the C mat-vecs it ran;
+19. GMM traces: ``ev_segment`` and ``ev_policy_segment`` vs their plain
+    versions at 1024 x 288 on a 200-day caltech Summer 2021 bank
+    (``trace="gmm"``), and the simulation tier at 32768 x 288 on it;
+20. the EV float32 episodic trainer (8192 x 288, H = 256, 96 minibatches,
+    4 epochs: ``batch_unroll``'s step loop captured): two steps, the lr=0
+    step, captured against eager over one step;
+21. the EV generic trainer (8192 envs, ``rollout_len`` 64, 16
+    minibatches, H = 256: the JAX CLI's default rollout, envs carried
+    across train steps): three steps, the lr=0 step, captured against
+    eager over two steps;
+22. the CLI: ``train.main(["--rollout-len", "64", "--eval-every", "1",
+    "--iterations", "2", ...])`` into a temporary directory, then its
+    ``eval_results.csv`` (two finite rows) and ``best_model``.
+
 ``python3 chip_smoke.py --profile`` adds, for each trainer captured and
 the same trainer eager (``capture=False``, the before): its phases
 (rollout, re-scoring + GAE, minibatch updates) on the host clock with
@@ -152,7 +178,8 @@ Every phase raises on failure (exit code 1). The line before the last is
 a JSON object with, for each TPU kernel's counterpart (the slice gather
 twice: it replaces both TPU gathers), its launches in its slice's
 main-path run (phases 5-6, 10, 12, 14 and 17; the slice gather's in 10, 12
-and 17), its largest difference from the plain version,
+and 17; ``ev_segment_admm``, the ADMM branch of ``ev_segment``, in phase
+18's simulation tier), its largest difference from the plain version,
 its time, the plain version's and the library call's, and its bound (the
 least time the card could take: the larger of its bytes over the memory
 rate and its operations over the peak rate for their type); the last line
@@ -390,7 +417,8 @@ def profile_train_step(label: str, train_step, carry, generator, cfg,
     policy, opt = carry["policy"], carry["opt"]
     updates = cfg.epochs * cfg.minibatches
     for i in range(2):
-        out, roll_ms = timed(lambda: train_step.rollout(policy, generator))
+        out, roll_ms = timed(lambda: train_step.rollout(policy, generator,
+                                                        carry))
         flat, score_ms = timed(lambda: train_step.score(policy, out))
         _, upd_ms = timed(lambda: train_step.update(policy, opt, flat,
                                                     generator))
@@ -407,7 +435,7 @@ def profile_train_step(label: str, train_step, carry, generator, cfg,
 
     def phases():
         with record_function("rollout"):
-            out = train_step.rollout(policy, generator)
+            out = train_step.rollout(policy, generator, carry)
         with record_function("score"):
             flat = train_step.score(policy, out)
         with record_function("update"):
@@ -473,7 +501,7 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
     init_state, train_step = make_train_step(env, p, cfg)
     tgen = torch.Generator(device=p.device).manual_seed(seed)
     carry = init_state(tgen)
-    env_steps = cfg.num_envs * env.episode_steps(p)
+    env_steps = cfg.num_envs * train_step.rollout_len
     graphs = train_step.graphs
     for i in range(steps):
         torch.cuda.synchronize()
@@ -504,8 +532,9 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
     free_cuda()
 
 
-def check_captured(label: str, env, p, cfg, seed: int, tag: str):
-    """One train step captured against the same step eager
+def check_captured(label: str, env, p, cfg, seed: int, tag: str,
+                   steps: int = 1):
+    """``steps`` train steps captured against the same steps eager
     (``capture=False``) from the same initial carry and generator state,
     at ``CHECK_BATCH`` envs with the main path's minibatch rows: the
     largest differences of the parameters and metrics, and whether the
@@ -524,7 +553,8 @@ def check_captured(label: str, env, p, cfg, seed: int, tag: str):
         init_state, step = make_train_step(env, p, small, capture=capture)
         gen = torch.Generator(device=p.device).manual_seed(seed)
         carry = init_state(gen)
-        _, metrics = step(carry, gen)
+        for _ in range(steps):
+            carry, metrics = step(carry, gen)
         runs[capture] = ([w.detach().clone()
                           for w in carry["policy"].parameters()],
                          {k: float(v) for k, v in metrics.items()},
@@ -535,7 +565,8 @@ def check_captured(label: str, env, p, cfg, seed: int, tag: str):
     d_metric = {k: abs(mc[k] - me[k]) for k in mc}
     equal = (all(torch.equal(a, b) for a, b in zip(pc, pe)) and mc == me
              and torch.equal(gc, ge))
-    print(f"{label} captured vs eager, one train step at {CHECK_BATCH} envs "
+    print(f"{label} captured vs eager, {steps} train step(s) at "
+          f"{CHECK_BATCH} envs "
           f"({small.minibatches} minibatches x {small.epochs} epochs): "
           f"params max|d| {d_param:.3e}; metrics |d| {d_metric}; generator "
           f"states equal {torch.equal(gc, ge)}; bit-equal {equal} "
@@ -546,10 +577,11 @@ def check_captured(label: str, env, p, cfg, seed: int, tag: str):
 
 
 def finish_trainer(label: str, env, p, cfg, seed: int, tag: str,
-                   want_profile: bool):
+                   want_profile: bool, steps: int = 1):
     """After a trainer's launches are read: its captured-vs-eager check
-    and, with ``--profile``, its place in ``profile_trainers``' queue."""
-    check_captured(label, env, p, cfg, seed, tag)
+    over ``steps`` train steps and, with ``--profile``, its place in
+    ``profile_trainers``' queue."""
+    check_captured(label, env, p, cfg, seed, tag, steps)
     if want_profile:
         PROFILE_JOBS.append((label, env, p, cfg, seed))
 
@@ -1411,6 +1443,167 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     ], launches["episode_slice_gather"]
 
 
+def ev_lockstep_slice(tag: str, want_profile: bool) -> dict:
+    """Phases 18-22 (module docstring); returns the ADMM kernel's entry of
+    the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sustaingym_tpu_torch import make, train
+    from sustaingym_tpu_torch.bench import HIDDEN, SIM_TIERS
+    from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
+    from sustaingym_tpu_torch.parallel import init_policy
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    sim_batch = SIM_TIERS["evcharging"]
+    B, T = CHECK_BATCH, STEPS
+
+    # ---- 18. ev_segment's ADMM branch vs its plain version -------------
+    err = 0.0
+    for site in ("caltech", "jpl"):
+        _, p = make("evcharging", site=site, proj_method="admm", device=dev)
+        days = torch.randint(p.n_days, (B,), generator=gen, device=dev)
+        acts = torch.rand((T, B, p.n_stations), generator=gen, device=dev)
+        err = max(err, check_segment(
+            f"ADMM {site} projection=on {B}x{T}",
+            K.ev_segment(p, days, T, actions=acts)[0],
+            K.ev_segment_ref(p, days, T, actions=acts)[0], tag))
+    env, p = make("evcharging", proj_method="admm", device=dev)
+    _, p_dual = make("evcharging", device=dev)
+    n, m2, iters = p.n_stations, int(p.proj.C.shape[0]), int(p.proj.iters)
+    days = torch.randint(p.n_days, (sim_batch,), generator=gen, device=dev)
+    ko, acts = K.ev_segment(p, days, T, seed=19, record_actions=True)
+    ro, _ = K.ev_segment_ref(p, days, T, actions=acts)
+    err = max(err, check_segment(
+        f"ADMM caltech projection=on {sim_batch}x{T} in-kernel draws", ko, ro,
+        tag))
+    del ko, ro, acts
+
+    # the ADMM simulation tier, its count from 0
+    K.ev_segment.launches = 0
+    roll = env.fused_rollout(p, sim_batch, T,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(20))
+    admm_launches = K.ev_segment.launches
+    if roll.reward.shape != (T, sim_batch) \
+            or not bool(torch.isfinite(roll.reward).all()) \
+            or admm_launches == 0:
+        fail(f"ADMM simulation tier: bad rewards or {admm_launches} "
+             f"launches")
+    admm_reward = float(roll.reward.mean())
+    del roll
+
+    admm_ms = device_ms(lambda: K.ev_segment(p, days, T, seed=21),
+                        "ev_segment_kernel", 3)
+    dual_ms = device_ms(lambda: K.ev_segment(p_dual, days, T, seed=21),
+                        "ev_segment_kernel", 3)
+    run = torch.zeros((), dtype=torch.long, device=dev)
+    K.ev_segment(p, days, T, seed=21, matvecs=run)
+    c_matvecs = int(run)
+    plain_ms = cuda_ms(lambda: K.ev_segment_ref(p, days, T, seed=21), 1)
+    rows = sim_batch * T
+    x = torch.rand((sim_batch, n), generator=gen, device=dev)
+    y = torch.rand((sim_batch, m2), generator=gen, device=dev)
+    kt, ct = p.proj.K.t().contiguous(), p.proj.C.t().contiguous()
+
+    def admm_matmuls():
+        for _ in range(T):
+            torch.matmul(x, ct)
+            for _ in range(iters):
+                torch.matmul(y, p.proj.C)
+                torch.matmul(x, kt)
+                torch.matmul(x, ct)
+            torch.matmul(x, ct)
+
+    library_ms = cuda_ms(admm_matmuls, 1)
+    del x, y
+    ctas, warps = K.ev_segment_occupancy(m2, admm=True)
+    admm_bound = bound(nbytes(p.step_table, p.proj.K)
+                       + sim_batch * (8 + 16 * T),
+                       f32_ops=rows * iters * 2 * n * n
+                       + c_matvecs * 2 * m2 * n)
+    print(f"ev_segment ADMM {sim_batch}x{T} ({iters} iterations): kernel "
+          f"{admm_ms:.3f} ms (device) = {rows / admm_ms * 1e3:.0f} "
+          f"env-steps/s; dual FISTA at the same shape {dual_ms:.3f} ms; "
+          f"plain {plain_ms:.3f} ms; yardstick, not called by the port: its "
+          f"mat-vecs as {T * (3 * iters + 2)} torch.matmul {library_ms:.3f} "
+          f"ms; bound {admm_bound[0]:.4f} ms ({admm_bound[1]}; K mat-vecs "
+          f"{rows * iters}, C mat-vecs run {c_matvecs} = "
+          f"{c_matvecs / rows:.4f} an env step); {ctas} CTAs of {warps} "
+          f"warps resident per SM; simulation tier mean reward "
+          f"{admm_reward:.6f}, launches {admm_launches} {tag}", flush=True)
+
+    # ---- 19. GMM: a 200-day caltech Summer 2021 bank -------------------
+    genv, gp = make("evcharging", trace="gmm", device=dev)
+    k = gp.moer_forecast_steps
+    D = 2 + 2 * n + k
+    days = torch.randint(gp.n_days, (B,), generator=gen, device=dev)
+    acts = torch.rand((T, B, n), generator=gen, device=dev)
+    check_segment(f"GMM {gp.n_days} days {B}x{T}",
+                  K.ev_segment(gp, days, T, actions=acts)[0],
+                  K.ev_segment_ref(gp, days, T, actions=acts)[0], tag)
+    w = K.pack_policy_weights(init_policy(
+        D, n, HIDDEN, torch.Generator().manual_seed(5), dev))
+    noise = torch.randn((T, B, n), generator=gen, device=dev)
+    check_policy(f"GMM {gp.n_days} days {B}x{T} H={HIDDEN}", n, D,
+                 K.ev_policy_segment(gp, w, days, T, noise=noise),
+                 K.ev_policy_segment_ref(gp, w, days, T, noise=noise), tag)
+    del acts, noise
+    K.ev_segment.launches = 0
+    sim_gen = torch.Generator(device=dev).manual_seed(22)
+    roll = genv.fused_rollout(gp, sim_batch, T, generator=sim_gen)
+    gmm_launches = K.ev_segment.launches
+    if not bool(torch.isfinite(roll.reward).all()) or gmm_launches == 0:
+        fail("GMM simulation tier: bad rewards or no launch")
+    gmm_reward = float(roll.reward.mean())
+    del roll
+    gmm_ms = cuda_ms(lambda: genv.fused_rollout(gp, sim_batch, T,
+                                                generator=sim_gen), 3)
+    print(f"GMM simulation tier {sim_batch}x{T} ({gp.n_days}-day bank): "
+          f"whole fused_rollout call {gmm_ms:.3f} ms (CUDA events) = "
+          f"{rows / gmm_ms * 1e3:.0f} env-steps/s; mean reward "
+          f"{gmm_reward:.6f}; ev_segment launches {gmm_launches} {tag}",
+          flush=True)
+
+    # ---- 20-21. EV float32 trainers: episodic (batch_unroll), generic --
+    env, p = make("evcharging", device=dev)
+    for label, seed, steps in (("EV episodic", 23, 2), ("EV generic", 24, 3)):
+        cfg, cfg0 = trainer_configs(label)
+        run_trainer(label, env, p, cfg, cfg0, seed, tag, steps=steps)
+        finish_trainer(label, env, p, cfg, seed, tag, want_profile,
+                       steps=1 if label == "EV episodic" else 2)
+
+    # ---- 22. the CLI on the card -----------------------------------------
+    log = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        train.main(["--env", "evcharging", "--rollout-len", "64",
+                    "--eval-every", "1", "--iterations", "2",
+                    "--log-dir", log])
+        with open(os.path.join(log, "eval_results.csv")) as f:
+            rows_csv = f.read().splitlines()
+        best = sorted(os.listdir(os.path.join(log, "best_model")))
+        print(f"train CLI --rollout-len 64 --eval-every 1 --iterations 2: "
+              f"{time.perf_counter() - t0:.3f} s; eval_results.csv "
+              f"{rows_csv}; best_model {best} {tag}", flush=True)
+        if len(rows_csv) != 3 or rows_csv[0].split(",")[:2] != [
+                "iteration", "mean_return"] or not best \
+                or not all(np.isfinite(float(r.split(",")[1]))
+                           for r in rows_csv[1:]):
+            fail("train CLI: bad eval_results.csv or no best_model")
+    finally:
+        shutil.rmtree(log)
+    free_cuda()
+    return {"name": "ev_segment_admm", "route": "cuda",
+            "source": "sustaingym_tpu_torch/ops/cuda/csrc/ev_rollout.cu",
+            "replaces": "sustaingym_tpu/ops/pallas/ev_rollout.py:337",
+            "launches": admm_launches, "max_abs_err": err, "ms": admm_ms,
+            "plain_ms": plain_ms, "bound_ms": admm_bound[0],
+            "bound_by": admm_bound[1], "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1650,6 +1843,7 @@ def main() -> int:
     kernels.insert(3, {
         **kernels[2], "name": "hbm_slice_gather",
         "replaces": "sustaingym_tpu/ops/pallas/exog_gather.py:210"})
+    kernels.append(ev_lockstep_slice(tag, want_profile))
     profile_trainers(tag)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -20,8 +20,11 @@ Configurations (``PERF.md`` section 4; ``TRAINERS`` and ``SIM_TIERS``,
 which ``chip_smoke.py`` runs too):
 
 - trainers: EV 8192 x 288 (bf16 obs, 96 minibatches, projection on: the
-  policy-in-kernel path); building fused (bf16 obs) and episodic (float32
-  obs), 8192 x 288, 96 minibatches, on the tables of
+  policy-in-kernel path), EV episodic (the same with float32 obs: the
+  lockstep ``batch_unroll``), EV generic (8192 envs, rollout_len 64, 16
+  minibatches, float32 obs: the JAX CLI's default rollout); building
+  fused (bf16 obs) and episodic (float32 obs), 8192 x 288, 96
+  minibatches, on the tables of
   ``envs/building/synthetic.py``; cogen 8192 x 96, 24 minibatches;
   datacenter 4096 x 672, 84 minibatches; market 4096 x 288, 36
   minibatches, with Box bids and with ``discrete=True``;
@@ -54,6 +57,11 @@ HIDDEN, EPOCHS = 256, 4
 TRAINERS = {
     "EV": ("ppo_evcharging_train_env_steps_per_s_per_chip", "evcharging",
            {}, dict(num_envs=8192, minibatches=96, obs_bf16=True)),
+    "EV episodic": ("ppo_evcharging_episodic_train_env_steps_per_s_per_chip",
+                    "evcharging", {}, dict(num_envs=8192, minibatches=96)),
+    "EV generic": ("ppo_evcharging_generic_train_env_steps_per_s_per_chip",
+                   "evcharging", {},
+                   dict(num_envs=8192, rollout_len=64, minibatches=16)),
     "building fused": ("ppo_building_train_env_steps_per_s_per_chip",
                        "building", {},
                        dict(num_envs=8192, minibatches=96, obs_bf16=True)),
@@ -138,7 +146,8 @@ def make_env(name: str, device, tables: str | None, **kwargs):
 
 def bench_train(label: str, device, tables) -> dict:
     """Env-steps/s of one PPO train step (rollout, re-scoring + GAE,
-    minibatch epochs) of trainer ``label`` as CUDA graphs."""
+    minibatch epochs) of trainer ``label`` as CUDA graphs; the generic
+    rollout's envs carry over from one timed step to the next."""
     import torch
     from sustaingym_tpu_torch.parallel import make_train_step
     metric, name, make_kwargs, _ = TRAINERS[label]
@@ -147,18 +156,17 @@ def bench_train(label: str, device, tables) -> dict:
     init_state, train_step = make_train_step(env, params, cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     carry = init_state(gen)
-    steps = env.episode_steps(params)
-    fused = bool(cfg.obs_bf16 and hasattr(env, "fused_policy_unroll")
-                 and env.fused_policy_unroll_supported(params, cfg.num_envs))
+    steps = train_step.rollout_len
     best = best_of(lambda: train_step(carry, gen))
     result = {"metric": metric,
               "value": round(cfg.num_envs * steps / best, 1),
               "unit": "env-steps/s", "batch": cfg.num_envs,
               "rollout_len": steps, "device": card(),
-              "vs_baseline": None, "episodic_rollout": True,
+              "vs_baseline": None,
+              "episodic_rollout": train_step.path != "generic",
               "minibatches": cfg.minibatches,
               "cuda_graphs": train_step.graphs is not None}
-    if fused:
+    if train_step.path == "fused":
         result["fused_policy_rollout"] = True
     if cfg.obs_bf16:
         result["obs_bf16"] = True

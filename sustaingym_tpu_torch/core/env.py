@@ -18,13 +18,13 @@ from typing import Any, Callable, Generic, TypeVar
 import torch
 
 from .spaces import Space
-from .struct import dataclass, replace, tree_map
+from .struct import dataclass, replace, tree_map, tree_select
 
 P = TypeVar("P")  # params dataclass
 S = TypeVar("S")  # state dataclass
 
-__all__ = ["TimeStep", "FunctionalEnv", "autoreset_step", "resolve_device",
-           "kernel_seed"]
+__all__ = ["TimeStep", "FunctionalEnv", "autoreset_step",
+           "capturable_autoreset_step", "resolve_device", "kernel_seed"]
 
 
 @dataclass
@@ -92,6 +92,28 @@ def autoreset_step(env: FunctionalEnv[P, S]
 
         return (tree_map(put, next_state, reset_state),
                 replace(ts, obs=tree_map(put, ts.obs, reset_ts.obs)))
+
+    return step
+
+
+def capturable_autoreset_step(env: FunctionalEnv[P, S]
+                              ) -> Callable[..., tuple[S, TimeStep]]:
+    """:func:`autoreset_step` without a host synchronisation, so that a
+    CUDA graph can capture it: every step resets the whole batch (one
+    ``env.reset`` of B envs drawn from ``generator``) and each env takes
+    the reset state and obs where its episode ended (``torch.where``).
+    The per-env semantics are ``autoreset_step``'s; the draws are not: it
+    draws a whole batch's resets at every step, where ``autoreset_step``
+    draws one reset per ended episode at the steps where episodes end."""
+
+    def step(params: P, state: S, action: Any,
+             generator: torch.Generator | None = None
+             ) -> tuple[S, TimeStep]:
+        next_state, ts = env.step(params, state, action, generator)
+        done = ts.done
+        reset_state, reset_ts = env.reset(params, generator, done.shape[0])
+        return (tree_select(done, reset_state, next_state),
+                replace(ts, obs=tree_select(done, reset_ts.obs, ts.obs)))
 
     return step
 

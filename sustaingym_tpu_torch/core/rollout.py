@@ -16,10 +16,31 @@ from .env import FunctionalEnv, TimeStep, autoreset_step
 from .graph import Graphs, tree_leaves
 from .struct import tree_map, tree_stack
 
-__all__ = ["batch_reset", "batch_rollout", "episode_return",
+__all__ = ["rollout", "batch_reset", "batch_rollout", "episode_return",
            "random_policy", "episode_loop", "join_episodes"]
 
 PolicyFn = Callable[[Any, Any, torch.Generator], Any]
+
+
+def rollout(env: FunctionalEnv, params, policy: PolicyFn, policy_params,
+            generator: torch.Generator, num_steps: int,
+            auto_reset: bool = True) -> tuple[Any, TimeStep]:
+    """Rolls one env instance forward ``num_steps`` under ``policy``, which
+    sees and returns that env's unbatched obs and action. Resets it first.
+    Returns (final state, traj): the state and every ``traj`` leaf without
+    the env axis, ``traj``'s with a leading time axis of ``num_steps``.
+    The env runs as a batch of one, drawing as :func:`batch_rollout` with
+    ``batch=1, fast=False`` draws."""
+    step = autoreset_step(env) if auto_reset else env.step
+    state, ts = env.reset(params, generator, 1)
+    obs, traj = ts.obs, []
+    for _ in range(num_steps):
+        action = torch.as_tensor(policy(
+            policy_params, tree_map(lambda x: x[0], obs), generator))[None]
+        state, ts = step(params, state, action, generator)
+        obs = ts.obs
+        traj.append(tree_map(lambda x: x[0], ts))
+    return tree_map(lambda x: x[0], state), tree_stack(traj)
 
 
 def batch_reset(env: FunctionalEnv, params, generator: torch.Generator,

@@ -26,7 +26,7 @@ import torch
 from ...core import (Box, DictSpace, FunctionalEnv, TimeStep, dataclass,
                      kernel_seed, resolve_device, tree_map,
                      tree_stack)
-from ...core.graph import device_index
+from ...core.graph import device_const, device_index
 from ...core.rollout import episode_loop, join_episodes
 from . import plant
 
@@ -179,15 +179,15 @@ def step_core(params: CogenParams, prev_action: torch.Tensor,
 def sample_action(generator: torch.Generator, batch: int) -> torch.Tensor:
     """(batch, 15) uniform actions on the generator's device: Box
     components uniform, switches Bernoulli(1/2), bays uniform integers
-    1..12."""
+    1..12. Copies no host data (a CUDA graph may capture it)."""
     dev = generator.device
-    low = torch.as_tensor(ACTION_LOW, dtype=torch.float32, device=dev)
-    high = torch.as_tensor(ACTION_HIGH, dtype=torch.float32, device=dev)
+    low = device_const(ACTION_LOW, dev)
+    high = device_const(ACTION_HIGH, dev)
     u = torch.rand((batch, len(ACTION_KEYS)), generator=generator, device=dev)
     a = low + u * (high - low)
     bins = torch.rand((batch, len(BINARY_IDX)), generator=generator,
                       device=dev) < 0.5
-    a[:, list(BINARY_IDX)] = bins.float()
+    a[:, device_index(BINARY_IDX, dev)] = bins.float()
     a[:, BAYS_IDX] = torch.randint(1, 13, (batch,), generator=generator,
                                    device=dev).float()
     return a

@@ -273,7 +273,9 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
         iters = torch.where(state.t == 0, params.op.iters,
                             params.lp_warm_iters)
         sol = lp.solve_lp(params.op, c, b, h, torch.zeros_like(params.ub),
-                          params.ub, init=init, iters=iters)
+                          params.ub, init=init, iters=iters,
+                          max_iters=max(params.op.iters,
+                                        params.lp_warm_iters))
         return self._cleared(params, sol, load0)
 
     @staticmethod

@@ -8,7 +8,8 @@ from .sites import SiteSpec, caltech_site, jpl_site, load_site
 
 def make_env(**kwargs):
     """(env, params); ``kwargs`` go to :func:`make_params` (``site``,
-    ``date_period``, ``project_action``, ``proj_iters``, ``device``...)."""
+    ``date_period``, ``project_action``, ``proj_method``, ``proj_iters``,
+    ``trace``, ``gmm_days``, ``device``...)."""
     return EVChargingEnv(), make_params(**kwargs)
 
 

@@ -5,8 +5,8 @@ station-slot state advanced by a step function, with the batch axis written
 out (every state tensor is (B, ...)) instead of vmapped.
 
 Per step (5 simulated minutes):
- 1. optional action projection onto the network feasible set (dual-FISTA,
-    ``ops/qp.py``);
+ 1. optional action projection onto the network feasible set (dual FISTA
+    or ADMM, ``ops/qp.py``);
  2. EVSE pilot quantization — AV: {0,8,16,24,32}, CC: {0} U {6..32}
     (round half to even, like ``np.round``);
  3. plug/unplug events from the compiled day table;
@@ -15,16 +15,21 @@ Per step (5 simulated minutes):
 
 Whole episodes run in the CUDA kernels of ``ops/cuda/ev_rollout.py``
 through :meth:`EVChargingEnv.fused_rollout` (simulation tier) and
-:meth:`EVChargingEnv.fused_policy_unroll` (PPO rollouts). Both take the
-reset days explicitly, or draw them from a ``torch.Generator``.
+:meth:`EVChargingEnv.fused_policy_unroll` (PPO rollouts);
+:meth:`EVChargingEnv.batch_unroll` steps a lockstep batch under any policy.
+Each takes the reset days explicitly, or draws them from a
+``torch.Generator``.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
 
 from ...core import (Box, DictSpace, FunctionalEnv, TimeStep, dataclass,
-                     kernel_seed, resolve_device)
+                     kernel_seed, resolve_device, tree_stack)
+from ...core.rollout import episode_loop, join_episodes
 from ...ops import qp
 from .sites import SiteSpec, load_site
 
@@ -63,7 +68,7 @@ class EVParams:
     constraint_im: torch.Tensor  # (m, n) Im(A~)
     magnitudes: torch.Tensor     # (m,)
     min_pilots: torch.Tensor     # (n,)
-    proj: qp.DualSOCProjection
+    proj: qp.DualSOCProjection | qp.SOCProjection
     n_stations: int
     n_days: int
     moer_forecast_steps: int = 36
@@ -87,22 +92,53 @@ class EVState:
 
 def make_params(site: str = "caltech", date_period="Summer 2021",
                 moer_forecast_steps: int = 36, project_action: bool = True,
-                proj_iters: int | None = None, device="cuda") -> EVParams:
-    """Compiles the packaged real ACN sessions of ``site`` over
-    ``date_period`` into step tables (host NumPy), with the 15-iteration
-    dual-FISTA projection operator, and places every tensor on
-    ``device`` (the card unless the caller asks for the CPU)."""
+                requested_energy_cap: float = 100.0,
+                proj_method: str = "dual", proj_iters: int | None = None,
+                trace: str = "real", gmm_days: int = 200,
+                gmm_components: int = 30, device="cuda") -> EVParams:
+    """Compiles the sessions of ``site`` over ``date_period`` into step
+    tables (host NumPy) and places every tensor on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    ``trace="real"``: the packaged ACN sessions (RealTraceGenerator
+    analogue; the packed days are read as they are, as the JAX package's
+    cached pack is, so ``requested_energy_cap`` does not apply to them).
+    ``trace="gmm"``: a bank of ``gmm_days`` days sampled from the packaged
+    ``gmm_components``-component mixture (GMMsTraceGenerator analogue,
+    ``data/ev_gmm.py``), requested energy capped at
+    ``requested_energy_cap``; the MOER days cycle under a longer bank.
+
+    ``proj_method``: ``"dual"`` (preconditioned dual FISTA, 15 iterations
+    by default) or ``"admm"`` (over-relaxed ADMM, 30); ``proj_iters``
+    overrides the count."""
     device = resolve_device(device)
     from ...data.ev_etl import build_moer_pack, build_trace_pack
     spec: SiteSpec = load_site(site)
     moer = build_moer_pack(date_period)
-    traces = build_trace_pack(site, date_period)
+    if trace == "gmm":
+        from ...data.ev_gmm import build_gmm_trace_pack
+        traces = build_gmm_trace_pack(
+            site, date_period, n_days=gmm_days, n_components=gmm_components,
+            requested_energy_cap=requested_energy_cap)
+        n_bank = traces["ev_data"].shape[0]
+        moer = np.tile(moer, (-(-n_bank // moer.shape[0]), 1, 1))[:n_bank]
+    elif trace == "real":
+        traces = build_trace_pack(site, date_period)
+    else:
+        raise ValueError(f"unknown trace {trace!r}")
     phase = np.exp(1j * np.deg2rad(spec.phase_angles))
     a_tilde = spec.constraint_matrix * phase[None, :]
-    proj = qp.make_dual_soc_projection(
-        spec.constraint_matrix, spec.phase_angles, spec.magnitudes,
-        action_scale=ACTION_SCALE_FACTOR,
-        iters=15 if proj_iters is None else proj_iters, device=device)
+    net = (spec.constraint_matrix, spec.phase_angles, spec.magnitudes)
+    if proj_method == "dual":
+        proj = qp.make_dual_soc_projection(
+            *net, action_scale=ACTION_SCALE_FACTOR,
+            iters=15 if proj_iters is None else proj_iters, device=device)
+    elif proj_method == "admm":
+        proj = qp.make_soc_projection(
+            *net, action_scale=ACTION_SCALE_FACTOR,
+            iters=30 if proj_iters is None else proj_iters, device=device)
+    else:
+        raise ValueError(f"unknown proj_method {proj_method!r}")
 
     ev = traces["ev_data"]
     st = traces["ev_station"]
@@ -268,7 +304,13 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
              ) -> tuple[EVState, TimeStep]:
         """One step of every env; ``action`` is (B, n) in [0, 1]. The step
         draws nothing: ``generator`` is accepted for the env protocol."""
-        row = params.step_table[state.day, state.t]
+        return self._step_row(params, state, action,
+                              params.step_table[state.day, state.t])
+
+    def _step_row(self, params: EVParams, state: EVState, action, row
+                  ) -> tuple[EVState, TimeStep]:
+        """The step given the envs' (day, t) table rows (B, W): shared by
+        :meth:`step` and :meth:`batch_unroll`'s episode loop."""
         action = torch.as_tensor(action, dtype=torch.float32,
                                  device=params.device)
         new_state, reward, terms = advance(params, state, action, row)
@@ -282,6 +324,71 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
 
     def episode_steps(self, params: EVParams) -> int:
         return MAX_TIMESTEP
+
+    # ---- lockstep episode loop -------------------------------------------
+    def batch_unroll(self, params: EVParams, policy, policy_params,
+                     batch: int, num_steps: int,
+                     generator: torch.Generator | None = None, days=None,
+                     graphs=None) -> TimeStep:
+        """Lockstep rollout of ``batch`` envs under ``policy(policy_params,
+        obs, generator) -> (B, n) actions``: every env's step t reads its
+        row ``step_table[day, t]`` directly. At each episode boundary the
+        last step's obs is the next episode's reset obs (autoreset). Reset
+        days are drawn by :meth:`reset` from ``generator`` in the order
+        :func:`core.batch_rollout`'s autoreset path draws them (the whole
+        batch ends an episode at once), or prescribed by ``days``
+        ((num_steps // 288 + 1, B)).
+
+        Each episode's step loop (:meth:`_episode_steps`) is one replay of
+        a CUDA graph in ``graphs`` when given
+        (:func:`core.rollout.episode_loop`), which the result then holds
+        until the graph's next replay."""
+        L = MAX_TIMESTEP
+        if days is not None:
+            days = torch.as_tensor(days, dtype=torch.long,
+                                   device=params.device).reshape(-1, batch)
+
+        def start(ep: int):
+            if days is None:
+                if generator is None:
+                    raise ValueError("pass reset `days` or a torch.Generator")
+                return self.reset(params, generator, batch)
+            if ep >= days.shape[0]:
+                raise ValueError(f"need reset days for {ep + 1} episodes, "
+                                 f"got {days.shape[0]}")
+            return self.reset_at_day(params, days[ep])
+
+        state, ts = start(0)
+        obs, parts = ts.obs, []
+        for ep, t0 in enumerate(range(0, num_steps, L)):
+            seg = min(L, num_steps - t0)
+            traj = episode_loop(
+                graphs, partial(self._episode_steps, params, policy,
+                                policy_params, seg, generator),
+                state, obs, generator=generator,
+                clone=t0 + seg < num_steps)
+            if seg == L:
+                state, ts = start(ep + 1)
+                obs = ts.obs
+                for k, v in obs.items():
+                    traj.obs[k][-1] = v
+            parts.append(traj)
+        return join_episodes(parts)
+
+    def _episode_steps(self, params: EVParams, policy, policy_params,
+                       seg: int, generator, state: EVState, obs
+                       ) -> TimeStep:
+        """``seg`` steps of a lockstep episode from its reset ``state`` and
+        ``obs``: the part of :meth:`batch_unroll` that a CUDA graph
+        captures."""
+        traj = []
+        for t in range(seg):
+            action = policy(policy_params, obs, generator)
+            state, ts = self._step_row(params, state, action,
+                                       params.step_table[state.day, t])
+            obs = ts.obs
+            traj.append(ts)
+        return tree_stack(traj)
 
     # ---- whole-episode kernels -------------------------------------------
     @staticmethod
@@ -306,7 +413,8 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
                       actions: torch.Tensor | None = None) -> TimeStep:
         """Simulation tier: whole episodes in one kernel launch per episode
         (``ops/cuda/ev_rollout.py::ev_segment``), station state in
-        registers. Returns rewards + info per step; ``obs`` is an empty dict.
+        registers, with either projection operator and any day bank.
+        Returns rewards + info per step; ``obs`` is an empty dict.
 
         ``days``: (episodes, batch) or (batch,) reset days, else drawn from
         ``generator``. ``actions``: (num_steps, batch, n) prescribed
@@ -356,8 +464,9 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
 
     def fused_policy_unroll_supported(self, params: EVParams,
                                       batch: int) -> bool:
-        """The policy kernel computes every EV configuration and batch."""
-        return True
+        """The policy kernel computes every batch with the dual-FISTA
+        operator, and has no ADMM branch (nor has the JAX package's)."""
+        return not isinstance(params.proj, qp.SOCProjection)
 
     def fused_policy_unroll(self, params: EVParams, policy, batch: int,
                             num_steps: int, days=None,

@@ -9,6 +9,9 @@
 // What bounds them. Per env step the dual-FISTA projection runs `iters`
 // (15) dependent iterations of two skinny mat-vecs (C' y over <= 32 cone
 // rows, C xbar over <= 64 stations); the reward adds one more C mat-vec.
+// The simulation kernel's second operator, over-relaxed ADMM (the TPU
+// kernel's `admm`, proj_method="admm"), runs `iters` (30) iterations of
+// C' y, a dense K rhs (n x n) and C x.
 // That is a chain of warp-synchronous FMAs, not a bandwidth problem: one
 // day-table row (~0.7 KB, L2-resident: the whole table is ~37 MB) and 16
 // bytes of output per env step. The policy kernel adds the actor MLP,
@@ -54,6 +57,12 @@
 //    (bf16 tiles), two 512-thread CTAs (32 warps) per SM. 8192 envs are
 //    512 CTAs, 1.94 waves of 264 on 132 SMs (the first kernel ran one CTA
 //    per SM: 3.9 waves of 16 warps).
+//  * ADMM (simulation kernel, template argument kAdmm): K' is copied once a
+//    CTA into shared memory (16 KB, stride 64: lane s reads K[s, j] at
+//    consecutive words), the warp's rhs goes through a 64-float scratch and
+//    comes back as broadcasts, so K rhs costs n shared loads and 2n FMAs a
+//    lane; C' y and C x are RegCone's, as for FISTA. rho and alpha are
+//    kernel arguments. No early stop: every iteration runs.
 //  * Random draws: counter-based Philox4x32-10 (philox.cuh) keyed by the
 //    caller's seed and counted by (lane, step, env, stream), so the draws do
 //    not depend on launch geometry.
@@ -91,7 +100,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 struct Operators {
   const float* C;      // (m2, n) interleaved Re/Im cone rows
   const float* radii;  // (m)
-  const float* step;   // (m) dual step sizes
+  const float* step;   // (m) dual step sizes (null for ADMM)
   const float* mags;   // (m) cone limits (amps)
   const float* minp;   // (n) min pilots (6 = CC, 8 = AV)
   int n, m2, iters, restart, project;
@@ -131,8 +140,9 @@ __device__ Lane make_lane(const Operators& op) {
   L.minp0 = L.v0 ? op.minp[L.s0] : 0.0f;
   L.minp1 = L.v1 ? op.minp[L.s1] : 0.0f;
   const int c = L.lane >> 1;
-  L.t2 = L.crow ? op.step[c] : 0.0f;
-  L.tr = L.crow ? op.step[c] * op.radii[c] : 0.0f;
+  const bool dual = L.crow && op.step != nullptr;
+  L.t2 = dual ? op.step[c] : 0.0f;
+  L.tr = dual ? op.step[c] * op.radii[c] : 0.0f;
   L.mag_lim = L.crow ? op.mags[c] : 0.0f;
   return L;
 }
@@ -361,15 +371,92 @@ __device__ __forceinline__ int fista(const Operators& op, const Cone& cone,
   return matvecs;
 }
 
-// One env step after the action is known: projection, quantization,
-// events, battery, reward. Writes (reward, profit, carbon, excess) to out4
-// from lane 0. `row` is table[day, t]: plug_dep | plug_est | plug_req |
-// moer(t+1) | ... Returns the mat-vecs with C that it ran.
-template <bool kStop, class Cone>
-__device__ __forceinline__ int env_step(const Operators& op, const Cone& cone,
-                                        const Lane& L, Stations& st, float a0,
-                                        float a1, const float* row, int t,
-                                        float* out4) {
+// env_step's projector: dual FISTA (with the fixed-point stop if kStop).
+template <bool kStop>
+struct FistaProj {
+  template <class Cone>
+  __device__ __forceinline__ int operator()(const Operators& op, const Cone& cone,
+                                            const Lane& L, float a0, float a1,
+                                            float ub0, float ub1, float& x0,
+                                            float& x1) const {
+    return fista<kStop>(op, cone, L, a0, a1, ub0, ub1, x0, x1);
+  }
+};
+
+// env_step's projector: over-relaxed ADMM (ops/qp.py::_project_admm) on the
+// splitting x = z0 (box), C x = zc (cones), with K = inv((1+rho) I + rho
+// C'C). The lane holds its two stations' (x, z0, u0) and its cone row's
+// (zc, uc), zero outside the stations and the cones.
+struct AdmmProj {
+  const float* kt;  // shared [kMaxStations][kMaxStations]: kt[j * 64 + s] = K[s, j]
+  float* rs;        // the warp's scratch: rhs[0:64]
+  float rho, alpha, beta;  // beta = 1 - alpha, rounded in float32
+  float rad;        // the lane's cone radius (0 outside the cones)
+
+  // x = K rhs for the lane's two stations (zero past n: kt is zero there)
+  __device__ __forceinline__ void k_rhs(float r0, float r1, const Lane& L,
+                                        int n, float& x0, float& x1) const {
+    __syncwarp();
+    rs[L.s0] = r0;
+    rs[L.s1] = r1;
+    __syncwarp();
+    x0 = 0.0f;
+    x1 = 0.0f;
+    for (int j = 0; j < n; ++j) {
+      const float rj = rs[j];
+      x0 = fmaf(kt[j * kMaxStations + L.s0], rj, x0);
+      x1 = fmaf(kt[j * kMaxStations + L.s1], rj, x1);
+    }
+  }
+
+  // Returns the mat-vecs with C that it ran (the K mat-vecs are `iters`).
+  // Every cone call is made by all lanes (they shuffle); lanes outside the
+  // cones then take 0.
+  template <class Cone>
+  __device__ __forceinline__ int operator()(const Operators& op, const Cone& cone,
+                                            const Lane& L, float a0, float a1,
+                                            float ub0, float ub1, float& x0,
+                                            float& x1) const {
+    x0 = fminf(fmaxf(a0, 0.0f), ub0);
+    x1 = fminf(fmaxf(a1, 0.0f), ub1);
+    float z00 = x0, z01 = x1, u00 = 0.0f, u01 = 0.0f;
+    const float c0 = cone.c_x(x0, x1, L);
+    float zc = L.crow ? c0 : 0.0f, uc = 0.0f;
+    int matvecs = 1;
+    for (int it = 0; it < op.iters; ++it) {
+      float d0, d1;
+      matvecs += cone.ct_y(zc - uc, L, d0, d1) + 1;  // and C x below
+      k_rhs(a0 + rho * (z00 - u00) + rho * d0, a1 + rho * (z01 - u01) + rho * d1,
+            L, op.n, x0, x1);
+      const float c = cone.c_x(x0, x1, L);
+      const float cx = L.crow ? c : 0.0f;
+      const float xh0 = alpha * x0 + beta * z00;
+      const float xh1 = alpha * x1 + beta * z01;
+      const float cxh = alpha * cx + beta * zc;
+      z00 = fminf(fmaxf(xh0 + u00, 0.0f), ub0);
+      z01 = fminf(fmaxf(xh1 + u01, 0.0f), ub1);
+      const float v = cxh + uc;
+      const float nrm = sqrtf(pair_norm_sq(v, L.lane) + 1e-12f);
+      zc = L.crow ? v * fminf(1.0f, rad / nrm) : 0.0f;
+      u00 = u00 + xh0 - z00;
+      u01 = u01 + xh1 - z01;
+      uc = uc + cxh - zc;
+    }
+    x0 = fminf(fmaxf(x0, 0.0f), ub0);
+    x1 = fminf(fmaxf(x1, 0.0f), ub1);
+    return matvecs;
+  }
+};
+
+// One env step after the action is known: projection (by `proj`),
+// quantization, events, battery, reward. Writes (reward, profit, carbon,
+// excess) to out4 from lane 0. `row` is table[day, t]: plug_dep | plug_est
+// | plug_req | moer(t+1) | ... Returns the mat-vecs with C that it ran.
+template <class Proj, class Cone>
+__device__ __forceinline__ int env_step(const Operators& op, const Proj& proj,
+                                        const Cone& cone, const Lane& L,
+                                        Stations& st, float a0, float a1,
+                                        const float* row, int t, float* out4) {
   const int n = op.n;
   a0 = L.v0 ? fminf(fmaxf(a0, 0.0f), 1.0f) : 0.0f;
   a1 = L.v1 ? fminf(fmaxf(a1, 0.0f), 1.0f) : 0.0f;
@@ -379,8 +466,8 @@ __device__ __forceinline__ int env_step(const Operators& op, const Cone& cone,
     const float kub = (float)kAPersToKwh;
     const float ub0 = fminf(1.0f, (st.pl0 ? st.dem0 : 0.0f) / kub / 32.0f);
     const float ub1 = fminf(1.0f, (st.pl1 ? st.dem1 : 0.0f) / kub / 32.0f);
-    matvecs += fista<kStop>(op, cone, L, a0, a1, L.v0 ? ub0 : 0.0f,
-                            L.v1 ? ub1 : 0.0f, a0, a1);
+    matvecs += proj(op, cone, L, a0, a1, L.v0 ? ub0 : 0.0f, L.v1 ? ub1 : 0.0f,
+                    a0, a1);
   }
   const float p0 = L.v0 ? quantize(a0, L.minp0) : 0.0f;
   const float p1 = L.v1 ? quantize(a1, L.minp1) : 0.0f;
@@ -431,20 +518,37 @@ constexpr int kSimWarps = 8;
 // resident warps (<= 80 registers) up to 24 cone rows, 16 warps above
 __host__ __device__ constexpr int sim_blocks(int MP) { return MP <= 24 ? 3 : 2; }
 
-template <int MP>
+// The ADMM operator's host arguments (K null for FISTA).
+struct AdmmArgs {
+  const float* K;  // (n, n)
+  float rho, alpha;
+};
+
+template <int MP, bool kAdmm>
 __global__ void __launch_bounds__(kSimWarps * 32, sim_blocks(MP))
-ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
-                  int rows_per_day, const int64_t* __restrict__ days, int B,
-                  int T, const float* __restrict__ acts, uint64_t seed,
+ev_segment_kernel(Operators op, AdmmArgs adm, const float* __restrict__ table,
+                  int table_w, int rows_per_day, const int64_t* __restrict__ days,
+                  int B, int T, const float* __restrict__ acts, uint64_t seed,
                   float* __restrict__ out, float* __restrict__ acts_out,
                   unsigned long long* __restrict__ matvecs_out) {
   __shared__ float4 scratch[kSimWarps][MP / 4];
+  __shared__ float kt[kAdmm ? kMaxStations * kMaxStations : 1];
+  __shared__ float rs[kAdmm ? kSimWarps * kMaxStations : 1];
+  if constexpr (kAdmm) {
+    for (int i = threadIdx.x; i < kMaxStations * kMaxStations; i += blockDim.x) {
+      const int s = i / kMaxStations, j = i % kMaxStations;
+      kt[j * kMaxStations + s] = (s < op.n && j < op.n) ? adm.K[s * op.n + j] : 0.0f;
+    }
+    __syncthreads();
+  }
   const int warp = threadIdx.x >> 5;
   const int e = blockIdx.x * kSimWarps + warp;
   if (e >= B) return;  // whole warps only: no block-wide sync follows
   const Lane L = make_lane(op);
   RegCone<MP> cone;
   cone.load(op, L, scratch[warp]);
+  const AdmmProj admm{kt, kAdmm ? rs + warp * kMaxStations : rs, adm.rho, adm.alpha,
+                      1.0f - adm.alpha, L.crow ? op.radii[L.lane >> 1] : 0.0f};
   const uint2 key = philox_key(seed);
   const float* day_rows = table + (size_t)days[e] * rows_per_day * table_w;
   Stations st{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
@@ -465,9 +569,12 @@ ev_segment_kernel(Operators op, const float* __restrict__ table, int table_w,
       if (L.v0) ao[L.s0] = fminf(fmaxf(a0, 0.0f), 1.0f);
       if (L.v1) ao[L.s1] = fminf(fmaxf(a1, 0.0f), 1.0f);
     }
-    matvecs += env_step<true>(op, cone, L, st, a0, a1,
-                              day_rows + (size_t)t * table_w, t,
-                              out + ((size_t)t * B + e) * 4);
+    const float* row = day_rows + (size_t)t * table_w;
+    float* out4 = out + ((size_t)t * B + e) * 4;
+    if constexpr (kAdmm)
+      matvecs += env_step(op, admm, cone, L, st, a0, a1, row, t, out4);
+    else
+      matvecs += env_step(op, FistaProj<true>{}, cone, L, st, a0, a1, row, t, out4);
   }
   if (matvecs_out != nullptr && L.lane == 0) atomicAdd(matvecs_out, matvecs);
 }
@@ -543,9 +650,9 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
         lrow[D + L.s1] = __float2bfloat16_rn(u);
         a1 = tanhf(u) * 0.5f + 0.5f;
       }
-      env_step<false>(op, SharedCone{op, sc, xs, ys}, L, st, a0, a1,
-                      table + ((size_t)day * rows_per_day + t) * table_w, t,
-                      out + ((size_t)t * B + e) * 4);
+      env_step(op, FistaProj<false>{}, SharedCone{op, sc, xs, ys}, L, st, a0, a1,
+               table + ((size_t)day * rows_per_day + t) * table_w, t,
+               out + ((size_t)t * B + e) * 4);
     }
   }
 }
@@ -555,47 +662,56 @@ size_t policy_smem_bytes(int D, int H, int n) {
          actor_tiles_bytes(D, H, n);
 }
 
-using SimKernel = void (*)(Operators, const float*, int, int, const int64_t*, int,
-                           int, const float*, uint64_t, float*, float*,
-                           unsigned long long*);
-// ev_segment_kernel's instance for m2 <= 32 cone rows (rounded up to 8)
-SimKernel sim_kernel(int m2) {
+using SimKernel = void (*)(Operators, AdmmArgs, const float*, int, int,
+                           const int64_t*, int, int, const float*, uint64_t,
+                           float*, float*, unsigned long long*);
+template <bool kAdmm>
+SimKernel sim_kernel_of(int m2) {
   switch ((m2 + 7) / 8) {
     case 0:
-    case 1: return ev_segment_kernel<8>;
-    case 2: return ev_segment_kernel<16>;
-    case 3: return ev_segment_kernel<24>;
-    default: return ev_segment_kernel<32>;
+    case 1: return ev_segment_kernel<8, kAdmm>;
+    case 2: return ev_segment_kernel<16, kAdmm>;
+    case 3: return ev_segment_kernel<24, kAdmm>;
+    default: return ev_segment_kernel<32, kAdmm>;
   }
+}
+// ev_segment_kernel's instance for m2 <= 32 cone rows (rounded up to 8)
+// and the projection operator
+SimKernel sim_kernel(int m2, bool admm) {
+  return admm ? sim_kernel_of<true>(m2) : sim_kernel_of<false>(m2);
 }
 
 }  // namespace
 
 // ---- plain C interface (loaded with ctypes; returns a cudaError_t) ----
 
+// K null: dual FISTA with `step`; K (n, n): ADMM with rho and alpha (step
+// null). The projection runs only if `project`.
 extern "C" int ev_segment_launch(
     const float* C, const float* radii, const float* step, const float* mags,
     const float* minp, int n, int m2, int iters, int restart, int project,
+    const float* K, float rho, float alpha,
     const float* table, int table_w, int rows_per_day, const int64_t* days,
     int B, int T, const float* acts, uint64_t seed, float* out,
     float* acts_out, unsigned long long* matvecs_out, void* stream) {
-  if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0)
+  if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0 ||
+      (K == nullptr && step == nullptr))
     return (int)cudaErrorInvalidValue;
   Operators op{C, radii, step, mags, minp, n, m2, iters, restart, project};
   const int grid = (B + kSimWarps - 1) / kSimWarps;
-  sim_kernel(m2)<<<grid, kSimWarps * 32, 0, (cudaStream_t)stream>>>(
-      op, table, table_w, rows_per_day, days, B, T, acts, seed, out, acts_out,
-      matvecs_out);
+  sim_kernel(m2, K != nullptr)<<<grid, kSimWarps * 32, 0, (cudaStream_t)stream>>>(
+      op, AdmmArgs{K, rho, alpha}, table, table_w, rows_per_day, days, B, T,
+      acts, seed, out, acts_out, matvecs_out);
   return (int)cudaGetLastError();
 }
 
 // CTAs of ev_segment_kernel (kSimWarps warps each) resident per SM for m2
-// cone rows, and the warps per CTA.
-extern "C" int ev_segment_ctas_per_sm(int m2, int* ctas, int* warps) {
+// cone rows and the operator (admm != 0: ADMM), and the warps per CTA.
+extern "C" int ev_segment_ctas_per_sm(int m2, int admm, int* ctas, int* warps) {
   if (m2 > kMaxConeRows) return (int)cudaErrorInvalidValue;
   *warps = kSimWarps;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, sim_kernel(m2), kSimWarps * 32, 0);
+      ctas, sim_kernel(m2, admm != 0), kSimWarps * 32, 0);
 }
 
 extern "C" int ev_policy_segment_launch(

@@ -3,8 +3,11 @@ of ``csrc/ev_rollout.cu``, their host packing, and a plain PyTorch version
 of each.
 
 ``ev_segment`` replaces ``sustaingym_tpu/ops/pallas/ev_rollout.py::
-fused_ev_segment`` (the simulation tier) and ``ev_policy_segment`` replaces
-``::fused_ev_policy_segment`` (PPO rollouts with the actor in the kernel).
+fused_ev_segment`` (the simulation tier), with both of its projection
+operators: dual FISTA and ADMM, taken from the type of ``params.proj``.
+``ev_policy_segment`` replaces ``::fused_ev_policy_segment`` (PPO rollouts
+with the actor in the kernel), which computes dual FISTA only, as the TPU
+kernel does.
 What bounds each kernel and how it is laid out is in the ``.cu`` file.
 
 The kernels read an ``EVParams``' tensors as they are: the (n_days, 289,
@@ -34,7 +37,8 @@ import torch
 from ...core import dataclass
 from ...core.graph import count_launches
 from ...envs.evcharging.env import EVParams, EVState, MAX_TIMESTEP, advance
-from .wrap import (I, P, PI, U64, bind, check, ctas_per_sm, on_card, pad16,
+from ...ops.qp import SOCProjection
+from .wrap import (F, I, P, PI, U64, bind, check, ctas_per_sm, on_card, pad16,
                    ptr, raise_on, seeded)
 
 __all__ = ["PolicyWeights", "b_fragments", "pack_policy_weights",
@@ -148,9 +152,10 @@ def ev_segment_ref(params: EVParams, days: torch.Tensor, T: int,
                    matvecs: torch.Tensor | None = None):
     """Plain version of :func:`ev_segment`. Returns (out (T, B, 4) rows
     reward | profit | carbon_cost | excess_charge, the actions used
-    (T, B, n) if ``record_actions`` else None). It runs every FISTA
+    (T, B, n) if ``record_actions`` else None). It runs every projection
     iteration of every step and adds its mat-vecs with C to ``matvecs``:
-    C' y and C x per iteration, the final C' y, the reward's C p."""
+    C' y and C x per iteration, the reward's C p, and FISTA's final C' y
+    or ADMM's first C x."""
     n, B, dev = params.n_stations, days.shape[0], params.device
     if matvecs is not None:
         per_step = 2 * int(params.proj.iters) + 2 if params.project_action \
@@ -230,12 +235,13 @@ def ev_policy_segment_ref(params: EVParams, weights: PolicyWeights,
 
 _OP_ARGS = [P, P, P, P, P, I, I, I, I, I]
 _SIGNATURES = {
-    "ev_segment_launch": _OP_ARGS + [P, I, I, P, I, I, P, U64, P, P, P, P],
+    "ev_segment_launch": _OP_ARGS + [P, F, F, P, I, I, P, I, I, P, U64, P, P,
+                                     P, P],
     "ev_policy_segment_launch": _OP_ARGS + [
         P, P, P, P, P, P, P, I, I, P, I, I, P, I, I, P, I, I, P, U64, P, P,
         P],
     "ev_policy_segment_ctas_per_sm": [I, I, I, PI],
-    "ev_segment_ctas_per_sm": [I, PI, PI],
+    "ev_segment_ctas_per_sm": [I, I, PI, PI],
 }
 
 
@@ -258,8 +264,11 @@ def _check_common(params: EVParams, days: torch.Tensor, T: int):
                          or int(days.max()) >= table.shape[0]):
         raise ValueError("reset days out of range")
     check("C", proj.C, torch.float32, (m2, n), dev)
+    if isinstance(proj, SOCProjection):
+        check("K", proj.K, torch.float32, (n, n), dev)
+    else:
+        check("step", proj.step, torch.float32, (m2 // 2,), dev)
     for name, x, size in (("radii", proj.radii, m2 // 2),
-                          ("step", proj.step, m2 // 2),
                           ("magnitudes", params.magnitudes, m2 // 2),
                           ("min_pilots", params.min_pilots, n)):
         check(name, x, torch.float32, (size,), dev)
@@ -267,11 +276,22 @@ def _check_common(params: EVParams, days: torch.Tensor, T: int):
 
 
 def _op_args(params: EVParams, n: int, m2: int) -> list:
+    """The kernels' operator arguments; ADMM passes no dual steps."""
     proj = params.proj
-    return [proj.C.data_ptr(), proj.radii.data_ptr(), proj.step.data_ptr(),
+    admm = isinstance(proj, SOCProjection)
+    return [proj.C.data_ptr(), proj.radii.data_ptr(),
+            None if admm else proj.step.data_ptr(),
             params.magnitudes.data_ptr(), params.min_pilots.data_ptr(), n,
-            m2, int(proj.iters), int(proj.restart),
+            m2, int(proj.iters), int(getattr(proj, "restart", False)),
             int(params.project_action)]
+
+
+def _admm_args(params: EVParams) -> list:
+    """``ev_segment_launch``'s K, rho, alpha: K null for dual FISTA."""
+    proj = params.proj
+    if isinstance(proj, SOCProjection):
+        return [proj.K.data_ptr(), proj.rho, proj.alpha]
+    return [None, 0.0, 0.0]
 
 
 def ev_segment(params: EVParams, days: torch.Tensor, T: int,
@@ -282,12 +302,14 @@ def ev_segment(params: EVParams, days: torch.Tensor, T: int,
     steps; ``days`` (B,) int64. ``actions`` (T, B, n) prescribed, else
     U[0, 1) draws seeded by ``seed``. Returns (out (T, B, 4) f32 rows
     reward | profit | carbon_cost | excess_charge, the actions used (T, B,
-    n) if ``record_actions`` else None). ``matvecs``, a 0-d int64 tensor
+    n) if ``record_actions`` else None). The projection is
+    ``params.proj``'s: dual FISTA or ADMM. ``matvecs``, a 0-d int64 tensor
     on the params' device, gets the mat-vecs with C that the kernel ran
-    added to it: it stops an env step's projection once an iteration
-    repeats the one before (the rest would repeat it exactly) and skips
-    C' y where y is 0, so a projected step runs at least the first
-    iteration's C x and the reward's C p."""
+    added to it: it skips C' y where y is 0, and stops an env step's FISTA
+    once an iteration repeats the one before (the rest would repeat it
+    exactly), so a projected step runs at least the first iteration's C x
+    and the reward's C p. ADMM runs every iteration, and a K mat-vec in
+    each besides."""
     if not on_card(params.step_table, "the EV kernels"):
         return ev_segment_ref(params, days, T, actions, seed, record_actions,
                               matvecs)
@@ -303,7 +325,8 @@ def ev_segment(params: EVParams, days: torch.Tensor, T: int,
                 if record_actions else None)
     with torch.cuda.device(dev):
         err = _lib().ev_segment_launch(
-            *_op_args(params, n, m2), table.data_ptr(), table.shape[2],
+            *_op_args(params, n, m2), *_admm_args(params),
+            table.data_ptr(), table.shape[2],
             table.shape[1], days.data_ptr(), B, T, ptr(actions),
             seed % 2 ** 64, out.data_ptr(), ptr(acts_out), ptr(matvecs),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -322,7 +345,11 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
     come from the MOER pack ``params.moer``. ``noise`` (T, B, n) prescribed
     normals, else Box–Muller draws seeded by ``seed``. Returns (out
     (T, B, 4) f32, learner block (T, B, D + n) bf16; see
-    :func:`ev_fused_layout`)."""
+    :func:`ev_fused_layout`). The dual-FISTA operator only: the policy
+    kernel has no ADMM branch (nor has the TPU kernel)."""
+    if isinstance(params.proj, SOCProjection):
+        raise ValueError("ev_policy_segment computes the dual-FISTA "
+                         "projection only, not ADMM")
     if not on_card(params.step_table, "the EV kernels"):
         return ev_policy_segment_ref(params, weights, days, T, noise, seed)
     dev, n, m2 = _check_common(params, days, T)
@@ -361,7 +388,8 @@ def ev_policy_occupancy(D: int, H: int, n: int) -> int:
     return ctas_per_sm(_lib().ev_policy_segment_ctas_per_sm, D, H, n)[0]
 
 
-def ev_segment_occupancy(m2: int) -> tuple[int, int]:
+def ev_segment_occupancy(m2: int, admm: bool = False) -> tuple[int, int]:
     """(CTAs resident per SM, warps per CTA) of ``ev_segment``'s kernel
-    instance for ``m2`` cone rows, on the current card."""
-    return ctas_per_sm(_lib().ev_segment_ctas_per_sm, m2)
+    instance for ``m2`` cone rows and the operator (``admm``), on the
+    current card."""
+    return ctas_per_sm(_lib().ev_segment_ctas_per_sm, m2, int(admm))

@@ -140,7 +140,8 @@ def make_lp_operator(A: np.ndarray, G: np.ndarray, iters: int = 400,
 def solve_lp(op: LPOperator, c: torch.Tensor, b: torch.Tensor,
              h: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
              init: LPSolution | None = None,
-             iters: int | torch.Tensor | None = None) -> LPSolution:
+             iters: int | torch.Tensor | None = None,
+             max_iters: int | None = None) -> LPSolution:
     """Solves a batch of LPs: ``c`` (B, n), ``b`` (B, me), ``h`` (B, mi)
     ordered [h_plus(ms), h_minus(ms), h_rest(mg)], bounds broadcasting
     against ``c``; the returned ``z`` follows ``h``'s ordering.
@@ -149,7 +150,10 @@ def solve_lp(op: LPOperator, c: torch.Tensor, b: torch.Tensor,
     bounds, z at 0). ``iters`` overrides ``op.iters``; a (B,) tensor gives
     each env its own budget: the solve runs the largest and freezes each
     env once its own budget is spent, as the JAX package's per-env while
-    loops under ``vmap`` do."""
+    loops under ``vmap`` do. The largest is read on the host, which a CUDA
+    graph capture cannot do: there the loop runs ``max_iters``, a bound
+    of every budget that the caller gives (the frozen envs keep their
+    values, so the result is the same)."""
     me, ms, mg = op.me, op.ms, op.mg
     if init is None:
         x = torch.minimum(torch.maximum(torch.zeros_like(c), lb), ub)
@@ -224,7 +228,14 @@ def solve_lp(op: LPOperator, c: torch.Tensor, b: torch.Tensor,
     budget = op.iters if iters is None else iters
     if isinstance(budget, torch.Tensor) and budget.ndim > 0:
         budget = budget.to(c.device)
-        for i in range(int(budget.max()) if budget.numel() else 0):
+        if c.is_cuda and torch.cuda.is_current_stream_capturing():
+            if max_iters is None:
+                raise ValueError("a captured solve with per-env budgets "
+                                 "needs max_iters")
+            count = max_iters
+        else:
+            count = int(budget.max()) if budget.numel() else 0
+        for i in range(count):
             active = (i < budget)[:, None]
             carry = tuple(torch.where(active, new, old)
                           for new, old in zip(body(*carry), carry))

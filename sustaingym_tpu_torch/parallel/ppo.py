@@ -1,9 +1,9 @@
-"""PPO and A2C learner: the episodic paths of ``sustaingym_tpu.parallel.ppo``.
+"""PPO and A2C learner: ``sustaingym_tpu.parallel.ppo`` on one card.
 
-One train step = one rollout of whole episodes, a re-scoring of (logp,
-value) in one batched pass, GAE on ``reward * reward_scale``, and
+One train step = one rollout of ``rollout_len`` steps, a re-scoring of
+(logp, value) in one batched pass, GAE on ``reward * reward_scale``, and
 clipped-PPO (or A2C) epochs over ``torch.randperm`` minibatches of all
-T x B samples. The rollout goes one of two ways, as in the JAX package:
+T x B samples. The rollout goes one of three ways, as in the JAX package:
 
 - **fused** (EVChargingEnv or BuildingEnv with ``obs_bf16``, in a
   configuration its kernel computes): the actor runs inside the env's
@@ -17,20 +17,28 @@ T x B samples. The rollout goes one of two ways, as in the JAX package:
   space, or, for a Discrete or MultiDiscrete action space, the bins of a
   categorical head (uniform bins, as the JAX package requires). The obs it
   saw (bf16 if ``obs_bf16``) and ``u`` are recorded and re-scored
-  afterwards.
+  afterwards;
+- **generic** (a rollout length other than the episode's, or an env
+  with neither): the same sampling over the env's batched ``step`` with
+  autoreset (:func:`core.env.capturable_autoreset_step`), the env states
+  and obs carried from one train step to the next, and GAE bootstrapped
+  from the value of the last obs.
+
+The first two roll whole episodes from fresh resets and terminate on their
+last step (no bootstrap value).
 
 Either way, with lr=0 every ratio is exactly 1 (the exact-ratio invariant
 of the JAX package's tests).
 
 On a CUDA device a train step is the counterpart of the JAX package's one
-jitted program: the episode's step loop, the re-scoring with GAE, and each
+jitted program: the rollout's step loop (an episode's, or the generic
+rollout's ``rollout_len`` steps), the re-scoring with GAE, and each
 minibatch update (gather, forward, backward, global-norm clip, Adam) are
 CUDA graphs (``core/graph.py``), captured at the first train step and
 replayed after. ``make_train_step(..., capture=False)`` builds the same
 step without graphs, for comparisons.
 
-Not ported yet: the generic (non-episodic) rollout, the multi-agent and
-per-agent paths and sharding.
+Not ported yet: the multi-agent and per-agent paths and sharding.
 """
 from __future__ import annotations
 
@@ -42,8 +50,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import Discrete, MultiDiscrete, dataclass, flatdim, flatten
-from ..core.graph import Graphs, device_const
+from ..core import (Discrete, MultiDiscrete, capturable_autoreset_step,
+                    dataclass, flatdim, flatten)
+from ..core.graph import Graphs, device_const, tree_leaves
 
 __all__ = ["PPOConfig", "ActorCritic", "init_policy", "policy_apply",
            "policy_apply_bf16", "default_act_transform", "gae", "loss_fn",
@@ -54,9 +63,10 @@ METRICS = ("pg_loss", "vf_loss", "entropy")
 
 @dataclass
 class PPOConfig:
-    """Each rollout is one whole episode per env (the env's
-    ``episode_steps``)."""
+    """``rollout_len`` steps a rollout; None is the env's
+    ``episode_steps``, a whole episode per env."""
     num_envs: int = 256
+    rollout_len: int | None = None
     hidden: int = 256
     epochs: int = 4
     minibatches: int = 8
@@ -295,34 +305,41 @@ def _action_head(space) -> tuple[int, int]:
     return int(nvec.size), n_bins
 
 
+def _sampler(obs_space, apply, obs_bf16: bool, act, n_bins: int):
+    """``sample(policy, obs_raw, generator) -> (obs, u, action)``: flattens
+    the obs (bf16 if ``obs_bf16``), applies ``apply`` and draws ``u`` from
+    the generator: Gaussian, squashed into the action by ``act``, or the
+    bins of a categorical head when ``n_bins``."""
+
+    def sample(policy, obs_raw, generator):
+        obs = flatten(obs_space, obs_raw, batch_dims=1)
+        if obs_bf16:
+            obs = obs.to(torch.bfloat16)
+        mu, log_std, _ = apply(policy, obs)
+        if n_bins:
+            u = _sample_categorical(_logits(mu, n_bins), generator)
+            return obs, u, u
+        u = mu + torch.exp(log_std) * torch.randn(
+            mu.shape, generator=generator, device=generator.device)
+        return obs, u, act(u)
+
+    return sample
+
+
 class _SamplingPolicy:
     """The episodic rollout's policy, built once per trainer and policy:
-    flattens the obs (bf16 if ``obs_bf16``), applies ``apply``, draws
-    ``u`` from the generator (Gaussian, or categorical bins when
-    ``n_bins``) and records the obs and ``u`` of step t in row t of
-    ``obs`` / ``u`` (steps, B, ...), which it allocates at step 0. Inside
-    a captured episode the rows are the graph's outputs, rewritten by
-    each replay."""
+    draws by ``sample`` (:func:`_sampler`) and records the obs and ``u`` of
+    step t in row t of ``obs`` / ``u`` (steps, B, ...), which it allocates
+    at step 0. Inside a captured episode the rows are the graph's outputs,
+    rewritten by each replay."""
 
-    def __init__(self, obs_space, apply, obs_bf16: bool, act, n_bins: int,
-                 steps: int):
-        self.obs_space, self.apply, self.obs_bf16 = obs_space, apply, obs_bf16
-        self.act, self.n_bins, self.steps = act, n_bins, steps
+    def __init__(self, sample, steps: int):
+        self.sample, self.steps = sample, steps
         self.t = 0
         self.obs = self.u = None
 
     def __call__(self, policy, obs_raw, generator):
-        obs = flatten(self.obs_space, obs_raw, batch_dims=1)
-        if self.obs_bf16:
-            obs = obs.to(torch.bfloat16)
-        mu, log_std, _ = self.apply(policy, obs)
-        if self.n_bins:
-            u = action = _sample_categorical(_logits(mu, self.n_bins),
-                                             generator)
-        else:
-            u = mu + torch.exp(log_std) * torch.randn(
-                mu.shape, generator=generator, device=generator.device)
-            action = self.act(u)
+        obs, u, action = self.sample(policy, obs_raw, generator)
         if self.t == 0:
             self.obs = obs.new_empty((self.steps,) + obs.shape)
             self.u = u.new_empty((self.steps,) + u.shape)
@@ -335,25 +352,33 @@ class _SamplingPolicy:
 def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     """Builds (init_state, train_step).
 
-    ``init_state(generator) -> carry`` with the policy and its Adam state;
+    ``init_state(generator) -> carry`` with the policy and its Adam state,
+    and for the generic rollout the envs' states and obs (``env_states``,
+    ``obs``: reset from ``generator``, carried across train steps);
     ``train_step(carry, generator) -> (carry, metrics)`` runs one rollout +
     update in place on the params' device and returns 0-d metric tensors
     (no host synchronisation). Its three phases are also attributes of
-    ``train_step``, for timing them apart: ``rollout(policy, generator) ->
-    out``, ``score(policy, out) -> samples`` (re-scoring and GAE) and
-    ``update(policy, opt, samples, generator) -> summed metrics``; and
+    ``train_step``, for timing them apart: ``rollout(policy, generator,
+    carry) -> out`` (the generic rollout reads and advances the carry's
+    envs; the others need no carry), ``score(policy, out) -> samples``
+    (re-scoring and GAE) and ``update(policy, opt, samples, generator) ->
+    summed metrics``; and
     ``train_step.graphs``, the trainer's :class:`core.graph.Graphs` (None
-    without capture).
+    without capture), ``train_step.path`` ("fused", "episodic" or
+    "generic"), ``train_step.rollout_len`` and ``train_step.actor(policy,
+    obs) -> actions``, the deterministic evaluation policy.
 
-    The rollout is the fused path when ``cfg.obs_bf16``, the env has a
+    With ``cfg.rollout_len`` the episode length (or None), the rollout is
+    the fused path when ``cfg.obs_bf16``, the env has a
     ``fused_policy_unroll`` and ``env.fused_policy_unroll_supported(params,
-    num_envs)``; else the
-    episodic path when the env has a lockstep ``batch_unroll`` (module
-    docstring); anything else raises.
+    num_envs)``; else the episodic path when the env has a lockstep
+    ``batch_unroll``; else, and at any other length, the generic path,
+    which needs the env's batched ``step`` and ``reset`` (module
+    docstring).
 
-    On a CUDA device, with ``capture`` (the default), the episodic
-    rollout's step loop, the scoring and each minibatch update run as CUDA
-    graphs captured at the first train step (never here: a checkpoint
+    On a CUDA device, with ``capture`` (the default), the rollout's step
+    loop, the scoring and each minibatch update run as CUDA graphs
+    captured at the first train step (never here: a checkpoint
     restored after ``init_state`` replaces the optimizer state they bind).
     A phase holds one graph: another policy or optimizer state (a carry
     made earlier, ``opt.load_state_dict``) replaces it, and
@@ -363,30 +388,32 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     comparisons); on the CPU every step is eager."""
     if cfg.algo not in ("ppo", "a2c"):
         raise ValueError(f"unknown on-policy algo {cfg.algo!r}")
-    has_fused = hasattr(env, "fused_policy_unroll")
-    fused = (cfg.obs_bf16 and has_fused and env.fused_policy_unroll_supported(
-        env_params, cfg.num_envs))
-    if not fused and not hasattr(env, "batch_unroll"):
-        if has_fused:
-            raise ValueError(
-                f"{type(env).__name__} with float32 obs needs its lockstep "
-                f"batch_unroll, which is not ported yet (ROADMAP Queue 1, "
-                f"'EV lockstep rollouts'); set obs_bf16 for the fused "
-                f"policy-in-kernel path")
-        raise ValueError(
-            "PPO in the port needs an env with a lockstep batch_unroll "
-            "(episodic path) or a fused_policy_unroll (fused path, obs_bf16); "
-            "the generic rollout is not ported yet (ROADMAP Queue 1, 'EV "
-            "lockstep rollouts')")
+    ep_len = env.episode_steps(env_params)
+    T = ep_len if cfg.rollout_len is None else int(cfg.rollout_len)
+    if not T or T < 1:
+        raise ValueError(f"rollout_len {T!r}: pass a positive length (the "
+                         f"env has no fixed episode length)")
+    whole = T == ep_len
     # the fused kernels compute Box actions only: their
     # fused_policy_unroll_supported is False for a discrete space
+    fused = (whole and cfg.obs_bf16 and hasattr(env, "fused_policy_unroll")
+             and env.fused_policy_unroll_supported(env_params,
+                                                   cfg.num_envs))
+    path = ("fused" if fused else "episodic"
+            if whole and hasattr(env, "batch_unroll") else "generic")
+    if path == "generic" and not (hasattr(env, "step")
+                                  and hasattr(env, "reset")):
+        raise ValueError(
+            f"{type(env).__name__}: PPO needs the env's batched step and "
+            f"reset (generic rollout), a lockstep batch_unroll (episodic) "
+            f"or a fused_policy_unroll (fused, obs_bf16)")
     act_dim, n_bins = _action_head(env.action_space(env_params))
     device = env_params.device
     graphs = Graphs(device) if capture and device.type == "cuda" else None
-    ep_len = env.episode_steps(env_params)
     obs_space = env.observation_space(env_params)
     obs_dim = flatdim(obs_space)
     head_dim = act_dim * n_bins if n_bins else act_dim
+    act = None if n_bins else default_act_transform(env, env_params)
     if fused:
         apply = policy_apply_bf16
         layout = env.fused_layout(env_params)
@@ -395,31 +422,65 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
             raise ValueError(f"learner block obs width {D} != obs dim "
                              f"{obs_dim}")
 
-        def unroll(policy, generator):
+        def unroll(policy, generator, carry):
             out = env.fused_policy_unroll(env_params, policy, cfg.num_envs,
-                                          ep_len, generator=generator)
+                                          T, generator=generator)
             lrn = out["lrn"]                        # (T, B, D + n) bf16
             return {"obs": lrn[..., :D],
                     "u": lrn[..., u_lo:u_lo + act_dim].float(),
                     "reward": out["reward"], "done": out["done"]}
     else:
         apply = _apply_f32
-        act = None if n_bins else default_act_transform(env, env_params)
+        sample = _sampler(obs_space, apply, cfg.obs_bf16, act, n_bins)
+    if path == "episodic":
         # the sampling policy of the last policy rolled out: a captured
         # episode writes the buffers of the sampler it was captured with,
         # and a new policy's episode (a new key) replaces that graph
         samplers = {}
 
-        def unroll(policy, generator):
+        def unroll(policy, generator, carry):
             sampler = samplers.get(policy)
             if sampler is None:
                 samplers.clear()
-                sampler = samplers[policy] = _SamplingPolicy(
-                    obs_space, apply, cfg.obs_bf16, act, n_bins, ep_len)
+                sampler = samplers[policy] = _SamplingPolicy(sample, T)
             ts = env.batch_unroll(env_params, sampler, policy, cfg.num_envs,
-                                  ep_len, generator, graphs=graphs)
+                                  T, generator, graphs=graphs)
             return {"obs": sampler.obs, "u": sampler.u,
                     "reward": ts.reward, "done": ts.done}
+    elif path == "generic":
+        step = capturable_autoreset_step(env)
+
+        def generic_steps(policy, generator, state, obs_raw):
+            """T autoreset steps from (state, obs_raw): the part of the
+            generic rollout that a CUDA graph captures."""
+            rows = {"obs": [], "u": [], "reward": [], "done": []}
+            for _ in range(T):
+                obs, u, action = sample(policy, obs_raw, generator)
+                state, ts = step(env_params, state, action, generator)
+                obs_raw = ts.obs
+                for key, v in zip(rows, (obs, u, ts.reward, ts.done)):
+                    rows[key].append(v)
+            out = {key: torch.stack(v) for key, v in rows.items()}
+            last = flatten(obs_space, obs_raw, batch_dims=1)
+            out["last_obs"] = last.to(torch.bfloat16) if cfg.obs_bf16 \
+                else last
+            return state, obs_raw, out
+
+        def unroll(policy, generator, carry):
+            if carry is None:
+                raise ValueError("the generic rollout needs the carry")
+            inputs = (carry["env_states"], carry["obs"])
+            fn = partial(generic_steps, policy, generator)
+            if graphs is None:
+                state, obs_raw, out = fn(*inputs)
+            else:
+                key = ("generic", id(policy), id(generator)) + tuple(
+                    (x.shape, x.dtype) for x in tree_leaves(inputs))
+                state, obs_raw, out = graphs(key, fn, *inputs,
+                                             generators=(generator,),
+                                             slot="rollout")
+            carry["env_states"], carry["obs"] = state, obs_raw
+            return out
 
     def logp_of(mu, log_std, u):
         if n_bins:
@@ -431,19 +492,28 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
             graphs.clear()          # the last carry's captures and pool
         policy = init_policy(obs_dim, head_dim, cfg.hidden, generator,
                              device)
-        return {"policy": policy, "opt": _adam(policy.parameters(), cfg,
-                                               device)}
+        carry = {"policy": policy, "opt": _adam(policy.parameters(), cfg,
+                                                device)}
+        if path == "generic":
+            carry["env_states"], ts = env.reset(env_params, generator,
+                                                cfg.num_envs)
+            carry["obs"] = ts.obs
+        return carry
 
     @torch.no_grad()
-    def rollout(policy: ActorCritic, generator: torch.Generator) -> dict:
-        return unroll(policy, generator)
+    def rollout(policy: ActorCritic, generator: torch.Generator,
+                carry: dict | None = None) -> dict:
+        return unroll(policy, generator, carry)
 
-    def score_body(policy, obs, u, reward, done):
+    def score_body(policy, obs, u, reward, done, last_obs=None):
         mu, log_std, value = apply(policy, obs)
         logp = logp_of(mu, log_std, u)
-        # episodes terminate on the last step: no bootstrap value
+        # whole episodes terminate on their last step: no bootstrap value;
+        # the generic rollout bootstraps from its last obs
+        last_value = (torch.zeros_like(value[0]) if last_obs is None
+                      else apply(policy, last_obs)[2])
         advs, rets = gae(cfg, value, reward * cfg.reward_scale, done,
-                         torch.zeros_like(value[0]))
+                         last_value)
         n = logp.numel()
         return {"obs": obs.reshape(n, obs_dim), "u": u.reshape(n, act_dim),
                 "logp": logp.reshape(n), "adv": advs.reshape(n),
@@ -451,7 +521,8 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
 
     @torch.no_grad()
     def score(policy: ActorCritic, out: dict) -> dict:
-        args = (out["obs"], out["u"], out["reward"], out["done"])
+        args = (out["obs"], out["u"], out["reward"], out["done"]) + (
+            (out["last_obs"],) if "last_obs" in out else ())
         if graphs is None:
             return score_body(policy, *args)
         key = ("score", id(policy)) + tuple(
@@ -505,7 +576,7 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
 
     def train_step(carry: dict, generator: torch.Generator):
         policy, opt = carry["policy"], carry["opt"]
-        out = rollout(policy, generator)
+        out = rollout(policy, generator, carry)
         # read before the later phases' graphs run: a graph captured after
         # them may hold its outputs in their scratch memory
         metrics = {"mean_reward": out["reward"].mean(),
@@ -517,4 +588,19 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
 
     train_step.rollout, train_step.score = rollout, score
     train_step.update, train_step.graphs = update, graphs
+    train_step.path, train_step.rollout_len = path, T
+
+    @torch.no_grad()
+    def actor(policy: ActorCritic, obs_raw) -> torch.Tensor:
+        """The deterministic actions of the raw batched obs: the squashed
+        mean, or each dimension's most likely bin (the evaluation policy)."""
+        obs = flatten(obs_space, obs_raw, batch_dims=1)
+        if cfg.obs_bf16:
+            obs = obs.to(torch.bfloat16)
+        mu = apply(policy, obs)[0]
+        if n_bins:
+            return torch.argmax(_logits(mu, n_bins), -1)
+        return act(mu)
+
+    train_step.actor = actor
     return init_state, train_step

@@ -1,6 +1,7 @@
 """Training CLI of the PyTorch port: PPO or A2C on EVChargingEnv,
 BuildingEnv, CogenEnv, DataCenterEnv or ElectricityMarketEnv.
 
+    python -m sustaingym_tpu_torch.train --env evcharging --eval-every 5
     python -m sustaingym_tpu_torch.train --env evcharging --algo ppo \
         --num-envs 8192 --rollout-len 288 --minibatches 96 --obs-bf16
     python -m sustaingym_tpu_torch.train --env building --num-envs 8192 \
@@ -15,12 +16,25 @@ BuildingEnv, CogenEnv, DataCenterEnv or ElectricityMarketEnv.
         --num-envs 4096 --rollout-len 288 --minibatches 36
     python -m sustaingym_tpu_torch.train --env electricitymarket \
         --env-kwargs '{"discrete": true}' --algo a2c --num-envs 4096 \
-        --minibatches 36
+        --rollout-len 288 --minibatches 36
+
+``--rollout-len`` (default 64, as the JAX CLI's) takes any length: at the
+env's episode length each rollout is one whole episode per env (the fused
+or episodic path), at any other the generic rollout carries the envs
+across train steps (``parallel/ppo.py``).
 
 Writes per-iteration metrics to ``<log-dir>/train_results.csv``, saves the
-policy, optimizer and generator state with ``torch.save`` every
-``--save-every`` iterations (``<log-dir>/checkpoints/step_<i>.pt``), and
-resumes from the newest checkpoint of ``--restore``. Runs on the card
+policy, optimizer and generator state, and the generic rollout's env
+states and obs, with ``torch.save`` every ``--save-every`` iterations
+(``<log-dir>/checkpoints/step_<i>.pt``), and resumes from the newest
+checkpoint of ``--restore``. ``--eval-every N`` runs the deterministic
+actor (mean action, or the most likely bins) over one episode of
+``--eval-episodes`` envs every N iterations (``core.batch_rollout``, its
+episode loop replayed from one CUDA graph across evaluations on the
+card), appends the mean return and the mean of every float info field to
+``<log-dir>/eval_results.csv``, and saves a new best to
+``<log-dir>/best_model/step_<i>.pt``; a resumed run reads its best from
+the CSV, whose header must match. Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; asking
 for ``cuda`` without a CUDA device is an error. On the card each train
 step replays CUDA graphs captured at the first one (``parallel/ppo.py``),
@@ -29,19 +43,26 @@ after any restore; the first iteration's time includes the captures.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import os
 import time
 
+# the generic rollout's carry besides the policy and its optimizer
+ENV_CARRY = ("env_states", "obs")
+
 
 def save_checkpoint(path: str, carry: dict, generator, step: int) -> None:
     import torch
+    from sustaingym_tpu_torch.core.graph import tree_leaves
     os.makedirs(path, exist_ok=True)
     torch.save({"iteration": step,
                 "policy": carry["policy"].state_dict(),
                 "opt": carry["opt"].state_dict(),
-                "generator": generator.get_state()},
+                "generator": generator.get_state(),
+                "envs": [x.cpu() for k in ENV_CARRY if k in carry
+                         for x in tree_leaves(carry[k])]},
                os.path.join(path, f"step_{step}.pt"))
 
 
@@ -49,6 +70,7 @@ def restore_checkpoint(path: str, carry: dict, generator) -> int:
     """Loads the newest ``step_<i>.pt`` of ``path`` into ``carry`` and
     ``generator``; returns its iteration."""
     import torch
+    from sustaingym_tpu_torch.core import tree_map
     steps = sorted(int(f[5:-3]) for f in os.listdir(path)
                    if f.startswith("step_") and f.endswith(".pt"))
     if not steps:
@@ -58,7 +80,63 @@ def restore_checkpoint(path: str, carry: dict, generator) -> int:
     carry["policy"].load_state_dict(ckpt["policy"])
     carry["opt"].load_state_dict(ckpt["opt"])
     generator.set_state(ckpt["generator"])
+    saved = iter(ckpt["envs"])
+    for k in ENV_CARRY:
+        if k in carry:
+            carry[k] = tree_map(lambda x: next(saved).to(x.device), carry[k])
+    if next(saved, None) is not None:
+        raise SystemExit(f"{path}: the checkpoint's env carry does not "
+                         f"match this trainer's")
     return int(ckpt["iteration"])
+
+
+def read_best(csv_path: str) -> float:
+    """The best ``mean_return`` of an existing ``eval_results.csv``."""
+    best = float("-inf")
+    if os.path.exists(csv_path):
+        with open(csv_path, newline="") as f:
+            for row in csv.DictReader(f):
+                try:
+                    best = max(best, float(row["mean_return"]))
+                except (KeyError, ValueError):
+                    pass
+    return best
+
+
+def make_evaluator(env, env_params, train_step, episodes: int, seed: int):
+    """``evaluate(policy, i) -> row``: the deterministic actor over one
+    episode of ``episodes`` envs (``core.batch_rollout``), reset days
+    drawn from a generator seeded by ``seed`` and ``i``. The row holds
+    ``mean_return`` and the mean of every float info field. One
+    ``Graphs`` serves every evaluation, so on the card each one after the
+    first replays its episode loop (the graph reads the policy's weights
+    in place)."""
+    import torch
+    from sustaingym_tpu_torch.core import batch_rollout
+    from sustaingym_tpu_torch.core.graph import Graphs
+
+    ep_len = env.episode_steps(env_params)
+    device = env_params.device
+    graphs = Graphs(device)
+    gen = torch.Generator(device=device)
+    actor = train_step.actor
+
+    def eval_policy(policy, obs, generator):
+        return actor(policy, obs)
+
+    @torch.no_grad()
+    def evaluate(policy, i: int) -> dict:
+        gen.manual_seed(seed + 500_000 + i)
+        traj = batch_rollout(env, env_params, eval_policy, policy, gen,
+                             episodes, ep_len, graphs=graphs)
+        row = {"iteration": i,
+               "mean_return": float(traj.reward.sum(0).mean())}
+        row.update({k: float(v.float().mean()) for k, v in traj.info.items()
+                    if torch.is_tensor(v) and v.is_floating_point()})
+        return row
+
+    evaluate.graphs = graphs
+    return evaluate
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -76,11 +154,12 @@ def main(argv: list[str] | None = None) -> None:
                         help="torch device, e.g. cuda (default) or cpu")
     parser.add_argument("--iterations", type=int, default=50)
     parser.add_argument("--num-envs", type=int, default=1024)
-    parser.add_argument("--rollout-len", type=int, default=None,
-                        help="must equal the episode length (evcharging "
-                             "288, building 288, cogen 96, datacenter 672, "
-                             "electricitymarket 288; the default): each "
-                             "rollout is one whole episode per env")
+    parser.add_argument("--rollout-len", type=int, default=64,
+                        help="steps a rollout; at the episode length "
+                             "(evcharging 288, building 288, cogen 96, "
+                             "datacenter 672, electricitymarket 288) each "
+                             "rollout is one whole episode per env, at any "
+                             "other the envs carry over between rollouts")
     parser.add_argument("--hidden", type=int, default=256)
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--gamma", type=float, default=0.99)
@@ -90,10 +169,17 @@ def main(argv: list[str] | None = None) -> None:
                         help="multiplies rewards before GAE (default 1e-4 "
                              "for cogen, 1.0 otherwise)")
     parser.add_argument("--obs-bf16", action="store_true",
-                        help="store observations in bfloat16 (evcharging "
-                             "needs it; with it, evcharging and building "
-                             "train on the policy-in-kernel rollout, whose "
-                             "kernel writes a bf16 learner block)")
+                        help="store observations in bfloat16; with it and "
+                             "whole-episode rollouts, evcharging and "
+                             "building train on the policy-in-kernel "
+                             "rollout, whose kernel writes a bf16 learner "
+                             "block")
+    parser.add_argument("--eval-every", type=int, default=0,
+                        help="evaluate the deterministic policy every N "
+                             "iterations (0 = off): eval_results.csv and "
+                             "best_model/ in the log dir")
+    parser.add_argument("--eval-episodes", type=int, default=5,
+                        help="envs (one episode each) an evaluation")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--log-dir", default="runs/default")
     parser.add_argument("--save-every", type=int, default=10)
@@ -114,14 +200,11 @@ def main(argv: list[str] | None = None) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
     env_kwargs = json.loads(args.env_kwargs) if args.env_kwargs else {}
     env, env_params = make(args.env, device=device, **env_kwargs)
-    ep_len = env.episode_steps(env_params)
-    if args.rollout_len not in (None, ep_len):
-        raise SystemExit(f"--rollout-len must equal the episode length "
-                         f"({ep_len}): each rollout is one whole episode")
     reward_scale = args.reward_scale
     if reward_scale is None:
         reward_scale = 1e-4 if args.env == "cogen" else 1.0
-    cfg = PPOConfig(num_envs=args.num_envs, hidden=args.hidden, lr=args.lr,
+    cfg = PPOConfig(num_envs=args.num_envs, rollout_len=args.rollout_len,
+                    hidden=args.hidden, lr=args.lr,
                     gamma=args.gamma, epochs=args.epochs,
                     minibatches=args.minibatches, reward_scale=reward_scale,
                     obs_bf16=args.obs_bf16, algo=args.algo)
@@ -137,8 +220,42 @@ def main(argv: list[str] | None = None) -> None:
     os.makedirs(args.log_dir, exist_ok=True)
     csv_path = os.path.join(args.log_dir, "train_results.csv")
     ckpt_dir = os.path.join(args.log_dir, "checkpoints")
-    steps_per_iter = cfg.num_envs * ep_len
-    with open(csv_path, "a", newline="") as f:
+    steps_per_iter = cfg.num_envs * train_step.rollout_len
+    evaluate = (make_evaluator(env, env_params, train_step,
+                               args.eval_episodes, args.seed)
+                if args.eval_every else None)
+    eval_csv = os.path.join(args.log_dir, "eval_results.csv")
+    best = read_best(eval_csv)
+    eval_writer = None
+
+    def run_eval(i: int, eval_f):
+        nonlocal best, eval_writer
+        row = evaluate(carry["policy"], i)
+        if eval_writer is None:
+            if eval_f.tell() > 0:
+                with open(eval_csv, newline="") as prev:
+                    old = next(csv.reader(prev), None)
+                if old is not None and old != list(row):
+                    raise SystemExit(
+                        f"{eval_csv} exists with columns {old} but this run "
+                        f"writes {list(row)}; use a fresh --log-dir")
+            eval_writer = csv.DictWriter(eval_f, fieldnames=list(row))
+            if eval_f.tell() == 0:
+                eval_writer.writeheader()
+        eval_writer.writerow(row)
+        eval_f.flush()
+        marker = ""
+        if row["mean_return"] > best:
+            best = row["mean_return"]
+            save_checkpoint(os.path.join(args.log_dir, "best_model"), carry,
+                            gen, i)
+            marker = " (new best, saved)"
+        print(f"eval @ iter {i}: return={row['mean_return']:.4f}{marker}",
+              flush=True)
+
+    with open(csv_path, "a", newline="") as f, \
+            (open(eval_csv, "a", newline="") if evaluate
+             else contextlib.nullcontext()) as eval_f:
         writer = None
         for i in range(start_iter, start_iter + args.iterations):
             t0 = time.perf_counter()
@@ -158,6 +275,8 @@ def main(argv: list[str] | None = None) -> None:
                   f"{device.type})", flush=True)
             if (i + 1) % args.save_every == 0:
                 save_checkpoint(ckpt_dir, carry, gen, i + 1)
+            if evaluate is not None and (i + 1) % args.eval_every == 0:
+                run_eval(i + 1, eval_f)
     save_checkpoint(ckpt_dir, carry, gen, start_iter + args.iterations)
     print(f"done; logs in {csv_path}")
 

@@ -403,8 +403,8 @@ def test_ppo_gate_other_configurations(dicts):
     """A building configuration the kernels do not compute takes the
     episodic path even with bf16 obs; discrete actions train on the
     categorical head where their bins are uniform and raise the JAX
-    package's error where they are not; EV with float32 obs still raises
-    its own message (no EV batch_unroll yet)."""
+    package's error where they are not; EV with float32 obs takes the
+    episodic path (its batch_unroll)."""
     jd, td = dicts
     tp = tb.make_params({**td, "episode_len": 24, "reward_pnorm": 1},
                         device="cpu")
@@ -438,8 +438,8 @@ def test_ppo_gate_other_configurations(dicts):
     assert str(ours.value) == str(theirs.value)
     ev, evp = make("evcharging", site="caltech", project_action=False,
                    device="cpu")
-    with pytest.raises(ValueError, match="EV lockstep rollouts"):
-        make_train_step(ev, evp, PPOConfig(obs_bf16=False))
+    _, ev_step = make_train_step(ev, evp, PPOConfig(obs_bf16=False))
+    assert ev_step.path == "episodic"
 
 
 def test_train_cli_building(tables, tmp_path):

@@ -246,3 +246,42 @@ def test_ev_segment_ref_counts_every_matvec(site, project):
     K.ev_segment(tp, days, 4, seed=2, matvecs=run)
     per_step = 2 * int(tp.proj.iters) + 2 if project else 1
     assert int(run) == 2 * 3 * 4 * per_step
+
+
+@pytest.mark.parametrize("site", ["caltech", "jpl"])
+def test_ev_segment_ref_admm_matches_jax(site):
+    """ev_segment's plain version with the ADMM operator == the JAX Pallas
+    kernel's ADMM branch (fused_rollout in interpret mode) on the same
+    days and actions, as tests/test_ops_pallas.py:64-103 holds that kernel
+    (12 iterations, 128 envs, 12 steps, rtol 2e-4 / atol 2e-5)."""
+    jenv, jp = jev.make_env(site=site, proj_method="admm", proj_iters=12)
+    tenv, tp = tev.make_env(site=site, proj_method="admm", proj_iters=12,
+                            device="cpu")
+    n, batch, steps = tp.n_stations, 128, 12
+    key = jax.random.PRNGKey(3)
+    rng = np.random.default_rng(8)
+    actions = rng.uniform(0, 1, (steps, batch, n)).astype(np.float32)
+    fused = jenv.fused_rollout(jp, key, batch, steps,
+                               actions=jnp.asarray(actions), w=128,
+                               interpret=True)
+    days = _jax_days(key, jp, batch)
+    out = tenv.fused_rollout(tp, batch, steps, days=torch.tensor(days),
+                             actions=torch.from_numpy(actions))
+    tol = dict(rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(out.reward.numpy(), np.asarray(fused.reward),
+                               **tol)
+    for k in ("profit", "carbon_cost", "excess_charge"):
+        np.testing.assert_allclose(out.info[k].numpy(),
+                                   np.asarray(fused.info[k]), **tol,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("site", ["caltech", "jpl"])
+def test_ev_segment_ref_admm_counts_every_matvec(site):
+    """With the ADMM operator the plain version counts C x at the start
+    and C' y and C x in each of its iterations, and the reward's C p."""
+    tenv, tp = tev.make_env(site=site, proj_method="admm", proj_iters=5,
+                            device="cpu")
+    run = torch.zeros((), dtype=torch.long)
+    K.ev_segment(tp, torch.tensor([1, 2]), 3, seed=4, matvecs=run)
+    assert int(run) == 2 * 3 * (1 + 2 * 5 + 1)

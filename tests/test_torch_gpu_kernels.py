@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels of sustaingym_tpu_torch.ops.cuda
-(ev_rollout, building_rollout, exog_gather, cogen_rollout, dc_rollout,
-lp_solve) against their plain PyTorch versions on the card, at a small
-size. Marked ``gpu``; each test skips when no CUDA device is present. On a
-card:
+(ev_rollout with both projection operators, building_rollout,
+exog_gather, cogen_rollout, dc_rollout, lp_solve) against their plain
+PyTorch versions on the card, at a small size, and the captured trainers
+and evaluation against their eager runs. Marked ``gpu``; each test skips
+when no CUDA device is present. On a card:
 
     python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu
 """
@@ -84,6 +85,38 @@ def test_ev_segment_kernel_matches_plain(cuda, site, project, batch):
         assert 2 * steps < int(run) <= steps * (2 * int(p.proj.iters) + 2)
     else:
         assert int(run) == steps
+
+
+@pytest.mark.parametrize("site,batch", [("caltech", 64), ("jpl", 37)])
+def test_ev_segment_admm_kernel_matches_plain(cuda, site, batch):
+    """The ADMM branch (30 iterations, K' in shared memory) against its
+    plain version with the JAX ADMM kernel test's bounds, on prescribed
+    actions, in RNG mode and on near-full rates; it runs every iteration:
+    C x first, C' y (unless y is 0) and C x in each, the reward's C p."""
+    env, p = make("evcharging", site=site, proj_method="admm", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    days = torch.randint(p.n_days, (batch,), generator=g, device=cuda)
+    T, iters = 288, int(p.proj.iters)
+    for acts in (torch.rand((T, batch, p.n_stations), generator=g,
+                            device=cuda),
+                 0.8 + 0.2 * torch.rand((T, batch, p.n_stations),
+                                        generator=g, device=cuda)):
+        before = K.ev_segment.launches
+        run = torch.zeros((), dtype=torch.long, device=cuda)
+        ko, _ = K.ev_segment(p, days, T, actions=acts, matvecs=run)
+        torch.cuda.synchronize()
+        assert K.ev_segment.launches == before + 1
+        ro, _ = K.ev_segment_ref(p, days, T, actions=acts)
+        torch.testing.assert_close(ko[:12], ro[:12], rtol=2e-4, atol=2e-5)
+        d = (ko[..., 0] - ro[..., 0]).abs().cpu().numpy()
+        assert np.quantile(d, 0.99) < 1e-4 and d.mean() < 1e-4
+        full = batch * T * (2 * iters + 2)
+        assert batch * T * (iters + 2) <= int(run) <= full
+    ko, a = K.ev_segment(p, days, T, seed=5, record_actions=True)
+    ro, _ = K.ev_segment_ref(p, days, T, actions=a)
+    torch.testing.assert_close(ko[:12], ro[:12], rtol=2e-4, atol=2e-5)
+    roll = env.fused_rollout(p, batch, T, days=days, actions=a)
+    torch.testing.assert_close(roll.reward, ko[..., 0], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("site,project", [("caltech", True), ("jpl", False)])
@@ -533,13 +566,17 @@ def test_building_fused_paths_on_card(cuda, tmp_path):
     ("cogen", {}, dict(reward_scale=1e-4)),
     ("electricitymarket", {}, {}),
     ("electricitymarket", {"discrete": True}, dict(algo="a2c")),
+    ("evcharging", {"proj_method": "admm"}, {}),
+    ("evcharging", {}, dict(rollout_len=64)),
 ])
 def test_captured_train_step_matches_eager(cuda, name, kwargs, cfg_kwargs):
-    """One train step as CUDA graphs (the fused EV rollout's scoring and
-    update; cogen's and the market's episode loop too, the market's with
-    its pdhg_solve_paired launches) against the same step eager, from the
-    same carry and generator state: parameters, metrics and the
-    generator's state bit-equal."""
+    """Two train steps as CUDA graphs (the fused EV rollout's scoring and
+    update; the episode loop of cogen, the market (with its
+    pdhg_solve_paired launches) and EV with float32 obs too; the generic
+    rollout's steps, its envs carried from the first step into the
+    second) against the same steps eager, from the same carry and
+    generator state: parameters, metrics and the generator's state
+    bit-equal."""
     from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
     env, p = make(name, device=cuda, **kwargs)
     cfg = PPOConfig(num_envs=64, hidden=64, minibatches=4, epochs=2,
@@ -556,6 +593,8 @@ def test_captured_train_step_matches_eager(cuda, name, kwargs, cfg_kwargs):
                      {k: float(v) for k, v in metrics.items()},
                      gen.get_state()))
         assert (step.graphs is not None) == capture
+        assert step.path == ("generic" if "rollout_len" in cfg_kwargs
+                             else "fused" if cfg.obs_bf16 else "episodic")
     (pc, mc, gc), (pe, me, ge) = runs
     assert mc == me
     assert all(torch.equal(a, b) for a, b in zip(pc, pe))
@@ -735,3 +774,72 @@ def test_captured_trainer_reinit_drops_its_graphs(cuda):
     (pa, ma), (pb, mb) = runs
     assert ma == mb
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+def test_evaluation_graph_sees_updated_weights(cuda):
+    """train.make_evaluator keeps one Graphs: the second evaluation
+    replays the first's captured episode loop, and that graph reads the
+    policy's weights in place: after an update it gives what an eager
+    evaluation of the updated policy gives (bit-equal), not the old
+    return."""
+    from sustaingym_tpu_torch import train
+    from sustaingym_tpu_torch.core import batch_rollout
+    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    env, p = make("evcharging", device=cuda)
+    cfg = PPOConfig(num_envs=64, hidden=32, minibatches=4, epochs=1,
+                    rollout_len=32, lr=3e-3)
+    init_state, step = make_train_step(env, p, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    carry = init_state(gen)
+    evaluate = train.make_evaluator(env, p, step, episodes=8, seed=0)
+    first = evaluate(carry["policy"], 1)
+    assert evaluate(carry["policy"], 1) == first
+    carry, _ = step(carry, gen)
+    with torch.no_grad():
+        carry["policy"].mu.bias.add_(0.5)
+    after = evaluate(carry["policy"], 1)
+    assert evaluate.graphs.captures == 1
+    assert after["mean_return"] != first["mean_return"]
+    eager = batch_rollout(
+        env, p, lambda w, obs, g: step.actor(w, obs), carry["policy"],
+        torch.Generator(device=cuda).manual_seed(500_001), 8,
+        env.episode_steps(p))
+    assert after["mean_return"] == float(eager.reward.sum(0).mean())
+
+
+@pytest.mark.parametrize("name", ["cogen", "datacenter", "electricitymarket",
+                                  "building"])
+def test_generic_rollout_captured_on_every_env(cuda, tmp_path, name):
+    """The generic rollout (a length other than the episode's) of every
+    other env is captured too: its step and whole-batch reset copy no host
+    data (the market's per-env solve budgets run to their bound under
+    capture). Two train steps crossing an episode end, captured against
+    eager: bit-equal parameters, metrics and generator state."""
+    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    if name == "building":
+        env, p = _building(cuda, tmp_path)
+    else:
+        env, p = make(name, device=cuda)
+    T = env.episode_steps(p) // 2 + 5
+    cfg = PPOConfig(num_envs=32, hidden=32, minibatches=4, epochs=1,
+                    rollout_len=T,
+                    reward_scale=1e-4 if name == "cogen" else 1.0)
+    runs = []
+    for capture in (True, False):
+        init_state, step = make_train_step(env, p, cfg, capture=capture)
+        assert step.path == "generic"
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        carry = init_state(gen)
+        done = 0.0
+        for _ in range(2):
+            carry, metrics = step(carry, gen)
+            done += float(metrics["episode_done_frac"])
+        assert done > 0
+        runs.append(([w.detach().clone()
+                      for w in carry["policy"].parameters()],
+                     {k: float(v) for k, v in metrics.items()},
+                     gen.get_state()))
+    (pc, mc, gc), (pe, me, ge) = runs
+    assert mc == me
+    assert all(torch.equal(a, b) for a, b in zip(pc, pe))
+    assert torch.equal(gc, ge)

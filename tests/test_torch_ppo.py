@@ -329,10 +329,9 @@ def test_train_step_lr0_exact_ratio():
 
 
 def test_make_train_step_rejects_unported_paths(tmp_path):
-    """Only whole-episode rollouts are ported, through an env's
-    fused_policy_unroll (bf16 obs) or its lockstep batch_unroll: a generic
-    env, EV with float32 obs and a partial-episode rollout length are
-    refused."""
+    """An env without a batched step (and no batch_unroll or fused
+    rollout) is refused; EV with float32 obs trains on the episodic path
+    (its batch_unroll), and at --rollout-len 64 on the generic path."""
     from sustaingym_tpu_torch import train
     env, params = make("evcharging", site="caltech", project_action=False,
                        device="cpu")
@@ -341,13 +340,17 @@ def test_make_train_step_rejects_unported_paths(tmp_path):
         def episode_steps(self, params):
             return env.episode_steps(params)
 
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="step"):
         make_train_step(GenericEnv(), params, PPOConfig())
-    with pytest.raises(ValueError, match="batch_unroll"):
-        make_train_step(env, params, PPOConfig(obs_bf16=False))
-    with pytest.raises(SystemExit):
-        train.main(["--device", "cpu", "--rollout-len", "64",
-                    "--log-dir", str(tmp_path)])
+    _, step = make_train_step(env, params, PPOConfig(obs_bf16=False))
+    assert step.path == "episodic" and step.rollout_len == 288
+    _, step = make_train_step(env, params, PPOConfig(rollout_len=64))
+    assert step.path == "generic" and step.rollout_len == 64
+    train.main(["--device", "cpu", "--rollout-len", "64", "--num-envs",
+                "8", "--hidden", "16", "--minibatches", "2", "--epochs",
+                "1", "--iterations", "1", "--log-dir", str(tmp_path),
+                "--env-kwargs", '{"project_action": false}'])
+    assert (tmp_path / "train_results.csv").exists()
 
 
 def test_package_imports_no_jax():
@@ -360,7 +363,8 @@ def test_package_imports_no_jax():
             "sustaingym_tpu_torch.envs.building, "
             "sustaingym_tpu_torch.envs.building.synthetic, "
             "sustaingym_tpu_torch.core.rollout, "
-            "sustaingym_tpu_torch.core.graph, sustaingym_tpu_torch.bench; "
+            "sustaingym_tpu_torch.core.graph, sustaingym_tpu_torch.bench, "
+            "sustaingym_tpu_torch.data.ev_gmm; "
             "sustaingym_tpu_torch.make('evcharging', device='cpu'); "
             "sustaingym_tpu_torch.make('cogen', device='cpu'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
@@ -418,3 +422,133 @@ def test_entry_points_default_to_the_card(name, tmp_path):
         from_jax(_jax_policy())
     with pytest.raises(SystemExit):
         train.main(["--env", name, "--obs-bf16", "--log-dir", str(tmp_path)])
+
+
+def _generic(rollout_len=16, num_envs=8, **kw):
+    """An EV trainer on the generic rollout (float32 obs, projection on)."""
+    env, params = make("evcharging", site="caltech", device="cpu")
+    cfg = PPOConfig(num_envs=num_envs, hidden=16, minibatches=2, epochs=1,
+                    rollout_len=rollout_len, **kw)
+    init_state, train_step = make_train_step(env, params, cfg)
+    assert train_step.path == "generic"
+    return env, params, cfg, init_state, train_step
+
+
+def test_generic_gae_bootstraps_from_the_last_obs():
+    """The generic rollout's re-scoring: GAE over a rollout that crosses an
+    episode end (the envs' clocks set to 280 of 288) and bootstraps from
+    the value of the obs after its last step, against the JAX package's
+    GAE scan on the values of its policy_apply (rtol 1e-5 / atol 1e-5)."""
+    _, _, cfg, init_state, train_step = _generic(rollout_len=16)
+    gen = torch.Generator().manual_seed(0)
+    carry = init_state(gen)
+    carry["env_states"].t.fill_(280)
+    out = train_step.rollout(carry["policy"], gen, carry)
+    done = out["done"].numpy()
+    assert done[7].all() and done.sum() == done.shape[1]
+    assert int(carry["env_states"].t[0]) == 8
+    flat = train_step.score(carry["policy"], out)
+    tree = tppo_convert_to_jax(carry["policy"])
+    _, _, value = jppo.policy_apply(tree, jnp.asarray(out["obs"].numpy()))
+    _, _, last = jppo.policy_apply(tree, jnp.asarray(out["last_obs"].numpy()))
+    assert float(jnp.abs(last).max()) > 0
+    adv, ret = _jax_gae(cfg, value, jnp.asarray(out["reward"].numpy()),
+                        jnp.asarray(done), last)
+    np.testing.assert_allclose(flat["adv"].numpy(), np.asarray(adv).ravel(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(flat["ret"].numpy(), np.asarray(ret).ravel(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def tppo_convert_to_jax(policy):
+    return jax.tree.map(jnp.asarray, to_jax(policy))
+
+
+def test_generic_lr0_exact_ratio():
+    """lr=0 at rollout_len 64: every ratio is exactly 1 on the generic
+    path (float32 obs, projection on), the weights do not move."""
+    _, _, _, init_state, train_step = _generic(rollout_len=64, lr=0.0)
+    gen = torch.Generator().manual_seed(1)
+    carry = init_state(gen)
+    w0 = carry["policy"].trunk1.weight.detach().clone()
+    carry, metrics = train_step(carry, gen)
+    m = {k: float(v) for k, v in metrics.items()}
+    assert abs(m["pg_loss"]) < 1e-5, m
+    assert np.isfinite(m["vf_loss"]) and m["episode_done_frac"] == 0.0
+    assert torch.equal(carry["policy"].trunk1.weight, w0)
+
+
+def test_generic_carry_crosses_train_steps():
+    """The envs' states and obs carry from one train step to the next:
+    after 5 x 64 steps every env has ended one episode and stands at
+    t = 320 - 288 = 32; its obs is the carried one."""
+    env, params, _, init_state, train_step = _generic(rollout_len=64)
+    gen = torch.Generator().manual_seed(2)
+    carry = init_state(gen)
+    done = []
+    for _ in range(5):
+        carry, metrics = train_step(carry, gen)
+        done.append(float(metrics["episode_done_frac"]))
+    assert (carry["env_states"].t == 32).all()
+    assert done == [0.0, 0.0, 0.0, 0.0, pytest.approx(1.0 / 64)]
+    np.testing.assert_allclose(carry["obs"]["timestep"].numpy(), 32 / 288)
+
+
+def test_generic_checkpoint_round_trips_the_env_carry(tmp_path):
+    """train.save_checkpoint / restore_checkpoint keep the generic
+    rollout's env states and obs: a fresh trainer restored after one step
+    takes the same second step as the trainer that ran on."""
+    from sustaingym_tpu_torch import train
+    _, _, _, init_state, train_step = _generic(rollout_len=20)
+    gen = torch.Generator().manual_seed(3)
+    carry = init_state(gen)
+    carry, _ = train_step(carry, gen)
+    train.save_checkpoint(str(tmp_path), carry, gen, 1)
+    carry, m1 = train_step(carry, gen)
+    _, _, _, init2, step2 = _generic(rollout_len=20)
+    gen2 = torch.Generator().manual_seed(99)
+    carry2 = init2(gen2)
+    assert train.restore_checkpoint(str(tmp_path), carry2, gen2) == 1
+    assert int(carry2["env_states"].t[0]) == 20
+    carry2, m2 = step2(carry2, gen2)
+    assert {k: float(v) for k, v in m1.items()} == {
+        k: float(v) for k, v in m2.items()}
+    for a, b in zip(carry["policy"].parameters(),
+                    carry2["policy"].parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(carry["env_states"].demand,
+                       carry2["env_states"].demand)
+
+
+def test_train_cli_eval_callback(tmp_path):
+    """--rollout-len 64 with --eval-every (tests/test_train_cli.py's eval
+    test): eval_results.csv holds the mean return and the float info
+    fields, best_model holds the best; a resumed run reads its best from
+    the CSV; a CSV with another header is refused."""
+    from sustaingym_tpu_torch import train
+    log = tmp_path / "run"
+    args = ["--env", "evcharging", "--device", "cpu", "--num-envs", "8",
+            "--rollout-len", "64", "--hidden", "16", "--minibatches", "2",
+            "--epochs", "1", "--eval-every", "2", "--eval-episodes", "2",
+            "--iterations", "2", "--save-every", "100", "--log-dir",
+            str(log)]
+    train.main(args)
+    rows = (log / "eval_results.csv").read_text().splitlines()
+    header = rows[0].split(",")
+    assert len(rows) == 2 and header[:2] == ["iteration", "mean_return"]
+    assert {"profit", "carbon_cost", "excess_charge",
+            "max_profit"} <= set(header) and "num_evs" not in header
+    assert np.isfinite(float(rows[1].split(",")[1]))
+    assert os.listdir(log / "best_model") == ["step_2.pt"]
+    assert train.read_best(str(log / "eval_results.csv")) == float(
+        rows[1].split(",")[1])
+    train.main(args + ["--restore", str(log / "checkpoints")])
+    rows = (log / "eval_results.csv").read_text().splitlines()
+    assert len(rows) == 3 and rows[2].split(",")[0] == "4"
+    best = max(float(r.split(",")[1]) for r in rows[1:])
+    assert train.read_best(str(log / "eval_results.csv")) == best
+    (tmp_path / "other").mkdir()
+    (tmp_path / "other" / "eval_results.csv").write_text(
+        "iteration,mean_return,comfort_level\n1,0.5,0.1\n")
+    with pytest.raises(SystemExit, match="columns"):
+        train.main(args[:-1] + [str(tmp_path / "other")])
