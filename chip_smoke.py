@@ -165,6 +165,28 @@ Slice 5, EV's lockstep and generic training paths:
     "--iterations", "2", ...])`` into a temporary directory, then its
     ``eval_results.csv`` (two finite rows) and ``best_model``.
 
+Slice 6, the multi-agent views and their PPO paths (no kernel on this
+path: the views step through the PyTorch step functions; every launch
+count is set to 0 before phase 23 and printed after phase 27). Each
+trainer takes two captured train steps (agent-steps/s printed), its lr=0
+step and one step captured against eager under ``CAPTURE_GATE``; the
+MA-EV trainers take both at their own 512 envs (``check_captured`` at
+1024 would hold a (288, 1024, 54, 146) obs block and its float32
+activations):
+
+23. MA-EV on the uniform-obs path (bench ``MA EV``: caltech, 54 station
+    agents, 512 x 288, 36 minibatches, bf16 obs, projection off,
+    ``periods_delay`` 0);
+24. MA-EV with ``periods_delay`` 2 (bench ``MA EV delay2``: the agent axis
+    as batch, episodic through the view's ``batch_unroll``);
+25. MA cogen with per-agent stacked policies (bench ``MA cogen``: 4096 x
+    96, 24 minibatches; lr=0 and the captured check at 1024 envs);
+26. MA building at 1024 envs x 288 on the synthetic tables (the agent
+    axis as batch, the generic path), 36 minibatches;
+27. discrete MA-EV (``discrete_bins`` 5: the categorical head over (54,
+    5) logits, the generic path), 512 envs, ``rollout_len`` 64, 16
+    minibatches.
+
 ``python3 chip_smoke.py --profile`` adds, for each trainer captured and
 the same trainer eager (``capture=False``, the before): its phases
 (rollout, re-scoring + GAE, minibatch updates) on the host clock with
@@ -207,6 +229,9 @@ COGEN_STEPS, COGEN_CHECK = 96, 4096
 DC_STEPS, DC_CHECK = 672, 4096
 MKT_STEPS = 288
 BLD_CHECK = 4096
+# device_ms' traces of one measurement, the first that holds at least half
+# of the launches counting
+TRACES = 3
 # NVIDIA H100 SXM peaks (data sheet, dense, 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -252,34 +277,38 @@ def device_ms(fn, kernel: str, reps: int) -> float:
     ``kernel``, launched once per call of ``fn``, from ``torch.profiler``
     over ``reps`` calls after one warm-up call: the kernel alone, without
     the host time of its wrapper's checks. The trace can lose launches (it
-    did on an H100, late in a process that had traced before); a launch it
-    records carries its whole device time, so the mean is over the
-    launches the trace holds, which must be at least half of them."""
+    did on an H100, late in a process that had traced before); a launch
+    it records carries its whole device time,
+    so the mean is over the launches the trace holds, which must be at
+    least half of them. A trace that lost more is thrown away and the
+    launches traced again, up to ``TRACES`` traces; each loss is
+    printed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # the trace drops device events outside its window on the host's
-        # clock, to which the device's is aligned only roughly, and later
-        # in a long process the two drift apart: keep the window open well
-        # before and after the launches
-        time.sleep(0.2)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.2)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in events)
-    if count != reps:
-        print(f"device_ms: the trace holds {count} of {reps} launches of "
-              f"{kernel}", flush=True)
-    if 2 * count < reps:
-        fail(f"the profiler lost most launches of {kernel}")
-    return sum(_dev_us(e) for e in events) / count / 1e3
+    for _ in range(TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # the trace drops device events outside its window on the
+            # host's clock, to which the device's is aligned only roughly,
+            # and later in a long process the two drift apart: keep the
+            # window open well before and after the launches
+            time.sleep(0.2)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in events)
+        if count != reps:
+            print(f"device_ms: the trace holds {count} of {reps} launches "
+                  f"of {kernel}", flush=True)
+        if 2 * count >= reps:
+            return sum(_dev_us(e) for e in events) / count / 1e3
+    fail(f"the profiler lost most launches of {kernel} in {TRACES} traces")
 
 
 def _dev_us(e) -> float:
@@ -491,9 +520,10 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
                 steps: int = 2):
     """``steps`` captured PPO train steps at ``cfg`` (host clock,
     synchronised around each; the first holds the graphs' warm-ups and
-    captures, printed apart), the trainer's peak device memory, then the
+    captures, printed apart; a multi-agent view's trainer also in
+    agent-steps/s), the trainer's peak device memory, then the
     lr=0 exact-ratio check at ``cfg0`` through the captured path
-    (|pg_loss| < 1e-5); then frees both trainers."""
+    (|pg_loss| < 1e-5), each trainer freed before the next is made."""
     import torch
     from sustaingym_tpu_torch.parallel import make_train_step
     free_cuda()
@@ -502,6 +532,7 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
     tgen = torch.Generator(device=p.device).manual_seed(seed)
     carry = init_state(tgen)
     env_steps = cfg.num_envs * train_step.rollout_len
+    agents = train_step.n_agents
     graphs = train_step.graphs
     for i in range(steps):
         torch.cuda.synchronize()
@@ -515,12 +546,17 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
         held = (f" (of which {graphs.captures} graphs' warm-up "
                 f"{graphs.warmup_s:.3f} s, capture + instantiate "
                 f"{graphs.capture_s:.3f} s)" if i == 0 else "")
+        per_agent = (f" = {env_steps * agents / dt:.0f} agent-steps/s "
+                     f"({agents} agents)" if agents > 1 else "")
         print(f"{label} train step {i}: {dt:.3f} s{held} = "
-              f"{env_steps / dt:.0f} env-steps/s; {json.dumps(m)} {tag}",
-              flush=True)
+              f"{env_steps / dt:.0f} env-steps/s{per_agent}; "
+              f"{json.dumps(m)} {tag}", flush=True)
     print(f"{label} trainer: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {tag}",
           flush=True)
+    # the trainer's graphs and pool go before the lr=0 trainer's come
+    del init_state, train_step, carry, graphs
+    free_cuda()
     init0, step0 = make_train_step(env, p, cfg0)
     _, m0 = step0(init0(tgen), tgen)
     pg0 = float(m0["pg_loss"])
@@ -528,15 +564,15 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
           f"pg_loss {pg0:.3e} {tag}", flush=True)
     if not abs(pg0) < 1e-5:
         fail(f"{label} lr=0 exact-ratio invariant broken: pg_loss {pg0}")
-    del train_step, carry, step0
+    del init0, step0
     free_cuda()
 
 
 def check_captured(label: str, env, p, cfg, seed: int, tag: str,
-                   steps: int = 1):
+                   steps: int = 1, batch: int = CHECK_BATCH):
     """``steps`` train steps captured against the same steps eager
     (``capture=False``) from the same initial carry and generator state,
-    at ``CHECK_BATCH`` envs with the main path's minibatch rows: the
+    at ``batch`` envs with the main path's minibatch rows: the
     largest differences of the parameters and metrics, and whether the
     generators end in the same state. Gate: bit-equal parameters,
     metrics and generator state (CAPTURE_GATE)."""
@@ -545,8 +581,8 @@ def check_captured(label: str, env, p, cfg, seed: int, tag: str,
     import torch
     from sustaingym_tpu_torch.parallel import make_train_step
     small = dataclasses.replace(
-        cfg, num_envs=CHECK_BATCH,
-        minibatches=max(1, cfg.minibatches * CHECK_BATCH // cfg.num_envs))
+        cfg, num_envs=batch,
+        minibatches=max(1, cfg.minibatches * batch // cfg.num_envs))
     runs = {}
     for capture in (True, False):
         free_cuda()
@@ -566,7 +602,7 @@ def check_captured(label: str, env, p, cfg, seed: int, tag: str,
     equal = (all(torch.equal(a, b) for a, b in zip(pc, pe)) and mc == me
              and torch.equal(gc, ge))
     print(f"{label} captured vs eager, {steps} train step(s) at "
-          f"{CHECK_BATCH} envs "
+          f"{batch} envs "
           f"({small.minibatches} minibatches x {small.epochs} epochs): "
           f"params max|d| {d_param:.3e}; metrics |d| {d_metric}; generator "
           f"states equal {torch.equal(gc, ge)}; bit-equal {equal} "
@@ -577,11 +613,12 @@ def check_captured(label: str, env, p, cfg, seed: int, tag: str,
 
 
 def finish_trainer(label: str, env, p, cfg, seed: int, tag: str,
-                   want_profile: bool, steps: int = 1):
+                   want_profile: bool, steps: int = 1,
+                   batch: int = CHECK_BATCH):
     """After a trainer's launches are read: its captured-vs-eager check
-    over ``steps`` train steps and, with ``--profile``, its place in
-    ``profile_trainers``' queue."""
-    check_captured(label, env, p, cfg, seed, tag, steps)
+    over ``steps`` train steps at ``batch`` envs and, with ``--profile``,
+    its place in ``profile_trainers``' queue."""
+    check_captured(label, env, p, cfg, seed, tag, steps, batch)
     if want_profile:
         PROFILE_JOBS.append((label, env, p, cfg, seed))
 
@@ -1604,6 +1641,63 @@ def ev_lockstep_slice(tag: str, want_profile: bool) -> dict:
             "bound_by": admm_bound[1], "library_ms": library_ms}
 
 
+# phases 26-27's trainers, beside the bench's three multi-agent lines:
+# label -> (env, make kwargs, PPOConfig kwargs besides HIDDEN and EPOCHS)
+MA_CHECKS = {
+    "MA building": ("building-multiagent", {},
+                    dict(num_envs=1024, minibatches=36)),
+    "MA EV discrete": ("evcharging-multiagent",
+                       {"project_action": False, "discrete_bins": 5},
+                       dict(num_envs=512, rollout_len=64, minibatches=16)),
+}
+
+
+def ma_slice(tag: str, want_profile: bool):
+    """Phases 23-27 (module docstring): each multi-agent trainer's captured
+    steps, lr=0 step and captured-vs-eager check; the kernels' launch
+    counts over the slice (none of them is on its path)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from sustaingym_tpu_torch.bench import (EPOCHS, HIDDEN, TRAINERS,
+                                            make_env)
+    from sustaingym_tpu_torch.core.graph import counted_wrappers
+    from sustaingym_tpu_torch.parallel import PPOConfig
+
+    dev = torch.device("cuda")
+    jobs = []
+    for label in ("MA EV", "MA EV delay2", "MA cogen"):
+        cfg, cfg0 = trainer_configs(label)
+        jobs.append((label, TRAINERS[label][1], TRAINERS[label][2], cfg,
+                     cfg0))
+    for label, (name, kw, cfg_kw) in MA_CHECKS.items():
+        cfg = PPOConfig(hidden=HIDDEN, epochs=EPOCHS, **cfg_kw)
+        jobs.append((label, name, kw, cfg, dataclasses.replace(
+            cfg, num_envs=min(CHECK_BATCH, cfg.num_envs), minibatches=4,
+            epochs=1, lr=0.0)))
+    tables = tempfile.mkdtemp(prefix="chip_smoke_ma_tables_")
+    for w in counted_wrappers():
+        w.launches = 0
+    try:
+        for seed, (label, name, kw, cfg, cfg0) in enumerate(jobs, 30):
+            env, p = make_env(name, dev, tables, **kw)
+            # MA-EV: the lr=0 step and the check at the trainer's own 512
+            # envs (module docstring)
+            batch = min(CHECK_BATCH, cfg.num_envs)
+            cfg0 = dataclasses.replace(cfg0, num_envs=batch)
+            run_trainer(label, env, p, cfg, cfg0, seed, tag)
+            finish_trainer(label, env, p, cfg, seed, tag, want_profile,
+                           batch=batch)
+    finally:
+        shutil.rmtree(tables)
+    launches = {w.__name__: w.launches for w in counted_wrappers()}
+    print(f"multi-agent slice: kernel launches {launches} (no kernel on "
+          f"this slice's path) {tag}", flush=True)
+    free_cuda()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1844,6 +1938,7 @@ def main() -> int:
         **kernels[2], "name": "hbm_slice_gather",
         "replaces": "sustaingym_tpu/ops/pallas/exog_gather.py:210"})
     kernels.append(ev_lockstep_slice(tag, want_profile))
+    ma_slice(tag, want_profile)
     profile_trainers(tag)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """SustainGym on PyTorch + CUDA: the EV-charging, building, cogeneration,
-datacenter and electricity-market paths of ``sustaingym_tpu`` ported to
-PyTorch, with their TPU kernels written by hand for Hopper
-(``ops/cuda/csrc/``): the EV and building episode kernels with and without
+datacenter and electricity-market paths of ``sustaingym_tpu`` and their
+multi-agent views ported to PyTorch, with their TPU kernels written by
+hand for Hopper (``ops/cuda/csrc/``): the EV and building episode kernels with and without
 the PPO actor inside, the episode slice-gather, the cogen and datacenter
 episode kernels and the whole-solve PDHG kernel of the market's SCED
 clearing.
@@ -41,10 +41,12 @@ def register(name: str, factory) -> None:
 
 def make(name: str, **kwargs):
     """Creates (env, params) for a registered environment. Registered
-    names: 'evcharging', 'building', 'cogen', 'datacenter' and
-    'electricitymarket'. ``kwargs`` go to the env's ``make_env``
-    (``building`` reads the raw ASHRAE HTM and TMY3 EPW tables; see
-    ``envs/building``)."""
+    names: 'evcharging', 'building', 'cogen', 'datacenter',
+    'electricitymarket', and the multi-agent views 'evcharging-multiagent'
+    (``periods_delay``, ``discrete_bins``), 'building-multiagent' and
+    'cogen-multiagent' (``envs/multiagent.py``). ``kwargs`` go to the env's
+    ``make_env`` (``building`` reads the raw ASHRAE HTM and TMY3 EPW
+    tables; see ``envs/building``)."""
     if not _REGISTRY:
         _populate_registry()
     if name not in _REGISTRY:
@@ -60,3 +62,19 @@ def _populate_registry() -> None:
     register("cogen", cogen.make_env)
     register("datacenter", datacenter.make_env)
     register("electricitymarket", electricitymarket.make_env)
+    from .envs import multiagent as ma
+
+    def _ma_ev(**kw):
+        return ma.MultiAgentEVChargingEnv(), ma.make_ma_ev_params(**kw)
+
+    def _ma_building(**kw):
+        _, params = building.make_env(**kw)
+        return ma.MultiAgentBuildingEnv(params), params
+
+    def _ma_cogen(**kw):
+        _, params = cogen.make_env(**kw)
+        return ma.MultiAgentCogenEnv(), params
+
+    register("evcharging-multiagent", _ma_ev)
+    register("building-multiagent", _ma_building)
+    register("cogen-multiagent", _ma_cogen)

@@ -1,8 +1,10 @@
 """Benchmark lines of the PyTorch port: env-steps/s of each trainer and
-each simulation tier on one card.
+each simulation tier on one card (agent-steps/s for a multi-agent view's
+trainer).
 
     python3 sustaingym_tpu_torch/bench.py --env all
     python3 sustaingym_tpu_torch/bench.py --env market
+    python3 sustaingym_tpu_torch/bench.py --env evcharging-multiagent
 
 Prints one JSON line per configuration, in the shape of the JAX package's
 ``bench.py`` lines: ``metric``, ``value``, ``unit``, ``batch``,
@@ -27,7 +29,13 @@ which ``chip_smoke.py`` runs too):
   minibatches, on the tables of
   ``envs/building/synthetic.py``; cogen 8192 x 96, 24 minibatches;
   datacenter 4096 x 672, 84 minibatches; market 4096 x 288, 36
-  minibatches, with Box bids and with ``discrete=True``;
+  minibatches, with Box bids and with ``discrete=True``; the multi-agent
+  views of the JAX bench (``bench.py:525-556``), in agent-steps/s with
+  ``n_agents``: MA-EV (caltech, 54 station agents) 512 x 288, 36
+  minibatches, bf16 obs, projection off, ``periods_delay`` 0 (the
+  uniform-obs path) and 2 (the agent-axis episodic path); MA cogen 4096 x
+  96, 24 minibatches, per-agent stacked policies (reward_scale 1e-4, as
+  the cogen line and the CLI);
 - simulation tiers: EV 32768 x 288, cogen 262144 x 96, datacenter
   262144 x 672, building 524288 x 288 (each env's ``fused_rollout``, the
   episode kernels with in-kernel random actions), market 4096 x 288
@@ -78,11 +86,24 @@ TRAINERS = {
         "ppo_electricitymarket_discrete_train_env_steps_per_s_per_chip",
         "electricitymarket", {"discrete": True},
         dict(num_envs=4096, minibatches=36)),
+    "MA EV": ("ppo_ma_evcharging_train_agent_steps_per_s_per_chip",
+              "evcharging-multiagent",
+              {"project_action": False, "periods_delay": 0},
+              dict(num_envs=512, minibatches=36, obs_bf16=True)),
+    "MA EV delay2": (
+        "ppo_ma_evcharging_delay2_train_agent_steps_per_s_per_chip",
+        "evcharging-multiagent",
+        {"project_action": False, "periods_delay": 2},
+        dict(num_envs=512, minibatches=36, obs_bf16=True)),
+    "MA cogen": ("ppo_ma_cogen_train_agent_steps_per_s_per_chip",
+                 "cogen-multiagent", {},
+                 dict(num_envs=4096, minibatches=24, reward_scale=1e-4)),
 }
 # simulation tiers: env -> batch
 SIM_TIERS = {"evcharging": 32768, "cogen": 262144, "datacenter": 262144,
              "building": 524288, "electricitymarket": 4096}
 ENVS = tuple(SIM_TIERS)
+MA_ENVS = ("evcharging-multiagent", "cogen-multiagent")
 REPEATS = 3
 
 
@@ -130,22 +151,23 @@ def free():
 
 
 def make_env(name: str, device, tables: str | None, **kwargs):
-    """``make(name)``, the building on the tables written into
-    ``tables``."""
+    """``make(name)``, the building (and its multi-agent view) on the
+    tables written into ``tables``."""
     from sustaingym_tpu_torch import make
-    if name != "building":
+    if name not in ("building", "building-multiagent"):
         return make(name, device=device, **kwargs)
     from sustaingym_tpu_torch.envs import building
     from sustaingym_tpu_torch.envs.building.synthetic import (
         write_building_tables)
     htm, epw = write_building_tables(tables)
-    return building.make_env(htm, epw, "Tucson", device=device, root=tables,
-                             u_wall=building.BUILDINGS["OfficeSmall"][1],
-                             **kwargs)
+    return make(name, building=htm, weather=epw, location="Tucson",
+                device=device, root=tables,
+                u_wall=building.BUILDINGS["OfficeSmall"][1], **kwargs)
 
 
 def bench_train(label: str, device, tables) -> dict:
-    """Env-steps/s of one PPO train step (rollout, re-scoring + GAE,
+    """Env-steps/s (agent-steps/s for a multi-agent view, with
+    ``n_agents``) of one PPO train step (rollout, re-scoring + GAE,
     minibatch epochs) of trainer ``label`` as CUDA graphs; the generic
     rollout's envs carry over from one timed step to the next."""
     import torch
@@ -156,16 +178,25 @@ def bench_train(label: str, device, tables) -> dict:
     init_state, train_step = make_train_step(env, params, cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     carry = init_state(gen)
-    steps = train_step.rollout_len
+    steps, agents = train_step.rollout_len, train_step.n_agents
     best = best_of(lambda: train_step(carry, gen))
     result = {"metric": metric,
-              "value": round(cfg.num_envs * steps / best, 1),
-              "unit": "env-steps/s", "batch": cfg.num_envs,
-              "rollout_len": steps, "device": card(),
+              "value": round(cfg.num_envs * steps * agents / best, 1),
+              "unit": "agent-steps/s" if agents > 1 else "env-steps/s",
+              "batch": cfg.num_envs, "rollout_len": steps, "device": card(),
               "vs_baseline": None,
               "episodic_rollout": train_step.path != "generic",
               "minibatches": cfg.minibatches,
               "cuda_graphs": train_step.graphs is not None}
+    if agents > 1:
+        result["n_agents"] = agents
+    if train_step.uma:
+        result["uniform_obs"] = True
+    if train_step.per_agent:
+        result["per_agent_policy"] = True
+    for key in ("periods_delay", "project_action"):
+        if key in make_kwargs:
+            result[key] = make_kwargs[key]
     if train_step.path == "fused":
         result["fused_policy_rollout"] = True
     if cfg.obs_bf16:
@@ -211,7 +242,7 @@ def bench_sim(name: str, batch: int, device, tables) -> dict:
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--env", default="all",
-                        choices=("all", "market") + ENVS,
+                        choices=("all", "market") + ENVS + MA_ENVS,
                         help="one env's lines (trainers and simulation "
                              "tier; 'market' = electricitymarket), or all")
     args = parser.parse_args(argv)

@@ -32,8 +32,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["Graphs", "count_launches", "device_const", "device_index",
-           "tree_leaves"]
+__all__ = ["Graphs", "count_launches", "counted_wrappers", "device_const",
+           "device_index", "tree_leaves"]
 
 # the kernel wrappers whose ``launches`` count their kernel's launches
 _COUNTED: list[Callable] = []
@@ -47,6 +47,12 @@ def count_launches(wrapper: Callable) -> Callable:
     wrapper.launches = 0
     _COUNTED.append(wrapper)
     return wrapper
+
+
+def counted_wrappers() -> list[Callable]:
+    """The kernel wrappers registered by :func:`count_launches` (those of
+    the kernel modules imported so far)."""
+    return list(_COUNTED)
 
 
 def tree_leaves(tree: Any) -> list[torch.Tensor]:

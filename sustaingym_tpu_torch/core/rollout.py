@@ -7,6 +7,7 @@ observations; every random draw comes from the caller's
 """
 from __future__ import annotations
 
+import inspect
 from functools import partial
 from typing import Any, Callable
 
@@ -56,7 +57,8 @@ def episode_loop(graphs: Graphs | None, step_loop: partial, *inputs,
     ``step_loop(*inputs)``: called as it is when ``graphs`` is None, else
     one replay of its graph in ``graphs``, captured at the first call with
     the same function, bound arguments (by identity; the graph holds them)
-    and input shapes, drawing from ``generator``. Its slot is the
+    and input shapes, drawing from ``generator`` (a bound method among the
+    arguments by its object and function). Its slot is the
     function, integer arguments and input shapes: other bound objects (a
     new policy) replace the slot's graph. A replay's outputs are
     rewritten by the next one: ``clone`` copies them out, for a caller
@@ -66,11 +68,20 @@ def episode_loop(graphs: Graphs | None, step_loop: partial, *inputs,
     ints = tuple(a for a in step_loop.args if isinstance(a, int))
     slot = ((step_loop.func,) + ints
             + tuple((x.shape, x.dtype) for x in tree_leaves(inputs)))
-    key = slot + tuple(id(a) for a in step_loop.args
+    key = slot + tuple(_ident(a) for a in step_loop.args
                        if not isinstance(a, int))
     out = graphs(key, step_loop, *inputs, slot=slot,
                  generators=() if generator is None else (generator,))
     return tree_map(torch.clone, out) if clone else out
+
+
+def _ident(obj):
+    """What names ``obj`` in a capture's key: its ``id``, or for a bound
+    method, which is a new object at every attribute access, its object's
+    ``id`` and its function."""
+    if inspect.ismethod(obj):
+        return id(obj.__self__), obj.__func__
+    return id(obj)
 
 
 def join_episodes(parts: list[TimeStep]) -> TimeStep:

@@ -269,6 +269,80 @@ def advance(params: EVParams, state: EVState, action: torch.Tensor, row: torch.T
                                "excess_charge": excess_charge}
 
 
+def _set_last(tree, value) -> None:
+    """Writes ``value`` into the last time row of every leaf of ``tree``
+    (a tensor or a dict of tensors, as an obs is)."""
+    if isinstance(tree, torch.Tensor):
+        tree[-1] = value
+    else:
+        for k in tree:
+            _set_last(tree[k], value[k])
+
+
+def lockstep_unroll(params, reset_fn, reset_at_day_fn, step_row_fn, policy,
+                    policy_params, batch: int, num_steps: int,
+                    generator: torch.Generator | None = None, days=None,
+                    graphs=None) -> TimeStep:
+    """The lockstep episode loop behind :meth:`EVChargingEnv.batch_unroll`
+    and the multi-agent view's (``envs/multiagent.py``), as the JAX
+    package's ``_lockstep_ev_unroll`` serves both: the view adds its
+    staleness ring and per-agent obs around the same (day, t) rows.
+
+    ``reset_fn(generator, batch)`` and ``reset_at_day_fn(days)`` reset the
+    batch; ``step_row_fn(params, state, action, row)`` steps it given the
+    rows ``params.step_table[state.day, t]``; obs may be any tree (a dict
+    or a tensor). ``step_row_fn`` names a graph's capture (with
+    ``params``, the policy and the generator): pass a function or a bound
+    method, not a new closure per call. Resets and ``days`` as in
+    :meth:`EVChargingEnv.batch_unroll`;
+    each episode starts eagerly (its reset draws), and its step loop is
+    one replay of a graph in ``graphs`` when given."""
+    L = MAX_TIMESTEP
+    if days is not None:
+        days = torch.as_tensor(days, dtype=torch.long,
+                               device=params.device).reshape(-1, batch)
+
+    def start(ep: int):
+        if days is None:
+            if generator is None:
+                raise ValueError("pass reset `days` or a torch.Generator")
+            return reset_fn(generator, batch)
+        if ep >= days.shape[0]:
+            raise ValueError(f"need reset days for {ep + 1} episodes, "
+                             f"got {days.shape[0]}")
+        return reset_at_day_fn(days[ep])
+
+    state, ts = start(0)
+    obs, parts = ts.obs, []
+    for ep, t0 in enumerate(range(0, num_steps, L)):
+        seg = min(L, num_steps - t0)
+        traj = episode_loop(
+            graphs, partial(_episode_steps, params, step_row_fn, policy,
+                            policy_params, seg, generator),
+            state, obs, generator=generator, clone=t0 + seg < num_steps)
+        if seg == L:
+            state, ts = start(ep + 1)
+            obs = ts.obs
+            _set_last(traj.obs, obs)
+        parts.append(traj)
+    return join_episodes(parts)
+
+
+def _episode_steps(params, step_row_fn, policy, policy_params, seg: int,
+                   generator, state, obs) -> TimeStep:
+    """``seg`` steps of a lockstep episode from its reset ``state`` and
+    ``obs``: the part of :func:`lockstep_unroll` that a CUDA graph
+    captures."""
+    traj = []
+    for t in range(seg):
+        action = policy(policy_params, obs, generator)
+        state, ts = step_row_fn(params, state, action,
+                                params.step_table[state.day, t])
+        obs = ts.obs
+        traj.append(ts)
+    return tree_stack(traj)
+
+
 class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
     name = "evcharging"
 
@@ -339,56 +413,15 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         batch ends an episode at once), or prescribed by ``days``
         ((num_steps // 288 + 1, B)).
 
-        Each episode's step loop (:meth:`_episode_steps`) is one replay of
-        a CUDA graph in ``graphs`` when given
-        (:func:`core.rollout.episode_loop`), which the result then holds
-        until the graph's next replay."""
-        L = MAX_TIMESTEP
-        if days is not None:
-            days = torch.as_tensor(days, dtype=torch.long,
-                                   device=params.device).reshape(-1, batch)
-
-        def start(ep: int):
-            if days is None:
-                if generator is None:
-                    raise ValueError("pass reset `days` or a torch.Generator")
-                return self.reset(params, generator, batch)
-            if ep >= days.shape[0]:
-                raise ValueError(f"need reset days for {ep + 1} episodes, "
-                                 f"got {days.shape[0]}")
-            return self.reset_at_day(params, days[ep])
-
-        state, ts = start(0)
-        obs, parts = ts.obs, []
-        for ep, t0 in enumerate(range(0, num_steps, L)):
-            seg = min(L, num_steps - t0)
-            traj = episode_loop(
-                graphs, partial(self._episode_steps, params, policy,
-                                policy_params, seg, generator),
-                state, obs, generator=generator,
-                clone=t0 + seg < num_steps)
-            if seg == L:
-                state, ts = start(ep + 1)
-                obs = ts.obs
-                for k, v in obs.items():
-                    traj.obs[k][-1] = v
-            parts.append(traj)
-        return join_episodes(parts)
-
-    def _episode_steps(self, params: EVParams, policy, policy_params,
-                       seg: int, generator, state: EVState, obs
-                       ) -> TimeStep:
-        """``seg`` steps of a lockstep episode from its reset ``state`` and
-        ``obs``: the part of :meth:`batch_unroll` that a CUDA graph
-        captures."""
-        traj = []
-        for t in range(seg):
-            action = policy(policy_params, obs, generator)
-            state, ts = self._step_row(params, state, action,
-                                       params.step_table[state.day, t])
-            obs = ts.obs
-            traj.append(ts)
-        return tree_stack(traj)
+        Each episode's step loop is one replay of a CUDA graph in
+        ``graphs`` when given (:func:`core.rollout.episode_loop`), which
+        the result then holds until the graph's next replay. The loop,
+        :func:`lockstep_unroll`, is shared with the multi-agent view."""
+        return lockstep_unroll(
+            params, partial(self.reset, params),
+            partial(self.reset_at_day, params), self._step_row, policy,
+            policy_params, batch, num_steps, generator=generator, days=days,
+            graphs=graphs)
 
     # ---- whole-episode kernels -------------------------------------------
     @staticmethod

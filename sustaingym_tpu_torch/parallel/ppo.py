@@ -27,6 +27,33 @@ T x B samples. The rollout goes one of three ways, as in the JAX package:
 The first two roll whole episodes from fresh resets and terminate on their
 last step (no bootstrap value).
 
+The multi-agent views (``envs/multiagent.py``, ``env.agent_axis``) train
+one of four ways, as in the JAX package:
+
+- **agent axis as batch** (MA-EV with ``periods_delay`` > 0 on the
+  episodic path through the view's ``batch_unroll``; MA building on the
+  generic path): one shared policy over the (B, n_agents, D) obs as they
+  are, each agent's action width, ``done`` broadcast over the agent axis
+  before GAE, minibatch rows (t, env, agent);
+- **uniform obs** (``uma``: MA-EV with ``periods_delay == 0`` and
+  continuous actions, whose agents all see one obs row): the base env's
+  lockstep rollout, the trunk run once for each (env, t), ``u`` drawn for
+  each agent around the shared ``mu`` ((B, n_agents) noise), the reward /
+  n_agents; rows (t, env) with ``u`` and ``logp`` (rows, n_agents) and the
+  advantage broadcast over the agents. It equals the agent-axis path's
+  step. (The JAX package's gate ignores a caller's ``obs_fn`` /
+  ``act_transform``; :func:`make_train_step` takes neither, and a gate
+  that ever does must refuse them.);
+- **per-agent stacked policies** (``env.per_agent_policy``: MA cogen, on
+  the generic path): one policy per agent, every weight with a leading
+  (n_agents,) axis (:class:`StackedActorCritic`,
+  :func:`per_agent_apply`), the Gaussian log-prob masked by the env's
+  ``action_pad_mask``, the entropy ``sum(mask * terms) / n_agents``, the
+  action squashed into ``padded_action_space``; rows (t, env) carrying
+  the whole agent axis;
+- **discrete** (MA-EV ``discrete_bins``): the categorical head over
+  (n_agents, bins) logits, on the generic path.
+
 Either way, with lr=0 every ratio is exactly 1 (the exact-ratio invariant
 of the JAX package's tests).
 
@@ -38,7 +65,7 @@ CUDA graphs (``core/graph.py``), captured at the first train step and
 replayed after. ``make_train_step(..., capture=False)`` builds the same
 step without graphs, for comparisons.
 
-Not ported yet: the multi-agent and per-agent paths and sharding.
+Not ported yet: sharding (``parallel/mesh.py`` and the dp/mp carry).
 """
 from __future__ import annotations
 
@@ -54,8 +81,9 @@ from ..core import (Discrete, MultiDiscrete, capturable_autoreset_step,
                     dataclass, flatdim, flatten)
 from ..core.graph import Graphs, device_const, tree_leaves
 
-__all__ = ["PPOConfig", "ActorCritic", "init_policy", "policy_apply",
-           "policy_apply_bf16", "default_act_transform", "gae", "loss_fn",
+__all__ = ["PPOConfig", "ActorCritic", "StackedActorCritic", "init_policy",
+           "init_stacked_policy", "policy_apply", "policy_apply_bf16",
+           "per_agent_apply", "default_act_transform", "gae", "loss_fn",
            "clip_by_global_norm", "make_train_step"]
 
 METRICS = ("pg_loss", "vf_loss", "entropy")
@@ -121,6 +149,64 @@ def init_policy(obs_dim: int, act_dim: int, hidden: int,
     return policy
 
 
+class _StackedLinear(nn.Module):
+    """A dense layer for each agent: ``weight`` (n_agents, din, dout), in
+    the JAX tree's orientation, and ``bias`` (n_agents, dout)."""
+
+    def __init__(self, n_agents: int, din: int, dout: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((n_agents, din, dout),
+                                               device=device))
+        self.bias = nn.Parameter(torch.zeros((n_agents, dout),
+                                             device=device))
+
+
+class StackedActorCritic(nn.Module):
+    """One :class:`ActorCritic` per agent, stacked: every weight has a
+    leading (n_agents,) axis (the JAX package's vmapped policy tree)."""
+
+    def __init__(self, n_agents: int, obs_dim: int, act_dim: int,
+                 hidden: int = 256, device=None):
+        super().__init__()
+        self.trunk1 = _StackedLinear(n_agents, obs_dim, hidden, device)
+        self.trunk2 = _StackedLinear(n_agents, hidden, hidden, device)
+        self.mu = _StackedLinear(n_agents, hidden, act_dim, device)
+        self.value = _StackedLinear(n_agents, hidden, 1, device)
+        self.log_std = nn.Parameter(
+            torch.full((n_agents, act_dim), -0.5, device=device))
+
+
+@torch.no_grad()
+def init_stacked_policy(n_agents: int, obs_dim: int, act_dim: int,
+                        hidden: int, generator: torch.Generator,
+                        device=None) -> StackedActorCritic:
+    """:func:`init_policy` for each agent: He-normal weights from
+    ``generator``, zero biases, log_std = -0.5."""
+    policy = StackedActorCritic(n_agents, obs_dim, act_dim, hidden,
+                                device=device)
+    for layer in (policy.trunk1, policy.trunk2, policy.mu, policy.value):
+        din = layer.weight.shape[1]
+        w = torch.randn(tuple(layer.weight.shape), generator=generator,
+                        device=generator.device)
+        layer.weight.copy_(w * math.sqrt(2.0 / din))
+    return policy
+
+
+def per_agent_apply(policy: StackedActorCritic, obs: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """obs (..., n_agents, obs_dim) f32 -> (mu (..., n_agents, act_dim),
+    log_std (n_agents, act_dim), value (..., n_agents)): each agent's
+    slice through its own weights, one batched product a layer."""
+    h = torch.tanh(torch.einsum("...ad,adh->...ah", obs, policy.trunk1.weight)
+                   + policy.trunk1.bias)
+    h = torch.tanh(torch.einsum("...ah,ahk->...ak", h, policy.trunk2.weight)
+                   + policy.trunk2.bias)
+    mu = torch.einsum("...ah,ahm->...am", h, policy.mu.weight) + policy.mu.bias
+    value = (torch.einsum("...ah,ahv->...av", h, policy.value.weight)
+             + policy.value.bias)[..., 0]
+    return mu, policy.log_std, value
+
+
 def policy_apply(policy: ActorCritic, obs: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """obs (..., obs_dim) f32 -> (mu, log_std, value), all f32."""
@@ -151,12 +237,24 @@ def policy_apply_bf16(policy: ActorCritic, obs: torch.Tensor
     return mu, policy.log_std, value
 
 
-def _gauss_logp(mu, log_std, a):
-    """Diagonal-Gaussian log-prob, summed over the last axis."""
+def _gauss_logp(mu, log_std, a, mask=None):
+    """Diagonal-Gaussian log-prob, summed over the last axis; ``mask``
+    (broadcast over the last axis) zeroes padded action components, so they
+    add neither density nor gradient."""
     var = torch.exp(2 * log_std)
     terms = -0.5 * ((a - mu) ** 2 / var + 2 * log_std
                     + math.log(2 * math.pi))
+    if mask is not None:
+        terms = terms * mask
     return torch.sum(terms, -1)
+
+
+def _uma_logp(mu, log_std, u):
+    """The uniform-obs path's per-agent log-prob: ``u`` (..., n_agents)
+    drawn around the shared ``mu`` (..., 1), one action each; the JAX
+    package's formula, not summed over the agents."""
+    return -0.5 * ((u - mu) ** 2 * torch.exp(-2 * log_std) + 2 * log_std
+                   + math.log(2 * math.pi))
 
 
 def _categorical_logp(logits, idx):
@@ -182,10 +280,11 @@ def _sample_categorical(logits, generator):
     return torch.argmax(logits - torch.log(-torch.log(u)), -1)
 
 
-def default_act_transform(env, params):
+def default_act_transform(env, params, space=None):
     """Maps the policy's unbounded output to the env's Box action space by
-    tanh squashing (the kernel bakes in Box(0, 1))."""
-    space = env.action_space(params)
+    tanh squashing (the kernel bakes in Box(0, 1)); ``space`` overrides the
+    env's (the padded per-agent layout)."""
+    space = env.action_space(params) if space is None else space
 
     def fn(u):
         lo = device_const(space.low, u.device)
@@ -214,28 +313,48 @@ def _apply_f32(policy: ActorCritic, obs: torch.Tensor):
     return policy_apply(policy, obs.float())
 
 
+def _apply_stacked_f32(policy: StackedActorCritic, obs: torch.Tensor):
+    """:func:`per_agent_apply` on obs stored as f32 or bf16."""
+    return per_agent_apply(policy, obs.float())
+
+
 def _logits(mu: torch.Tensor, n_bins: int) -> torch.Tensor:
     """The categorical head's (..., act_dim, n_bins) logits."""
     return mu.reshape(mu.shape[:-1] + (-1, n_bins))
 
 
 def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig,
-            apply=policy_apply_bf16, n_bins: int = 0):
+            apply=policy_apply_bf16, n_bins: int = 0, mask=None,
+            uma: bool = False):
     """Clipped-PPO (or, with ``cfg.algo == "a2c"``, A2C) loss on one
     minibatch, scored by ``apply`` (the same function that scored the
     rollout), with a Gaussian head or, for ``n_bins`` > 0, a categorical
-    one; returns (loss, {pg_loss, vf_loss, entropy})."""
+    one; returns (loss, {pg_loss, vf_loss, entropy}). ``mask``
+    (n_agents, act_dim): per-agent stacked policies, padded components
+    masked out of the log-prob and the entropy, which is summed over the
+    real components and divided by n_agents. ``uma``: the uniform-obs
+    path's rows, ``u`` and ``logp`` (rows, n_agents) around one ``mu``,
+    each row's advantage broadcast over its agents."""
     mu, log_std, value = apply(policy, batch["obs"])
+    ent_terms = log_std + 0.5 * math.log(2 * math.pi * math.e)
     if n_bins:
         logits = _logits(mu, n_bins)
         logp = _categorical_logp(logits, batch["u"])
         ent = torch.mean(_categorical_entropy(logits))
+    elif uma:
+        logp = _uma_logp(mu, log_std, batch["u"])
+        ent = torch.sum(ent_terms)
+    elif mask is not None:
+        logp = _gauss_logp(mu, log_std, batch["u"], mask)
+        ent = torch.sum(mask * ent_terms) / mask.shape[0]
     else:
         logp = _gauss_logp(mu, log_std, batch["u"])
-        ent = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
+        ent = torch.sum(ent_terms)
     adv = batch["adv"]
     # population std, as jnp.std
     adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if uma:
+        adv = adv[:, None]
     if cfg.algo == "a2c":
         pg = -(logp * adv).mean()
     else:
@@ -288,12 +407,14 @@ def _adam_state(opt: torch.optim.Adam) -> list[torch.Tensor]:
     return out
 
 
-def _action_head(space) -> tuple[int, int]:
+def _action_head(space, per_agent: bool = False) -> tuple[int, int]:
     """(act_dim, n_bins) of ``space``: n_bins 0 for a Box; for a Discrete
     or MultiDiscrete space one categorical of n_bins per action dim, which
-    must all be equal and at least 2 (the JAX package's check)."""
+    must all be equal and at least 2 (the JAX package's check). With
+    ``per_agent`` (an agent-axis view) the space's leading axis is the
+    agents' and act_dim is each agent's."""
     if not isinstance(space, (Discrete, MultiDiscrete)):
-        return flatdim(space), 0
+        return (int(space.shape[-1]) if per_agent else flatdim(space)), 0
     nvec = (np.asarray([space.n]) if isinstance(space, Discrete)
             else np.asarray(space.nvec))
     if not np.all(nvec == nvec.flat[0]):
@@ -302,25 +423,28 @@ def _action_head(space) -> tuple[int, int]:
     n_bins = int(nvec.flat[0])
     if n_bins < 2:
         raise ValueError(f"categorical PPO needs >= 2 bins, got {n_bins}")
-    return int(nvec.size), n_bins
+    return (int(nvec.shape[-1]) if per_agent else int(nvec.size)), n_bins
 
 
-def _sampler(obs_space, apply, obs_bf16: bool, act, n_bins: int):
-    """``sample(policy, obs_raw, generator) -> (obs, u, action)``: flattens
-    the obs (bf16 if ``obs_bf16``), applies ``apply`` and draws ``u`` from
-    the generator: Gaussian, squashed into the action by ``act``, or the
-    bins of a categorical head when ``n_bins``."""
+def _sampler(prep, apply, act, n_bins: int, agents: int = 0):
+    """``sample(policy, obs_raw, generator) -> (obs, u, action)``: the obs
+    ``prep(obs_raw)`` (flat, in its storage dtype), ``apply`` and ``u``
+    drawn from the generator: Gaussian, squashed into the action by
+    ``act``, or the bins of a categorical head when ``n_bins``. With
+    ``agents`` (the uniform-obs path), ``u`` is (B, agents), each agent's
+    draw around the one ``mu`` (B, 1)."""
 
     def sample(policy, obs_raw, generator):
-        obs = flatten(obs_space, obs_raw, batch_dims=1)
-        if obs_bf16:
-            obs = obs.to(torch.bfloat16)
+        obs = prep(obs_raw)
         mu, log_std, _ = apply(policy, obs)
         if n_bins:
             u = _sample_categorical(_logits(mu, n_bins), generator)
             return obs, u, u
+        shape = mu.shape[:-1] + (agents,) if agents else mu.shape
         u = mu + torch.exp(log_std) * torch.randn(
-            mu.shape, generator=generator, device=generator.device)
+            shape, generator=generator, device=generator.device)
+        if agents:
+            return obs, u, act(u[..., None])[..., 0]
         return obs, u, act(u)
 
     return sample
@@ -365,16 +489,20 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     summed metrics``; and
     ``train_step.graphs``, the trainer's :class:`core.graph.Graphs` (None
     without capture), ``train_step.path`` ("fused", "episodic" or
-    "generic"), ``train_step.rollout_len`` and ``train_step.actor(policy,
-    obs) -> actions``, the deterministic evaluation policy.
+    "generic"), ``train_step.uma`` (the uniform-obs multi-agent path),
+    ``train_step.per_agent`` (per-agent stacked policies),
+    ``train_step.n_agents`` (1 for a single-agent env),
+    ``train_step.rollout_len`` and ``train_step.actor(policy, obs) ->
+    actions``, the deterministic evaluation policy.
 
     With ``cfg.rollout_len`` the episode length (or None), the rollout is
     the fused path when ``cfg.obs_bf16``, the env has a
     ``fused_policy_unroll`` and ``env.fused_policy_unroll_supported(params,
     num_envs)``; else the episodic path when the env has a lockstep
-    ``batch_unroll``; else, and at any other length, the generic path,
+    ``batch_unroll`` (not for per-agent policies, nor for a discrete
+    multi-agent view); else, and at any other length, the generic path,
     which needs the env's batched ``step`` and ``reset`` (module
-    docstring).
+    docstring, which also lists the multi-agent paths).
 
     On a CUDA device, with ``capture`` (the default), the rollout's step
     loop, the scoring and each minibatch update run as CUDA graphs
@@ -394,26 +522,66 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
         raise ValueError(f"rollout_len {T!r}: pass a positive length (the "
                          f"env has no fixed episode length)")
     whole = T == ep_len
+    # multi-agent views: obs (B, n_agents, D) already flat; a shared
+    # policy takes the agent axis as batch, act_dim is each agent's
+    ma = bool(getattr(env, "agent_axis", False))
+    pap = bool(getattr(env, "per_agent_policy", False))
     # the fused kernels compute Box actions only: their
     # fused_policy_unroll_supported is False for a discrete space
-    fused = (whole and cfg.obs_bf16 and hasattr(env, "fused_policy_unroll")
+    fused = (not ma and whole and cfg.obs_bf16
+             and hasattr(env, "fused_policy_unroll")
              and env.fused_policy_unroll_supported(env_params,
                                                    cfg.num_envs))
-    path = ("fused" if fused else "episodic"
-            if whole and hasattr(env, "batch_unroll") else "generic")
+    # a discrete view and per-agent policies take the generic path, as in
+    # the JAX package
+    episodic = (whole and hasattr(env, "batch_unroll") and not pap
+                and not (ma and isinstance(env.action_space(env_params),
+                                           (Discrete, MultiDiscrete))))
+    # uniform-obs multi-agent path (continuous, as episodic implies for a
+    # view): every agent's obs row is the same, so the trunk runs once for
+    # each (env, t). make_train_step takes no obs_fn / act_transform; a
+    # gate that ever does must refuse them
+    uma = (ma and episodic
+           and getattr(env, "uniform_agent_obs", None) is not None
+           and env.uniform_agent_obs(env_params))
+    path = "fused" if fused else "episodic" if episodic else "generic"
     if path == "generic" and not (hasattr(env, "step")
                                   and hasattr(env, "reset")):
         raise ValueError(
             f"{type(env).__name__}: PPO needs the env's batched step and "
             f"reset (generic rollout), a lockstep batch_unroll (episodic) "
             f"or a fused_policy_unroll (fused, obs_bf16)")
-    act_dim, n_bins = _action_head(env.action_space(env_params))
     device = env_params.device
+    mask = None
+    if pap:
+        space = env.padded_action_space(env_params)
+        if isinstance(space, (Discrete, MultiDiscrete)):
+            raise ValueError("per-agent policies with discrete actions are "
+                             "not supported")
+        n_agents, act_dim = (int(x) for x in space.shape)
+        n_bins = 0
+        mask = device_const(env.action_pad_mask(), device)
+    else:
+        space = env.action_space(env_params)
+        act_dim, n_bins = _action_head(space, per_agent=ma)
+        n_agents = int(space.shape[0]) if ma else 1
     graphs = Graphs(device) if capture and device.type == "cuda" else None
     obs_space = env.observation_space(env_params)
     obs_dim = flatdim(obs_space)
     head_dim = act_dim * n_bins if n_bins else act_dim
-    act = None if n_bins else default_act_transform(env, env_params)
+    act = None if n_bins else default_act_transform(
+        env, env_params, space if pap else None)
+
+    def stored(obs):
+        return obs.to(torch.bfloat16) if cfg.obs_bf16 else obs
+
+    def prep(obs_raw):
+        """The flat obs the policy sees, in their storage dtype: a view's
+        (B, n_agents, D) as they are, a single-agent env's flattened."""
+        if ma:
+            return stored(obs_raw.float())
+        return stored(flatten(obs_space, obs_raw, batch_dims=1))
+
     if fused:
         apply = policy_apply_bf16
         layout = env.fused_layout(env_params)
@@ -430,23 +598,34 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
                     "u": lrn[..., u_lo:u_lo + act_dim].float(),
                     "reward": out["reward"], "done": out["done"]}
     else:
-        apply = _apply_f32
-        sample = _sampler(obs_space, apply, cfg.obs_bf16, act, n_bins)
+        apply = _apply_stacked_f32 if pap else _apply_f32
+        if uma:
+            # the base env's obs dicts, flattened: one row for each env
+            base_space = env.base.observation_space(env_params.base)
+            sample = _sampler(
+                lambda o: stored(flatten(base_space, o, batch_dims=1)),
+                apply, act, n_bins, agents=n_agents)
+        else:
+            sample = _sampler(prep, apply, act, n_bins)
     if path == "episodic":
         # the sampling policy of the last policy rolled out: a captured
         # episode writes the buffers of the sampler it was captured with,
         # and a new policy's episode (a new key) replaces that graph
         samplers = {}
+        roll = env.uniform_ma_unroll if uma else env.batch_unroll
+        share = device_const(float(n_agents), device)
 
         def unroll(policy, generator, carry):
             sampler = samplers.get(policy)
             if sampler is None:
                 samplers.clear()
                 sampler = samplers[policy] = _SamplingPolicy(sample, T)
-            ts = env.batch_unroll(env_params, sampler, policy, cfg.num_envs,
-                                  T, generator, graphs=graphs)
+            ts = roll(env_params, sampler, policy, cfg.num_envs, T,
+                      generator, graphs=graphs)
+            # uma: the base env's global reward, each agent's share
+            reward = ts.reward / share if uma else ts.reward
             return {"obs": sampler.obs, "u": sampler.u,
-                    "reward": ts.reward, "done": ts.done}
+                    "reward": reward, "done": ts.done}
     elif path == "generic":
         step = capturable_autoreset_step(env)
 
@@ -461,9 +640,7 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
                 for key, v in zip(rows, (obs, u, ts.reward, ts.done)):
                     rows[key].append(v)
             out = {key: torch.stack(v) for key, v in rows.items()}
-            last = flatten(obs_space, obs_raw, batch_dims=1)
-            out["last_obs"] = last.to(torch.bfloat16) if cfg.obs_bf16 \
-                else last
+            out["last_obs"] = prep(obs_raw)
             return state, obs_raw, out
 
         def unroll(policy, generator, carry):
@@ -485,13 +662,19 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     def logp_of(mu, log_std, u):
         if n_bins:
             return _categorical_logp(_logits(mu, n_bins), u)
-        return _gauss_logp(mu, log_std, u)
+        if uma:
+            return _uma_logp(mu, log_std, u)
+        return _gauss_logp(mu, log_std, u, mask)
 
     def init_state(generator: torch.Generator) -> dict:
         if graphs is not None:
             graphs.clear()          # the last carry's captures and pool
-        policy = init_policy(obs_dim, head_dim, cfg.hidden, generator,
-                             device)
+        if pap:
+            policy = init_stacked_policy(n_agents, obs_dim, head_dim,
+                                         cfg.hidden, generator, device)
+        else:
+            policy = init_policy(obs_dim, head_dim, cfg.hidden, generator,
+                                 device)
         carry = {"policy": policy, "opt": _adam(policy.parameters(), cfg,
                                                 device)}
         if path == "generic":
@@ -508,12 +691,32 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     def score_body(policy, obs, u, reward, done, last_obs=None):
         mu, log_std, value = apply(policy, obs)
         logp = logp_of(mu, log_std, u)
+        if done.ndim < reward.ndim:
+            # agent-axis rewards: each agent's episode ends with its env's
+            done = done.reshape(done.shape + (1,) * (reward.ndim - done.ndim)
+                                ).expand(reward.shape)
         # whole episodes terminate on their last step: no bootstrap value;
         # the generic rollout bootstraps from its last obs
         last_value = (torch.zeros_like(value[0]) if last_obs is None
                       else apply(policy, last_obs)[2])
         advs, rets = gae(cfg, value, reward * cfg.reward_scale, done,
                          last_value)
+        if uma or pap:
+            # rows (t, env), each carrying its agents: uma's u and logp
+            # (rows, n_agents) around one obs row; the stacked policies'
+            # obs, u, logp, adv and ret with the whole agent axis
+            n = logp.shape[0] * logp.shape[1]
+            if uma:
+                return {"obs": obs.reshape(n, obs_dim),
+                        "u": u.reshape(n, n_agents),
+                        "logp": logp.reshape(n, n_agents),
+                        "adv": advs.reshape(n), "ret": rets.reshape(n)}
+            return {"obs": obs.reshape(n, n_agents, obs_dim),
+                    "u": u.reshape(n, n_agents, act_dim),
+                    "logp": logp.reshape(n, n_agents),
+                    "adv": advs.reshape(n, n_agents),
+                    "ret": rets.reshape(n, n_agents)}
+        # rows (t, env), or (t, env, agent) for a shared policy over a view
         n = logp.numel()
         return {"obs": obs.reshape(n, obs_dim), "u": u.reshape(n, act_dim),
                 "logp": logp.reshape(n), "adv": advs.reshape(n),
@@ -534,7 +737,7 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
         ``counter`` += 1 and the metrics added to ``sums``."""
         idx = mb_idx.index_select(0, counter)[0]
         batch = {key: v[idx] for key, v in flat.items()}
-        loss, metrics = loss_fn(policy, batch, cfg, apply, n_bins)
+        loss, metrics = loss_fn(policy, batch, cfg, apply, n_bins, mask, uma)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         clip_by_global_norm(policy.parameters(), cfg.max_grad_norm)
@@ -548,12 +751,18 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
                generator: torch.Generator) -> dict:
         n = flat["logp"].shape[0]
         mb = n // cfg.minibatches
+        dropped = n - mb * cfg.minibatches
         if mb == 0:
-            raise ValueError(f"PPO minibatching needs at least "
-                             f"{cfg.minibatches} samples, got {n}")
-        if n % cfg.minibatches:
-            warnings.warn(f"PPO minibatching drops {n - mb * cfg.minibatches}"
-                          f"/{n} samples per epoch", stacklevel=2)
+            raise ValueError(
+                f"PPO minibatching would drop ALL {n} samples per epoch: "
+                f"rollout_len*num_envs[*n_agents]={n} yields fewer than "
+                f"minibatches={cfg.minibatches} rows. Lower minibatches or "
+                f"raise num_envs/rollout_len.")
+        if dropped:
+            warnings.warn(
+                f"PPO minibatching drops {dropped}/{n} samples per epoch "
+                f"(rollout_len*num_envs[*n_agents]={n} not divisible by "
+                f"minibatches={cfg.minibatches})", stacklevel=2)
         # every epoch's permutation first, in the order the epochs use them
         perms = [torch.randperm(n, generator=generator,
                                 device=generator.device).to(device)
@@ -589,15 +798,15 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     train_step.rollout, train_step.score = rollout, score
     train_step.update, train_step.graphs = update, graphs
     train_step.path, train_step.rollout_len = path, T
+    train_step.uma, train_step.per_agent = uma, pap
+    train_step.n_agents = n_agents
 
     @torch.no_grad()
     def actor(policy: ActorCritic, obs_raw) -> torch.Tensor:
-        """The deterministic actions of the raw batched obs: the squashed
-        mean, or each dimension's most likely bin (the evaluation policy)."""
-        obs = flatten(obs_space, obs_raw, batch_dims=1)
-        if cfg.obs_bf16:
-            obs = obs.to(torch.bfloat16)
-        mu = apply(policy, obs)[0]
+        """The deterministic actions of the raw batched obs (a view's, on
+        the uniform-obs path too): the squashed mean, or each dimension's
+        most likely bin (the evaluation policy)."""
+        mu = apply(policy, prep(obs_raw))[0]
         if n_bins:
             return torch.argmax(_logits(mu, n_bins), -1)
         return act(mu)

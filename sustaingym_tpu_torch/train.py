@@ -1,5 +1,6 @@
 """Training CLI of the PyTorch port: PPO or A2C on EVChargingEnv,
-BuildingEnv, CogenEnv, DataCenterEnv or ElectricityMarketEnv.
+BuildingEnv, CogenEnv, DataCenterEnv or ElectricityMarketEnv, or on the
+multi-agent views of EV charging, building and cogen.
 
     python -m sustaingym_tpu_torch.train --env evcharging --eval-every 5
     python -m sustaingym_tpu_torch.train --env evcharging --algo ppo \
@@ -17,11 +18,17 @@ BuildingEnv, CogenEnv, DataCenterEnv or ElectricityMarketEnv.
     python -m sustaingym_tpu_torch.train --env electricitymarket \
         --env-kwargs '{"discrete": true}' --algo a2c --num-envs 4096 \
         --rollout-len 288 --minibatches 36
+    python -m sustaingym_tpu_torch.train --env evcharging-multiagent \
+        --num-envs 512 --rollout-len 288 --minibatches 36 --obs-bf16 \
+        --env-kwargs '{"project_action": false, "periods_delay": 2}'
+    python -m sustaingym_tpu_torch.train --env cogen-multiagent \
+        --num-envs 4096 --rollout-len 96 --minibatches 24
 
 ``--rollout-len`` (default 64, as the JAX CLI's) takes any length: at the
 env's episode length each rollout is one whole episode per env (the fused
 or episodic path), at any other the generic rollout carries the envs
-across train steps (``parallel/ppo.py``).
+across train steps (``parallel/ppo.py``, which also lists the multi-agent
+paths).
 
 Writes per-iteration metrics to ``<log-dir>/train_results.csv``, saves the
 policy, optimizer and generator state, and the generic rollout's env
@@ -31,7 +38,8 @@ checkpoint of ``--restore``. ``--eval-every N`` runs the deterministic
 actor (mean action, or the most likely bins) over one episode of
 ``--eval-episodes`` envs every N iterations (``core.batch_rollout``, its
 episode loop replayed from one CUDA graph across evaluations on the
-card), appends the mean return and the mean of every float info field to
+card), appends the mean return (of a multi-agent view: the agents'
+rewards summed) and the mean of every float info field to
 ``<log-dir>/eval_results.csv``, and saves a new best to
 ``<log-dir>/best_model/step_<i>.pt``; a resumed run reads its best from
 the CSV, whose header must match. Runs on the card
@@ -129,8 +137,11 @@ def make_evaluator(env, env_params, train_step, episodes: int, seed: int):
         gen.manual_seed(seed + 500_000 + i)
         traj = batch_rollout(env, env_params, eval_policy, policy, gen,
                              episodes, ep_len, graphs=graphs)
+        reward = traj.reward
+        if reward.ndim == 3:            # a view's agents: their sum
+            reward = reward.sum(-1)
         row = {"iteration": i,
-               "mean_return": float(traj.reward.sum(0).mean())}
+               "mean_return": float(reward.sum(0).mean())}
         row.update({k: float(v.float().mean()) for k, v in traj.info.items()
                     if torch.is_tensor(v) and v.is_floating_point()})
         return row
@@ -143,7 +154,9 @@ def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--env", default="evcharging",
                         choices=["evcharging", "building", "cogen",
-                                 "datacenter", "electricitymarket"])
+                                 "datacenter", "electricitymarket",
+                                 "evcharging-multiagent",
+                                 "building-multiagent", "cogen-multiagent"])
     parser.add_argument("--env-kwargs", default=None,
                         help="JSON dict forwarded to make(env, **kwargs), "
                              "e.g. '{\"site\": \"jpl\"}'; building's "
@@ -167,7 +180,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--minibatches", type=int, default=8)
     parser.add_argument("--reward-scale", type=float, default=None,
                         help="multiplies rewards before GAE (default 1e-4 "
-                             "for cogen, 1.0 otherwise)")
+                             "for cogen and cogen-multiagent, 1.0 "
+                             "otherwise)")
     parser.add_argument("--obs-bf16", action="store_true",
                         help="store observations in bfloat16; with it and "
                              "whole-episode rollouts, evcharging and "
@@ -202,7 +216,7 @@ def main(argv: list[str] | None = None) -> None:
     env, env_params = make(args.env, device=device, **env_kwargs)
     reward_scale = args.reward_scale
     if reward_scale is None:
-        reward_scale = 1e-4 if args.env == "cogen" else 1.0
+        reward_scale = 1e-4 if args.env.startswith("cogen") else 1.0
     cfg = PPOConfig(num_envs=args.num_envs, rollout_len=args.rollout_len,
                     hidden=args.hidden, lr=args.lr,
                     gamma=args.gamma, epochs=args.epochs,

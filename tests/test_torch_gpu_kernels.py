@@ -2,7 +2,7 @@
 (ev_rollout with both projection operators, building_rollout,
 exog_gather, cogen_rollout, dc_rollout, lp_solve) against their plain
 PyTorch versions on the card, at a small size, and the captured trainers
-and evaluation against their eager runs. Marked ``gpu``; each test skips
+(the multi-agent ones too) and evaluation against their eager runs. Marked ``gpu``; each test skips
 when no CUDA device is present. On a card:
 
     python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu
@@ -843,3 +843,84 @@ def test_generic_rollout_captured_on_every_env(cuda, tmp_path, name):
     assert mc == me
     assert all(torch.equal(a, b) for a, b in zip(pc, pe))
     assert torch.equal(gc, ge)
+
+
+def _ma_trainer(dev, tmp_path, case):
+    """(env, params, cfg) of each multi-agent trainer at a small size: the
+    uniform-obs MA-EV, MA-EV with periods_delay 2 (agent axis, episodic),
+    MA cogen (per-agent stacked policies), MA building and discrete MA-EV
+    (agent axis, generic)."""
+    from sustaingym_tpu_torch.envs.multiagent import MultiAgentBuildingEnv
+    from sustaingym_tpu_torch.parallel import PPOConfig
+    small = dict(hidden=64, minibatches=4, epochs=2)
+    if case == "building":
+        _, p = _building(dev, tmp_path)
+        return (MultiAgentBuildingEnv(p), p,
+                PPOConfig(num_envs=64, rollout_len=32, **small))
+    name, kw, cfg = {
+        "uma": ("evcharging-multiagent", dict(project_action=False),
+                dict(num_envs=16, obs_bf16=True)),
+        "delay2": ("evcharging-multiagent",
+                   dict(project_action=False, periods_delay=2),
+                   dict(num_envs=16, obs_bf16=True)),
+        "cogen": ("cogen-multiagent", {},
+                  dict(num_envs=64, reward_scale=1e-4)),
+        "discrete": ("evcharging-multiagent", dict(discrete_bins=5),
+                     dict(num_envs=16, rollout_len=32)),
+    }[case]
+    env, p = make(name, device=dev, **kw)
+    return env, p, PPOConfig(**small, **cfg)
+
+
+@pytest.mark.parametrize("case", ["uma", "delay2", "cogen", "building",
+                                  "discrete"])
+def test_captured_ma_train_step_matches_eager(cuda, tmp_path, case):
+    """Each multi-agent trainer: two train steps as CUDA graphs against
+    the same steps eager from the same carry and generator state
+    (parameters, metrics and the generator's state bit-equal), as
+    test_captured_train_step_matches_eager holds the single-agent ones."""
+    from sustaingym_tpu_torch.parallel import make_train_step
+    env, p, cfg = _ma_trainer(cuda, tmp_path, case)
+    runs = []
+    for capture in (True, False):
+        init_state, step = make_train_step(env, p, cfg, capture=capture)
+        assert step.uma == (case == "uma")
+        assert step.per_agent == (case == "cogen")
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        carry = init_state(gen)
+        for _ in range(2):
+            carry, metrics = step(carry, gen)
+        runs.append(([w.detach().clone()
+                      for w in carry["policy"].parameters()],
+                     {k: float(v) for k, v in metrics.items()},
+                     gen.get_state()))
+        assert (step.graphs is not None) == capture
+    (pc, mc, gc), (pe, me, ge) = runs
+    assert mc == me
+    assert all(np.isfinite(v) for v in mc.values())
+    assert all(torch.equal(a, b) for a, b in zip(pc, pe))
+    assert torch.equal(gc, ge)
+
+
+@pytest.mark.parametrize("case", ["delay2", "cogen"])
+def test_captured_ma_trainer_reinit_drops_its_graphs(cuda, tmp_path, case):
+    """init_state on a multi-agent trainer drops its graphs: a second
+    carry takes the step a fresh trainer takes from the same seed, with
+    one graph per phase."""
+    from sustaingym_tpu_torch.parallel import make_train_step
+    env, p, cfg = _ma_trainer(cuda, tmp_path, case)
+    runs = []
+    for reinit in (True, False):
+        init_state, step = make_train_step(env, p, cfg)
+        if reinit:
+            gen = torch.Generator(device=cuda).manual_seed(8)
+            step(init_state(gen), gen)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        carry, metrics = step(init_state(gen), gen)
+        assert len(step.graphs._captured) == 3
+        runs.append(([w.detach().clone()
+                      for w in carry["policy"].parameters()],
+                     {k: float(v) for k, v in metrics.items()}))
+    (pa, ma), (pb, mb) = runs
+    assert ma == mb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))

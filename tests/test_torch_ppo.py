@@ -364,9 +364,13 @@ def test_package_imports_no_jax():
             "sustaingym_tpu_torch.envs.building.synthetic, "
             "sustaingym_tpu_torch.core.rollout, "
             "sustaingym_tpu_torch.core.graph, sustaingym_tpu_torch.bench, "
-            "sustaingym_tpu_torch.data.ev_gmm; "
+            "sustaingym_tpu_torch.data.ev_gmm, "
+            "sustaingym_tpu_torch.envs.multiagent; "
             "sustaingym_tpu_torch.make('evcharging', device='cpu'); "
             "sustaingym_tpu_torch.make('cogen', device='cpu'); "
+            "sustaingym_tpu_torch.make('evcharging-multiagent', "
+            "periods_delay=2, device='cpu'); "
+            "sustaingym_tpu_torch.make('cogen-multiagent', device='cpu'); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'sustaingym_tpu.')) or m == 'sustaingym_tpu']; "
             "assert not bad, bad")
@@ -402,22 +406,30 @@ def test_train_cli_refuses_missing_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["evcharging", "cogen", "datacenter",
-                                  "electricitymarket"])
+                                  "electricitymarket",
+                                  "evcharging-multiagent",
+                                  "building-multiagent", "cogen-multiagent"])
 def test_entry_points_default_to_the_card(name, tmp_path):
     """make(), make_params(), from_jax() and the CLI build on the card
     unless asked for the CPU; without a card the default raises instead of
     moving to the CPU."""
     from sustaingym_tpu_torch import train
-    from sustaingym_tpu_torch.envs import (cogen, datacenter,
-                                           electricitymarket, evcharging)
+    from sustaingym_tpu_torch.envs import (building, cogen, datacenter,
+                                           electricitymarket, evcharging,
+                                           multiagent)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make(name)
-    envs = {"evcharging": evcharging, "cogen": cogen,
-            "datacenter": datacenter, "electricitymarket": electricitymarket}
+    params = {"evcharging": evcharging.make_params,
+              "cogen": cogen.make_params,
+              "datacenter": datacenter.make_params,
+              "electricitymarket": electricitymarket.make_params,
+              "evcharging-multiagent": multiagent.make_ma_ev_params,
+              "building-multiagent": building.make_env,
+              "cogen-multiagent": cogen.make_params}
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        envs[name].make_params()
+        params[name]()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         from_jax(_jax_policy())
     with pytest.raises(SystemExit):
