@@ -187,6 +187,32 @@ activations):
     5) logits, the generic path), 512 envs, ``rollout_len`` 64, 16
     minibatches.
 
+Slice 7, the off-policy learners (SAC, double-DQN, TD3-style DDPG over
+the on-device replay ring, ``parallel/offpolicy.py``: the rollout into the
+ring and one update are each a CUDA graph; no kernel on this path, as in
+the JAX package, whose learners step through the generic ``autoreset_
+vstep``; every launch count is set to 0 before phase 28 and read after
+phase 34, and must stay 0). Each of the bench's six ``OFF_POLICY``
+trainers takes two captured train steps (env- or agent-steps/s, the
+graphs' warm-up and capture seconds, the peak device memory of the first
+step and of the second, whose difference is the capture's extra), its
+lr=0 step (``alpha_lr`` 0 for SAC: every online weight and ``log_alpha``
+bit-equal, the targets' Polyak step of equal values printed) with finite
+losses, and one train step captured against eager under
+``CAPTURE_GATE`` (every weight, target, optimizer state, ``log_alpha``,
+the ring, ``written``, DQN's ``iter``, the carried obs, the metrics and
+the generator state), at ``CHECK_BATCH`` envs, DQN MA EV at its own 128:
+
+28. SAC on the synthetic building, 4096 x 64;
+29. DQN on the discrete market, 4096 x 32;
+30. DDPG on the market, 4096 x 32;
+31. SAC on EV with the projection off, 2048 x 64;
+32. SAC on the market, 4096 x 32;
+33. DQN on discrete MA-EV (54 agents, 5 bins), 128 x 32, capacity 64;
+34. the CLI: ``train.main(["--algo", "sac", "--eval-every", "1", ...])``
+    on EV into a temporary directory: two train steps, then its
+    ``eval_results.csv`` (two finite rows), ``best_model`` and a resume.
+
 ``python3 chip_smoke.py --profile`` adds, for each trainer captured and
 the same trainer eager (``capture=False``, the before): its phases
 (rollout, re-scoring + GAE, minibatch updates) on the host clock with
@@ -194,7 +220,14 @@ the same trainer eager (``capture=False``, the before): its phases
 in each phase (``cudaLaunchKernel``, ``cudaGraphLaunch``, memcpy and
 memset, from ``torch.profiler``) and the update's calls per minibatch;
 the graphs' warm-up and capture + instantiate time; and the device's busy
-time over one whole train step from ``torch.profiler``.
+time over one whole train step from ``torch.profiler``. For each
+off-policy trainer, captured and eager: the rollout, the updates and the
+train step on the host clock, and the device's busy time over a captured
+step; the market trainers' share of their captured rollout spent in the
+SCED solve (``clear_market`` over the rollout's steps, captured alone at
+the same batch and state), and the whole-batch reset's share of the SAC
+EV and DQN MA EV rollouts (``env.reset`` of the batch, captured alone,
+``rollout_len`` times).
 
 Every phase raises on failure (exit code 1). The line before the last is
 a JSON object with, for each TPU kernel's counterpart (the slice gather
@@ -1698,6 +1731,321 @@ def ma_slice(tag: str, want_profile: bool):
     free_cuda()
 
 
+# phase 28-33's captured-vs-eager batch where the bench's is larger
+OFF_POLICY_CHECK = {"DQN MA EV": 128}
+# (label, env, params, seed) of each off-policy trainer that ``--profile``
+# profiles at the end of the run
+OFF_POLICY_PROFILE = []
+
+
+def carry_tensors(carry: dict) -> dict:
+    """Every tensor of an off-policy carry by name: module weights,
+    optimizer states, log_alpha, the ring, written, iter, env states and
+    obs."""
+    import torch
+    from torch import nn
+    from sustaingym_tpu_torch.core.graph import tree_leaves
+    from sustaingym_tpu_torch.parallel.ppo import _adam_state
+    out = {}
+    for k, v in carry.items():
+        if isinstance(v, nn.Module):
+            out.update({f"{k}.{n}": t for n, t in v.state_dict().items()})
+        elif isinstance(v, torch.optim.Optimizer):
+            out.update({f"{k}.{i}": t for i, t in enumerate(_adam_state(v))})
+        else:
+            out.update({f"{k}.{i}": t for i, t in enumerate(tree_leaves(v))})
+    return out
+
+
+def online_weights(carry: dict) -> dict:
+    """The online networks' weights and log_alpha (not the targets)."""
+    return {k: t for k, t in carry_tensors(carry).items()
+            if k.split(".")[0] in ("actor", "critics", "qnet", "log_alpha")}
+
+
+def run_off_policy(label: str, env, p, seed: int, tag: str, steps: int = 2):
+    """``steps`` captured train steps of off-policy trainer ``label`` at
+    the bench's configuration (host clock, synchronised; the first holds
+    the graphs' warm-up and capture, printed apart), the peak device memory
+    of each step (their difference: the capture's extra), each metric
+    finite."""
+    import torch
+    from sustaingym_tpu_torch.bench import off_policy_trainer
+    free_cuda()
+    cfg, init_state, train_step = off_policy_trainer(label, env, p)
+    tgen = torch.Generator(device=p.device).manual_seed(seed)
+    carry = init_state(tgen)
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    env_steps = cfg.num_envs * cfg.rollout_len
+    agents = train_step.n_agents
+    graphs = train_step.graphs
+    peaks = []
+    for i in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, metrics = train_step(carry, tgen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        m = {key: float(v) for key, v in metrics.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"{label} train step {i}: non-finite metrics {m}")
+        held = (f" (of which {graphs.captures} graphs' warm-up "
+                f"{graphs.warmup_s:.3f} s, capture + instantiate "
+                f"{graphs.capture_s:.3f} s)" if i == 0 else "")
+        per_agent = (f" = {env_steps * agents / dt:.0f} agent-steps/s "
+                     f"({agents} agents)" if agents > 1 else "")
+        print(f"{label} train step {i}: {dt:.3f} s{held} = "
+              f"{env_steps / dt:.0f} env-steps/s{per_agent}; "
+              f"{json.dumps(m)} {tag}", flush=True)
+    print(f"{label} trainer: carry (networks, optimizers, ring "
+          f"{cfg.capacity} x {cfg.num_envs}) {held_gib:.3f} GiB; peak device "
+          f"memory {peaks[0]:.3f} GiB in the first step (the captures), "
+          f"{peaks[-1]:.3f} GiB in the last: the capture's extra "
+          f"{peaks[0] - peaks[-1]:.3f} GiB {tag}", flush=True)
+    del init_state, train_step, carry, graphs
+    free_cuda()
+    return cfg
+
+
+def check_off_policy_lr0(label: str, env, p, seed: int, tag: str,
+                         batch: int):
+    """One captured train step at lr=0 (and alpha_lr=0 for SAC) at
+    ``batch`` envs: every online weight and log_alpha bit-equal, finite
+    losses; the targets' Polyak step between equal values printed."""
+    import torch
+    from sustaingym_tpu_torch.bench import OFF_POLICY, off_policy_trainer
+    extra = {"alpha_lr": 0.0} if OFF_POLICY[label][1] == "sac" else {}
+    free_cuda()
+    _, init_state, train_step = off_policy_trainer(
+        label, env, p, num_envs=batch, lr=0.0, **extra)
+    gen = torch.Generator(device=p.device).manual_seed(seed)
+    carry = init_state(gen)
+    before = {k: t.detach().clone() for k, t in online_weights(carry).items()}
+    targets = {k: t.detach().clone() for k, t in carry_tensors(carry).items()
+               if k.split(".")[0] in ("targets", "target", "actor_target")}
+    carry, metrics = train_step(carry, gen)
+    m = {k: float(v) for k, v in metrics.items()}
+    after = online_weights(carry)
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    now = carry_tensors(carry)
+    d_target = max(float((now[k] - t).abs().max()) for k, t in targets.items())
+    print(f"{label} lr=0 train step at {batch} envs (captured): online "
+          f"weights and log_alpha bit-equal {not moved}; targets max|d| "
+          f"{d_target:.3e} (a Polyak step between equal values); {m} {tag}",
+          flush=True)
+    if moved or not all(np.isfinite(v) for v in m.values()):
+        fail(f"{label}: the lr=0 step moved {moved} or its losses are not "
+             f"finite: {m}")
+    del init_state, train_step, carry
+    free_cuda()
+
+
+def check_off_policy_captured(label: str, env, p, seed: int, tag: str,
+                              batch: int):
+    """One train step captured against the same step eager at ``batch``
+    envs from the same carry and generator state: every tensor of the
+    carry (``carry_tensors``), the metrics and the generator state
+    bit-equal (CAPTURE_GATE)."""
+    import torch
+    from sustaingym_tpu_torch.bench import off_policy_trainer
+    runs = {}
+    for capture in (True, False):
+        free_cuda()
+        _, init_state, step = off_policy_trainer(label, env, p,
+                                                 capture=capture,
+                                                 num_envs=batch)
+        gen = torch.Generator(device=p.device).manual_seed(seed)
+        carry = init_state(gen)
+        carry, metrics = step(carry, gen)
+        runs[capture] = ({k: t.detach().clone()
+                          for k, t in carry_tensors(carry).items()},
+                         {k: float(v) for k, v in metrics.items()},
+                         gen.get_state())
+        del init_state, step, carry
+    (tc, mc, gc), (te, me, ge) = runs[True], runs[False]
+    differ = [k for k in tc if not torch.equal(tc[k], te[k])]
+    d_max = max(float((tc[k].double() - te[k].double()).abs().max())
+                for k in tc)
+    equal = not differ and mc == me and torch.equal(gc, ge)
+    print(f"{label} captured vs eager, 1 train step at {batch} envs: "
+          f"{len(tc)} carry tensors, max|d| {d_max:.3e}, differing "
+          f"{differ[:6]}; metrics |d| "
+          f"{ {k: abs(mc[k] - me[k]) for k in mc} }; generator states equal "
+          f"{torch.equal(gc, ge)}; bit-equal {equal} ({CAPTURE_GATE}) {tag}",
+          flush=True)
+    if not equal:
+        fail(f"{label}: the captured train step differs from the eager one")
+    del runs, tc, te
+    free_cuda()
+
+
+def off_policy_cli(tag: str):
+    """Phase 34: ``train.main`` with ``--algo sac --eval-every 1`` on EV,
+    then a resume."""
+    import shutil
+    import tempfile
+    from sustaingym_tpu_torch import train
+    log = tempfile.mkdtemp(prefix="chip_smoke_sac_cli_")
+    try:
+        args = ["--env", "evcharging", "--algo", "sac", "--num-envs", "256",
+                "--rollout-len", "16", "--iterations", "2", "--eval-every",
+                "1", "--eval-episodes", "4", "--save-every", "2",
+                "--log-dir", log, "--env-kwargs",
+                '{"project_action": false}']
+        t0 = time.perf_counter()
+        train.main(args)
+        with open(os.path.join(log, "eval_results.csv")) as f:
+            rows = f.read().splitlines()
+        returns = [float(r.split(",")[1]) for r in rows[1:]]
+        if len(returns) != 2 or not all(np.isfinite(returns)):
+            fail(f"SAC CLI: eval rows {rows}")
+        if not os.listdir(os.path.join(log, "best_model")):
+            fail("SAC CLI: no best_model")
+        train.main(args + ["--restore", os.path.join(log, "checkpoints"),
+                           "--iterations", "1"])
+        print(f"SAC CLI: two iterations with --eval-every 1 and a resume "
+              f"in {time.perf_counter() - t0:.3f} s; eval returns {returns} "
+              f"{tag}", flush=True)
+    finally:
+        shutil.rmtree(log)
+
+
+def off_policy_slice(tag: str, want_profile: bool):
+    """Phases 28-34 (module docstring): each off-policy trainer's captured
+    steps, lr=0 step and captured-vs-eager check, the SAC CLI; the
+    kernels' launch counts over the slice, all 0."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sustaingym_tpu_torch.bench import OFF_POLICY, make_env
+    from sustaingym_tpu_torch.core.graph import counted_wrappers
+
+    dev = torch.device("cuda")
+    tables = tempfile.mkdtemp(prefix="chip_smoke_off_policy_tables_")
+    for w in counted_wrappers():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        for seed, (label, entry) in enumerate(OFF_POLICY.items(), 40):
+            env, p = make_env(entry[2], dev, tables, **entry[3])
+            cfg = run_off_policy(label, env, p, seed, tag)
+            batch = OFF_POLICY_CHECK.get(label, min(CHECK_BATCH,
+                                                    cfg.num_envs))
+            check_off_policy_lr0(label, env, p, seed, tag, batch)
+            check_off_policy_captured(label, env, p, seed, tag, batch)
+            if want_profile:
+                OFF_POLICY_PROFILE.append((label, env, p, seed))
+        off_policy_cli(tag)
+    finally:
+        shutil.rmtree(tables)
+    launches = {w.__name__: w.launches for w in counted_wrappers()}
+    print(f"off-policy slice: kernel launches {launches} (no kernel on this "
+          f"slice's path) in {time.perf_counter() - t0:.3f} s {tag}",
+          flush=True)
+    if any(launches.values()):
+        fail(f"a kernel launched on the off-policy path: {launches}")
+    free_cuda()
+
+
+def captured_ms(fn, generators=(), reps: int = 3) -> float:
+    """Mean ms of one replay of ``fn``, drawing from ``generators``,
+    captured alone in a CUDA graph (CUDA events, after the capture's own
+    warm-up and one replay)."""
+    import torch
+    from sustaingym_tpu_torch.core.graph import Graphs
+    graphs = Graphs(torch.device("cuda"))
+    return cuda_ms(lambda: graphs("alone", fn, generators=generators), reps)
+
+
+def profile_off_policy(tag: str):
+    """``--profile``: each off-policy trainer of ``OFF_POLICY_PROFILE``,
+    captured and eager (``capture=False``): the rollout, the updates and
+    the whole step on the host clock (synchronised between them, the
+    second of two iterations), and over a captured step the device's busy
+    time (``torch.profiler``); the market solve's and the whole-batch
+    reset's shares of the captured rollout."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sustaingym_tpu_torch.bench import off_policy_trainer
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for label, env, p, seed in OFF_POLICY_PROFILE:
+        phase_ms = {}
+        for capture in (True, False):
+            free_cuda()
+            cfg, init_state, step = off_policy_trainer(label, env, p,
+                                                       capture=capture)
+            gen = torch.Generator(device=p.device).manual_seed(seed)
+            carry = init_state(gen)
+            for _ in range(2):
+                roll_ms = timed(lambda: step.rollout(carry, gen))
+                upd_ms = timed(lambda: step.update(carry, gen))
+                step_ms = timed(lambda: step(carry, gen))
+            kind = "captured" if capture else "eager"
+            phase_ms[kind] = roll_ms, step_ms
+            print(f"profile {label} {kind}: train step {step_ms:.1f} ms; "
+                  f"rollout {roll_ms:.1f} ms ({cfg.rollout_len} steps), "
+                  f"{cfg.updates} updates {upd_ms:.1f} ms = "
+                  f"{upd_ms / cfg.updates:.3f} ms each {tag}", flush=True)
+            if capture:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    traced_ms = timed(lambda: step(carry, gen))
+                busy_ms = sum(_dev_us(e) for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA and not
+                              getattr(e, "is_user_annotation", False)) / 1e3
+                print(f"profile {label} captured: device busy "
+                      f"{busy_ms:.1f} ms = {busy_ms / step_ms:.1%} of the "
+                      f"untraced step {step_ms:.1f} ms (traced "
+                      f"{traced_ms:.1f} ms) {tag}", flush=True)
+                state = carry["env_states"]
+                B, T = cfg.num_envs, cfg.rollout_len
+            del init_state, step, carry
+        if env.name == "electricitymarket":
+            # the SCED solve of one generic step at the carried (warm)
+            # state, bids uniform over the action space, T of them
+            space = env.action_space(p)
+            agen = torch.Generator(device=p.device).manual_seed(seed)
+            bids = env._prep_action(p, space.sample_batch(agen, B))
+
+            def solves():
+                for _ in range(T):
+                    env.clear_market(p, state, bids)
+            solve_ms = captured_ms(solves)
+            roll_ms, step_ms = phase_ms["captured"]
+            print(f"profile {label}: {T} SCED solves at {B} envs captured "
+                  f"alone {solve_ms:.1f} ms = {solve_ms / roll_ms:.1%} of "
+                  f"the captured rollout {roll_ms:.1f} ms, "
+                  f"{solve_ms / step_ms:.1%} of the step {step_ms:.1f} ms "
+                  f"(every captured solve runs the cold budget of "
+                  f"{p.op.iters} iterations) {tag}", flush=True)
+        if label in ("SAC EV", "DQN MA EV"):
+            rgen = torch.Generator(device=p.device).manual_seed(seed)
+
+            def resets():
+                for _ in range(T):
+                    env.reset(p, rgen, B)
+            reset_ms = captured_ms(resets, generators=(rgen,))
+            roll_ms = phase_ms["captured"][0]
+            print(f"profile {label}: {T} whole-batch resets at {B} envs "
+                  f"captured alone {reset_ms:.1f} ms = "
+                  f"{reset_ms / roll_ms:.1%} of the captured rollout "
+                  f"{roll_ms:.1f} ms {tag}", flush=True)
+        del state
+    free_cuda()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1939,7 +2287,9 @@ def main() -> int:
         "replaces": "sustaingym_tpu/ops/pallas/exog_gather.py:210"})
     kernels.append(ev_lockstep_slice(tag, want_profile))
     ma_slice(tag, want_profile)
+    off_policy_slice(tag, want_profile)
     profile_trainers(tag)
+    profile_off_policy(tag)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

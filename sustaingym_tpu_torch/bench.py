@@ -1,6 +1,6 @@
-"""Benchmark lines of the PyTorch port: env-steps/s of each trainer and
-each simulation tier on one card (agent-steps/s for a multi-agent view's
-trainer).
+"""Benchmark lines of the PyTorch port: env-steps/s of each trainer (PPO,
+A2C and the off-policy SAC, DQN and DDPG) and each simulation tier on one
+card (agent-steps/s for a multi-agent view's trainer).
 
     python3 sustaingym_tpu_torch/bench.py --env all
     python3 sustaingym_tpu_torch/bench.py --env market
@@ -18,8 +18,8 @@ Each value is the best of ``REPEATS`` synchronised calls after one
 warm-up call; the warm-up holds each trainer's CUDA-graph captures
 (``parallel/ppo.py``) and the market tier's (``core/graph.py``).
 
-Configurations (``PERF.md`` section 4; ``TRAINERS`` and ``SIM_TIERS``,
-which ``chip_smoke.py`` runs too):
+Configurations (``PERF.md`` section 4; ``TRAINERS``, ``OFF_POLICY`` and
+``SIM_TIERS``, which ``chip_smoke.py`` runs too):
 
 - trainers: EV 8192 x 288 (bf16 obs, 96 minibatches, projection on: the
   policy-in-kernel path), EV episodic (the same with float32 obs: the
@@ -36,10 +36,20 @@ which ``chip_smoke.py`` runs too):
   uniform-obs path) and 2 (the agent-axis episodic path); MA cogen 4096 x
   96, 24 minibatches, per-agent stacked policies (reward_scale 1e-4, as
   the cogen line and the CLI);
+- off-policy trainers (``OFF_POLICY``, the JAX bench's six lines,
+  ``bench.py:513, 553-570``; H = 256, 16 updates of ``batch_per_env`` 4 a
+  train step, capacity 1024 unless listed): SAC on the synthetic building
+  4096 x 64; DQN on the discrete market and DDPG and SAC on the market,
+  4096 x 32; SAC on EV with the projection off, 2048 x 64; DQN on
+  discrete MA-EV (``discrete_bins`` 5, projection off), 128 x 32,
+  capacity 64, in agent-steps/s. Each train step is the rollout and the
+  update as CUDA graphs (``parallel/offpolicy.py``);
 - simulation tiers: EV 32768 x 288, cogen 262144 x 96, datacenter
   262144 x 672, building 524288 x 288 (each env's ``fused_rollout``, the
   episode kernels with in-kernel random actions), market 4096 x 288
   (``batch_rollout`` with random bids through the captured episode loop).
+
+``--env off-policy`` prints the six off-policy lines alone.
 
 Needs a CUDA card.
 """
@@ -99,6 +109,30 @@ TRAINERS = {
                  "cogen-multiagent", {},
                  dict(num_envs=4096, minibatches=24, reward_scale=1e-4)),
 }
+# the off-policy trainers: label -> (metric, algo, env, make kwargs,
+# config kwargs besides ``HIDDEN``)
+OFF_POLICY = {
+    "SAC building": ("sac_building_train_env_steps_per_s_per_chip", "sac",
+                     "building", {},
+                     dict(num_envs=4096, rollout_len=64, capacity=1024,
+                          updates=16, batch_per_env=4)),
+    "DQN market": ("dqn_electricitymarket_train_env_steps_per_s_per_chip",
+                   "dqn", "electricitymarket", {"discrete": True},
+                   dict(num_envs=4096, rollout_len=32)),
+    "DDPG market": ("ddpg_electricitymarket_train_env_steps_per_s_per_chip",
+                    "ddpg", "electricitymarket", {},
+                    dict(num_envs=4096, rollout_len=32)),
+    "SAC EV": ("sac_evcharging_train_env_steps_per_s_per_chip", "sac",
+               "evcharging", {"project_action": False},
+               dict(num_envs=2048, rollout_len=64)),
+    "SAC market": ("sac_electricitymarket_train_env_steps_per_s_per_chip",
+                   "sac", "electricitymarket", {},
+                   dict(num_envs=4096, rollout_len=32)),
+    "DQN MA EV": ("dqn_ma_evcharging_train_agent_steps_per_s_per_chip",
+                  "dqn", "evcharging-multiagent",
+                  {"discrete_bins": 5, "project_action": False},
+                  dict(num_envs=128, rollout_len=32, capacity=64)),
+}
 # simulation tiers: env -> batch
 SIM_TIERS = {"evcharging": 32768, "cogen": 262144, "datacenter": 262144,
              "building": 524288, "electricitymarket": 4096}
@@ -114,6 +148,20 @@ def train_config(label: str, **overrides):
     kwargs = dict(hidden=HIDDEN, epochs=EPOCHS, **TRAINERS[label][3])
     kwargs.update(overrides)
     return PPOConfig(**kwargs)
+
+
+def off_policy_trainer(label: str, env, params, capture: bool = True,
+                       **overrides):
+    """(cfg, init_state, train_step) of off-policy trainer ``label`` of
+    ``OFF_POLICY``, its config with ``overrides``."""
+    from sustaingym_tpu_torch import parallel as P
+    factories = {"sac": (P.SACConfig, P.make_sac_train_step),
+                 "dqn": (P.DQNConfig, P.make_dqn_train_step),
+                 "ddpg": (P.DDPGConfig, P.make_ddpg_train_step)}
+    config, factory = factories[OFF_POLICY[label][1]]
+    cfg = config(**dict(dict(hidden=HIDDEN, **OFF_POLICY[label][4]),
+                        **overrides))
+    return (cfg,) + factory(env, params, cfg, capture=capture)
 
 
 def card() -> str:
@@ -206,6 +254,34 @@ def bench_train(label: str, device, tables) -> dict:
     return result
 
 
+def bench_off_policy(label: str, device, tables) -> dict:
+    """Env-steps/s (agent-steps/s for discrete MA-EV, with ``n_agents``)
+    of one off-policy train step of trainer ``label`` (the rollout into
+    the ring and the updates, as CUDA graphs); the envs and the ring carry
+    over from one timed step to the next."""
+    import torch
+    metric, algo, name, make_kwargs, _ = OFF_POLICY[label]
+    env, params = make_env(name, device, tables, **make_kwargs)
+    cfg, init_state, train_step = off_policy_trainer(label, env, params)
+    gen = torch.Generator(device=device).manual_seed(0)
+    carry = init_state(gen)
+    agents = train_step.n_agents
+    best = best_of(lambda: train_step(carry, gen))
+    result = {"metric": metric,
+              "value": round(cfg.num_envs * cfg.rollout_len * agents / best,
+                             1),
+              "unit": "agent-steps/s" if agents > 1 else "env-steps/s",
+              "batch": cfg.num_envs, "rollout_len": cfg.rollout_len,
+              "device": card(), "vs_baseline": None, "algo": algo,
+              "capacity": cfg.capacity, "updates": cfg.updates,
+              "batch_per_env": cfg.batch_per_env,
+              "cuda_graphs": train_step.graphs is not None}
+    if agents > 1:
+        result["n_agents"] = agents
+    result.update({k: v for k, v in make_kwargs.items()})
+    return result
+
+
 def bench_sim(name: str, batch: int, device, tables) -> dict:
     """Env-steps/s of the simulation tier: the env's ``fused_rollout``
     (episode kernels, in-kernel random actions), or for the market
@@ -242,9 +318,11 @@ def bench_sim(name: str, batch: int, device, tables) -> dict:
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--env", default="all",
-                        choices=("all", "market") + ENVS + MA_ENVS,
+                        choices=("all", "market", "off-policy") + ENVS
+                        + MA_ENVS,
                         help="one env's lines (trainers and simulation "
-                             "tier; 'market' = electricitymarket), or all")
+                             "tier; 'market' = electricitymarket), the "
+                             "off-policy trainers' lines, or all")
     args = parser.parse_args(argv)
 
     import torch
@@ -259,6 +337,11 @@ def main(argv: list[str] | None = None) -> None:
         for label, (_, env, _, _) in TRAINERS.items():
             if name in ("all", env):
                 print(json.dumps(bench_train(label, device, tables)),
+                      flush=True)
+                free()
+        for label, (_, _, env, _, _) in OFF_POLICY.items():
+            if name in ("all", "off-policy", env):
+                print(json.dumps(bench_off_policy(label, device, tables)),
                       flush=True)
                 free()
         for env, batch in SIM_TIERS.items():

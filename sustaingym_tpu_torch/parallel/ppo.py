@@ -380,14 +380,19 @@ def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def _adam(params, cfg: PPOConfig, device: torch.device):
-    """optax.adam(cfg.lr) as ``torch.optim.Adam``; on a CUDA device its
+def adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
+    """optax.adam(lr) as ``torch.optim.Adam``; on a CUDA device its
     capturable foreach form, whose step count lives on the card, for the
     captured update and the eager one alike."""
     if device.type == "cuda":
-        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
                                 eps=1e-8, capturable=True, foreach=True)
-    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _adam(params, cfg: PPOConfig, device: torch.device):
+    """:func:`adam` at ``cfg.lr``."""
+    return adam(params, cfg.lr, device)
 
 
 def _adam_state(opt: torch.optim.Adam) -> list[torch.Tensor]:
@@ -493,7 +498,8 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     ``train_step.per_agent`` (per-agent stacked policies),
     ``train_step.n_agents`` (1 for a single-agent env),
     ``train_step.rollout_len`` and ``train_step.actor(policy, obs) ->
-    actions``, the deterministic evaluation policy.
+    actions``, the deterministic evaluation policy (also ``actor_fn``,
+    with ``actor_key`` "policy": the evaluation hooks of every learner).
 
     With ``cfg.rollout_len`` the episode length (or None), the rollout is
     the fused path when ``cfg.obs_bf16``, the env has a
@@ -811,5 +817,7 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
             return torch.argmax(_logits(mu, n_bins), -1)
         return act(mu)
 
-    train_step.actor = actor
+    # the evaluation hooks every learner shares (train.make_evaluator)
+    train_step.actor = train_step.actor_fn = actor
+    train_step.actor_key = "policy"
     return init_state, train_step

@@ -1,6 +1,7 @@
-"""Training CLI of the PyTorch port: PPO or A2C on EVChargingEnv,
-BuildingEnv, CogenEnv, DataCenterEnv or ElectricityMarketEnv, or on the
-multi-agent views of EV charging, building and cogen.
+"""Training CLI of the PyTorch port: PPO, A2C, SAC, double-DQN or
+TD3-style DDPG on EVChargingEnv, BuildingEnv, CogenEnv, DataCenterEnv or
+ElectricityMarketEnv, or on the multi-agent views of EV charging, building
+and cogen.
 
     python -m sustaingym_tpu_torch.train --env evcharging --eval-every 5
     python -m sustaingym_tpu_torch.train --env evcharging --algo ppo \
@@ -23,19 +24,32 @@ multi-agent views of EV charging, building and cogen.
         --env-kwargs '{"project_action": false, "periods_delay": 2}'
     python -m sustaingym_tpu_torch.train --env cogen-multiagent \
         --num-envs 4096 --rollout-len 96 --minibatches 24
+    python -m sustaingym_tpu_torch.train --env evcharging --algo sac \
+        --num-envs 2048 --env-kwargs '{"project_action": false}'
+    python -m sustaingym_tpu_torch.train --env electricitymarket \
+        --algo dqn --num-envs 4096 --rollout-len 32 \
+        --env-kwargs '{"discrete": true}'
+    python -m sustaingym_tpu_torch.train --env electricitymarket \
+        --algo ddpg --num-envs 4096 --rollout-len 32
 
 ``--rollout-len`` (default 64, as the JAX CLI's) takes any length: at the
 env's episode length each rollout is one whole episode per env (the fused
 or episodic path), at any other the generic rollout carries the envs
 across train steps (``parallel/ppo.py``, which also lists the multi-agent
-paths).
+paths). ``--algo sac|dqn|ddpg`` train off-policy over the on-device
+replay ring (``parallel/offpolicy.py``), ``--rollout-len`` steps into the
+ring and 16 gradient updates a train step, the JAX CLI's configurations
+(DQN's reward scale 1e-4 on cogen and cogen-multiagent, as PPO's).
 
 Writes per-iteration metrics to ``<log-dir>/train_results.csv``, saves the
-policy, optimizer and generator state, and the generic rollout's env
-states and obs, with ``torch.save`` every ``--save-every`` iterations
-(``<log-dir>/checkpoints/step_<i>.pt``), and resumes from the newest
-checkpoint of ``--restore``. ``--eval-every N`` runs the deterministic
-actor (mean action, or the most likely bins) over one episode of
+whole carry (every network, target and optimizer state, SAC's
+``log_alpha``, the env states and obs, the off-policy ring, ``written``
+and DQN's ``iter``) and the generator state with ``torch.save`` every
+``--save-every`` iterations (``<log-dir>/checkpoints/step_<i>.pt``), and
+resumes from the newest checkpoint of ``--restore``, which must match the
+trainer's carry entry for entry. ``--eval-every N`` runs the deterministic
+actor (``train_step.actor_fn``: mean action, most likely bins, greedy Q
+action) over one episode of
 ``--eval-episodes`` envs every N iterations (``core.batch_rollout``, its
 episode loop replayed from one CUDA graph across evaluations on the
 card), appends the mean return (of a multi-agent view: the agents'
@@ -57,44 +71,78 @@ import json
 import os
 import time
 
-# the generic rollout's carry besides the policy and its optimizer
+# the env carry: replaced on restore (its tensors may alias one another,
+# as a reset's); every other tensor is copied into in place
 ENV_CARRY = ("env_states", "obs")
+
+
+def _kind(value) -> str:
+    """How a carry entry is saved: a module's or an optimizer's state
+    dict, or the tensor leaves of anything else."""
+    import torch
+    from torch import nn
+    if isinstance(value, nn.Module):
+        return "module"
+    if isinstance(value, torch.optim.Optimizer):
+        return "optimizer"
+    return "tensors"
 
 
 def save_checkpoint(path: str, carry: dict, generator, step: int) -> None:
     import torch
+
     from sustaingym_tpu_torch.core.graph import tree_leaves
     os.makedirs(path, exist_ok=True)
-    torch.save({"iteration": step,
-                "policy": carry["policy"].state_dict(),
-                "opt": carry["opt"].state_dict(),
-                "generator": generator.get_state(),
-                "envs": [x.cpu() for k in ENV_CARRY if k in carry
-                         for x in tree_leaves(carry[k])]},
+    kinds = {k: _kind(v) for k, v in carry.items()}
+    payload = {k: (v.state_dict() if kinds[k] != "tensors" else
+                   [x.detach().cpu() for x in tree_leaves(v)])
+               for k, v in carry.items()}
+    torch.save({"iteration": step, "generator": generator.get_state(),
+                "carry": payload, "kinds": kinds},
                os.path.join(path, f"step_{step}.pt"))
 
 
 def restore_checkpoint(path: str, carry: dict, generator) -> int:
     """Loads the newest ``step_<i>.pt`` of ``path`` into ``carry`` and
-    ``generator``; returns its iteration."""
+    ``generator``; returns its iteration. A checkpoint whose entries,
+    kinds or tensor shapes differ from ``carry``'s is refused."""
     import torch
+
     from sustaingym_tpu_torch.core import tree_map
+    from sustaingym_tpu_torch.core.graph import tree_leaves
     steps = sorted(int(f[5:-3]) for f in os.listdir(path)
                    if f.startswith("step_") and f.endswith(".pt"))
     if not steps:
         raise SystemExit(f"no step_<i>.pt checkpoint in {path}")
     ckpt = torch.load(os.path.join(path, f"step_{steps[-1]}.pt"),
                       map_location="cpu", weights_only=True)
-    carry["policy"].load_state_dict(ckpt["policy"])
-    carry["opt"].load_state_dict(ckpt["opt"])
+    kinds = {k: _kind(v) for k, v in carry.items()}
+    if ckpt.get("kinds") != kinds:
+        raise SystemExit(f"{path}: the checkpoint's carry "
+                         f"{ckpt.get('kinds')} does not match this "
+                         f"trainer's {kinds}")
+    for k, kind in kinds.items():
+        saved = ckpt["carry"][k]
+        if kind != "tensors":
+            try:
+                carry[k].load_state_dict(saved)
+            except (RuntimeError, ValueError, KeyError) as e:
+                raise SystemExit(f"{path}: the checkpoint's {k} does not "
+                                 f"match this trainer's: {e}") from e
+            continue
+        leaves = tree_leaves(carry[k])
+        if [(x.shape, x.dtype) for x in saved] != [(x.shape, x.dtype)
+                                                   for x in leaves]:
+            raise SystemExit(f"{path}: the checkpoint's {k} does not match "
+                             f"this trainer's")
+        if k in ENV_CARRY:
+            it = iter(saved)
+            carry[k] = tree_map(lambda x: next(it).to(x.device), carry[k])
+        else:
+            with torch.no_grad():
+                for dst, src in zip(leaves, saved):
+                    dst.copy_(src)
     generator.set_state(ckpt["generator"])
-    saved = iter(ckpt["envs"])
-    for k in ENV_CARRY:
-        if k in carry:
-            carry[k] = tree_map(lambda x: next(saved).to(x.device), carry[k])
-    if next(saved, None) is not None:
-        raise SystemExit(f"{path}: the checkpoint's env carry does not "
-                         f"match this trainer's")
     return int(ckpt["iteration"])
 
 
@@ -112,7 +160,9 @@ def read_best(csv_path: str) -> float:
 
 
 def make_evaluator(env, env_params, train_step, episodes: int, seed: int):
-    """``evaluate(policy, i) -> row``: the deterministic actor over one
+    """``evaluate(nets, i) -> row``: the deterministic actor
+    (``train_step.actor_fn`` of ``nets``, the carry's
+    ``train_step.actor_key``) over one
     episode of ``episodes`` envs (``core.batch_rollout``), reset days
     drawn from a generator seeded by ``seed`` and ``i``. The row holds
     ``mean_return`` and the mean of every float info field. One
@@ -127,15 +177,15 @@ def make_evaluator(env, env_params, train_step, episodes: int, seed: int):
     device = env_params.device
     graphs = Graphs(device)
     gen = torch.Generator(device=device)
-    actor = train_step.actor
+    actor = train_step.actor_fn
 
-    def eval_policy(policy, obs, generator):
-        return actor(policy, obs)
+    def eval_policy(nets, obs, generator):
+        return actor(nets, obs)
 
     @torch.no_grad()
-    def evaluate(policy, i: int) -> dict:
+    def evaluate(nets, i: int) -> dict:
         gen.manual_seed(seed + 500_000 + i)
-        traj = batch_rollout(env, env_params, eval_policy, policy, gen,
+        traj = batch_rollout(env, env_params, eval_policy, nets, gen,
                              episodes, ep_len, graphs=graphs)
         reward = traj.reward
         if reward.ndim == 3:            # a view's agents: their sum
@@ -162,7 +212,11 @@ def main(argv: list[str] | None = None) -> None:
                              "e.g. '{\"site\": \"jpl\"}'; building's "
                              "default reads the raw OfficeSmall/Tucson "
                              "tables")
-    parser.add_argument("--algo", default="ppo", choices=["ppo", "a2c"])
+    parser.add_argument("--algo", default="ppo",
+                        choices=["ppo", "a2c", "sac", "dqn", "ddpg"],
+                        help="ppo/a2c (on-policy), or sac, dqn (double-DQN "
+                             "for discrete envs), ddpg (TD3-style): "
+                             "off-policy over the on-device replay ring")
     parser.add_argument("--device", default="cuda",
                         help="torch device, e.g. cuda (default) or cpu")
     parser.add_argument("--iterations", type=int, default=50)
@@ -204,7 +258,12 @@ def main(argv: list[str] | None = None) -> None:
     import torch
 
     from sustaingym_tpu_torch import make
-    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    from sustaingym_tpu_torch.parallel import (DDPGConfig, DQNConfig,
+                                               PPOConfig, SACConfig,
+                                               make_ddpg_train_step,
+                                               make_dqn_train_step,
+                                               make_sac_train_step,
+                                               make_train_step)
 
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -217,12 +276,22 @@ def main(argv: list[str] | None = None) -> None:
     reward_scale = args.reward_scale
     if reward_scale is None:
         reward_scale = 1e-4 if args.env.startswith("cogen") else 1.0
-    cfg = PPOConfig(num_envs=args.num_envs, rollout_len=args.rollout_len,
-                    hidden=args.hidden, lr=args.lr,
-                    gamma=args.gamma, epochs=args.epochs,
-                    minibatches=args.minibatches, reward_scale=reward_scale,
-                    obs_bf16=args.obs_bf16, algo=args.algo)
-    init_state, train_step = make_train_step(env, env_params, cfg)
+    common = dict(num_envs=args.num_envs, rollout_len=args.rollout_len,
+                  hidden=args.hidden, lr=args.lr, gamma=args.gamma)
+    if args.algo == "sac":
+        cfg = SACConfig(**common)
+        init_state, train_step = make_sac_train_step(env, env_params, cfg)
+    elif args.algo == "dqn":
+        cfg = DQNConfig(reward_scale=reward_scale, **common)
+        init_state, train_step = make_dqn_train_step(env, env_params, cfg)
+    elif args.algo == "ddpg":
+        cfg = DDPGConfig(**common)
+        init_state, train_step = make_ddpg_train_step(env, env_params, cfg)
+    else:
+        cfg = PPOConfig(epochs=args.epochs, minibatches=args.minibatches,
+                        reward_scale=reward_scale, obs_bf16=args.obs_bf16,
+                        algo=args.algo, **common)
+        init_state, train_step = make_train_step(env, env_params, cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     carry = init_state(gen)
@@ -244,7 +313,7 @@ def main(argv: list[str] | None = None) -> None:
 
     def run_eval(i: int, eval_f):
         nonlocal best, eval_writer
-        row = evaluate(carry["policy"], i)
+        row = evaluate(carry[train_step.actor_key], i)
         if eval_writer is None:
             if eval_f.tell() > 0:
                 with open(eval_csv, newline="") as prev:

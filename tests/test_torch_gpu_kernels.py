@@ -924,3 +924,102 @@ def test_captured_ma_trainer_reinit_drops_its_graphs(cuda, tmp_path, case):
     (pa, ma), (pb, mb) = runs
     assert ma == mb
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+# ---------------------------------------------------------------------------
+# the off-policy learners (SAC, DQN, DDPG): no kernel, captured train steps
+# ---------------------------------------------------------------------------
+
+OFF_POLICY_CASES = {
+    # ring capacity 16 of rollout_len 4: one block write a train step
+    "sac ev block": ("evcharging", {"project_action": False}, "sac",
+                     dict(capacity=16)),
+    # capacity 6: per-step writes, wrapping in the second step
+    "sac ev per-step": ("evcharging", {"project_action": False}, "sac",
+                        dict(capacity=6, per_env_sample=True)),
+    "dqn market": ("electricitymarket", {"discrete": True}, "dqn",
+                   dict(capacity=16)),
+    "dqn ma-ev per-step": ("evcharging-multiagent",
+                           {"discrete_bins": 5, "project_action": False},
+                           "dqn", dict(capacity=6, num_envs=16)),
+    "ddpg market per-step": ("electricitymarket", {}, "ddpg",
+                             dict(capacity=6)),
+}
+
+
+def _off_policy(dev, case, capture=True, **overrides):
+    from sustaingym_tpu_torch import parallel as P
+    name, kwargs, algo, cfg_kw = OFF_POLICY_CASES[case]
+    env, p = make(name, device=dev, **kwargs)
+    config, factory = {"sac": (P.SACConfig, P.make_sac_train_step),
+                       "dqn": (P.DQNConfig, P.make_dqn_train_step),
+                       "ddpg": (P.DDPGConfig, P.make_ddpg_train_step)}[algo]
+    kw = dict(num_envs=64, rollout_len=4, batch_per_env=2, updates=3,
+              hidden=32)
+    kw.update(cfg_kw)
+    kw.update(overrides)
+    cfg = config(**kw)
+    return cfg, factory(env, p, cfg, capture=capture)
+
+
+def _off_policy_runs(dev, case, steps=2):
+    runs = []
+    for capture in (True, False):
+        cfg, (init_state, step) = _off_policy(dev, case, capture)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        carry = init_state(gen)
+        for _ in range(steps):
+            carry, metrics = step(carry, gen)
+        assert (step.graphs is not None) == capture
+        runs.append(({k: t.detach().clone() for k, t in
+                      chip_smoke.carry_tensors(carry).items()},
+                     {k: float(v) for k, v in metrics.items()},
+                     gen.get_state(), carry))
+    return cfg, runs
+
+
+@pytest.mark.parametrize("case", list(OFF_POLICY_CASES))
+def test_captured_off_policy_step_matches_eager(cuda, case):
+    """Two off-policy train steps as CUDA graphs (the rollout into the
+    ring, each update) against the same steps eager from the same carry
+    and generator state: every weight, target, optimizer state and
+    log_alpha, the ring, written, DQN's iter, the carried env states and
+    obs, the metrics and the generator state bit-equal."""
+    _, ((tc, mc, gc, _), (te, me, ge, _)) = _off_policy_runs(cuda, case)
+    assert mc == me and all(np.isfinite(v) for v in mc.values())
+    assert [k for k in tc if not torch.equal(tc[k], te[k])] == []
+    assert torch.equal(gc, ge)
+
+
+@pytest.mark.parametrize("case", ["sac ev block", "dqn market",
+                                  "ddpg market per-step"])
+def test_captured_off_policy_lr0_keeps_every_weight(cuda, case):
+    """lr=0 (and alpha_lr=0 for SAC): one captured train step leaves every
+    online weight and log_alpha bit-equal, with finite losses."""
+    extra = {"alpha_lr": 0.0} if case.startswith("sac") else {}
+    _, (init_state, step) = _off_policy(cuda, case, lr=0.0, **extra)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    carry = init_state(gen)
+    before = {k: t.detach().clone()
+              for k, t in chip_smoke.online_weights(carry).items()}
+    carry, metrics = step(carry, gen)
+    after = chip_smoke.online_weights(carry)
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("case", ["sac ev block", "sac ev per-step"])
+def test_captured_off_policy_ring_holds_the_eager_transitions(cuda, case):
+    """After one train step the captured trainer's ring holds the eager
+    one's transitions in the same slots (a block write, and per-step
+    writes), written == rollout_len, the slots past it still zero, and
+    each slot's next_obs is the next slot's obs."""
+    cfg, ((_, _, _, cc), (_, _, _, ce)) = _off_policy_runs(cuda, case, 1)
+    T = cfg.rollout_len
+    assert int(cc["written"]) == int(ce["written"]) == T
+    for k in cc["buffer"]:
+        assert torch.equal(cc["buffer"][k], ce["buffer"][k]), k
+    ring = cc["buffer"]
+    assert not ring["obs"][T:].any()
+    assert ring["obs"][:T].abs().sum() > 0
+    assert torch.equal(ring["next_obs"][:T - 1], ring["obs"][1:T])

@@ -365,7 +365,14 @@ def test_package_imports_no_jax():
             "sustaingym_tpu_torch.core.rollout, "
             "sustaingym_tpu_torch.core.graph, sustaingym_tpu_torch.bench, "
             "sustaingym_tpu_torch.data.ev_gmm, "
-            "sustaingym_tpu_torch.envs.multiagent; "
+            "sustaingym_tpu_torch.envs.multiagent, "
+            "sustaingym_tpu_torch.parallel.replay, "
+            "sustaingym_tpu_torch.parallel.offpolicy, "
+            "sustaingym_tpu_torch.parallel.sac, "
+            "sustaingym_tpu_torch.parallel.dqn, "
+            "sustaingym_tpu_torch.parallel.ddpg, "
+            "sustaingym_tpu_torch.parallel.runner, "
+            "sustaingym_tpu_torch.parallel.convert; "
             "sustaingym_tpu_torch.make('evcharging', device='cpu'); "
             "sustaingym_tpu_torch.make('cogen', device='cpu'); "
             "sustaingym_tpu_torch.make('evcharging-multiagent', "
@@ -410,7 +417,8 @@ def test_train_cli_refuses_missing_cuda(tmp_path):
                                   "evcharging-multiagent",
                                   "building-multiagent", "cogen-multiagent"])
 def test_entry_points_default_to_the_card(name, tmp_path):
-    """make(), make_params(), from_jax() and the CLI build on the card
+    """make(), make_params(), from_jax() (of the PPO policy and of the
+    off-policy networks) and the CLI (every algorithm) build on the card
     unless asked for the CPU; without a card the default raises instead of
     moving to the CPU."""
     from sustaingym_tpu_torch import train
@@ -432,8 +440,20 @@ def test_entry_points_default_to_the_card(name, tmp_path):
         params[name]()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         from_jax(_jax_policy())
+    from sustaingym_tpu.parallel import dqn as jdqn
+    from sustaingym_tpu.parallel import sac as jsac
+    for tree in (jsac.init_actor(jax.random.PRNGKey(0), 4, 2, 8),
+                 {"q1": jsac.init_critic(jax.random.PRNGKey(1), 4, 2, 8),
+                  "q2": jsac.init_critic(jax.random.PRNGKey(2), 4, 2, 8)},
+                 jdqn.init_qnet(jax.random.PRNGKey(3), 4, 2, 3, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            from_jax(tree)
     with pytest.raises(SystemExit):
         train.main(["--env", name, "--obs-bf16", "--log-dir", str(tmp_path)])
+    for algo in ("sac", "dqn", "ddpg"):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            train.main(["--env", name, "--algo", algo, "--log-dir",
+                        str(tmp_path)])
 
 
 def _generic(rollout_len=16, num_envs=8, **kw):
