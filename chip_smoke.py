@@ -189,19 +189,25 @@ activations):
 
 Slice 7, the off-policy learners (SAC, double-DQN, TD3-style DDPG over
 the on-device replay ring, ``parallel/offpolicy.py``: the rollout into the
-ring and one update are each a CUDA graph; no kernel on this path, as in
-the JAX package, whose learners step through the generic ``autoreset_
-vstep``; every launch count is set to 0 before phase 28 and read after
-phase 34, and must stay 0). Each of the bench's six ``OFF_POLICY``
-trainers takes two captured train steps (env- or agent-steps/s, the
-graphs' warm-up and capture seconds, the peak device memory of the first
-step and of the second, whose difference is the capture's extra), its
+ring and one update are each a CUDA graph; they step through the generic
+autoreset step, as the JAX package's learners do. On the market that
+step solves its SCED LP with one ``pdhg_solve_paired`` launch, each env at
+its own budget; no other kernel is on this path). Each of the bench's six
+``OFF_POLICY`` trainers takes two captured train steps (env- or
+agent-steps/s, the graphs' warm-up and capture seconds, the peak device
+memory of the first step and of the second, whose difference is the
+capture's extra; every launch count set to 0 before them and read after
+them: on the market trainers ``pdhg_solve_paired`` once a step of the
+rollout's warm-up and of each replay, 3 x rollout_len, on the others no
+kernel at all), its
 lr=0 step (``alpha_lr`` 0 for SAC: every online weight and ``log_alpha``
 bit-equal, the targets' Polyak step of equal values printed) with finite
 losses, and one train step captured against eager under
 ``CAPTURE_GATE`` (every weight, target, optimizer state, ``log_alpha``,
 the ring, ``written``, DQN's ``iter``, the carried obs, the metrics and
-the generator state), at ``CHECK_BATCH`` envs, DQN MA EV at its own 128:
+the generator state), at ``CHECK_BATCH`` envs, DQN MA EV at its own 128;
+over each phase the launches are read again: phases 29, 30 and 32 launch
+``pdhg_solve_paired`` and no other kernel, phases 28, 31, 33 and 34 none:
 
 28. SAC on the synthetic building, 4096 x 64;
 29. DQN on the discrete market, 4096 x 32;
@@ -213,6 +219,21 @@ the generator state), at ``CHECK_BATCH`` envs, DQN MA EV at its own 128:
     on EV into a temporary directory: two train steps, then its
     ``eval_results.csv`` (two finite rows), ``best_model`` and a resume.
 
+Slice 8, the solve kernel's per-env budgets and the EV baselines:
+
+35. ``pdhg_solve_paired`` with (B,) int32 budgets on the market's own
+    problems at B = 4096 (``market_problems``: numpy-seeded days and
+    bids), the cold budget of 200 and the warm one of 40 drawn per env:
+    against its plain version under ``check_solve``'s gates; each env
+    bit-equal to a launch with one int budget, its own; the int launches'
+    outputs (cold, then warm) bit-equal to the kernel before per-env
+    budgets, by their SHA-256 (``PARENT_PDHG_INT_DIGEST``); the mixed
+    launch and the uniform cold and warm ones timed (CUDA events);
+36. the EV baselines on the card against their CPU runs:
+    ``offline_optimal_schedule`` of the busiest day and ``batch_run``'s
+    lockstep loop (``algorithms.batch_returns``) with the greedy policy
+    over 64 seeds x 288 steps (``baselines_on_card``).
+
 ``python3 chip_smoke.py --profile`` adds, for each trainer captured and
 the same trainer eager (``capture=False``, the before): its phases
 (rollout, re-scoring + GAE, minibatch updates) on the host clock with
@@ -220,7 +241,11 @@ the same trainer eager (``capture=False``, the before): its phases
 in each phase (``cudaLaunchKernel``, ``cudaGraphLaunch``, memcpy and
 memset, from ``torch.profiler``) and the update's calls per minibatch;
 the graphs' warm-up and capture + instantiate time; and the device's busy
-time over one whole train step from ``torch.profiler``. For each
+time over one whole train step from ``torch.profiler``; for EV and the
+fused building trainer the updates' device time split into GEMMs, dtype
+casts (the bf16 rounding), other copies, the foreach Adam and gradient
+clip, and the loss (``update_split``; also ``tools/update_split.py``); for the EV generic trainer the share of its captured
+rollout that its whole-batch resets take (captured alone). For each
 off-policy trainer, captured and eager: the rollout, the updates and the
 train step on the host clock, and the device's busy time over a captured
 step; the market trainers' share of their captured rollout spent in the
@@ -234,7 +259,9 @@ a JSON object with, for each TPU kernel's counterpart (the slice gather
 twice: it replaces both TPU gathers), its launches in its slice's
 main-path run (phases 5-6, 10, 12, 14 and 17; the slice gather's in 10, 12
 and 17; ``ev_segment_admm``, the ADMM branch of ``ev_segment``, in phase
-18's simulation tier), its largest difference from the plain version,
+18's simulation tier; ``pdhg_solve_paired`` in 14 and in the market
+trainers' captured steps of 29, 30 and 32), its largest difference from
+the plain version (``pdhg_solve_paired``'s also over phase 35),
 its time, the plain version's and the library call's, and its bound (the
 least time the card could take: the larger of its bytes over the memory
 rate and its operations over the peak rate for their type); the last line
@@ -244,6 +271,7 @@ without one.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -460,11 +488,12 @@ def phase_launches(prof) -> dict:
 
 
 def profile_train_step(label: str, train_step, carry, generator, cfg,
-                       tag: str):
+                       tag: str) -> float:
     """Phase times of the train step (host clock, synchronised between
     phases), then one traced step (``torch.profiler``, the phases in
     ``record_function`` ranges): the host's launch calls in each phase,
-    the graphs' warm-up and capture time, and the device's busy time."""
+    the graphs' warm-up and capture time, and the device's busy time.
+    Returns the rollout's ms (the second iteration's)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -522,13 +551,83 @@ def profile_train_step(label: str, train_step, carry, generator, cfg,
     if busy_ms == 0:
         print(f"profile {label}: the trace holds no device time (not "
               f"measured) {tag}")
-        return
+        return roll_ms
     print(f"profile {label}: traced phases {traced_ms:.1f} ms wall, device "
           f"busy {busy_ms:.1f} ms = {busy_ms / step_ms:.1%} of the untraced "
           f"step {step_ms:.1f} ms {tag}")
     for e in events[:10]:
         print(f"  {_dev_us(e) / 1e3:9.1f} ms device  {e.count:6d} calls  "
               f"{e.key[:90]}")
+    return roll_ms
+
+
+def update_kind(name: str) -> str:
+    """The kind of one of the PPO update's device kernels, by its name.
+    A copy kernel is a dtype cast (the bf16 rounding ``x.to(bf16).float()``
+    and the bf16 obs read back as float32) when it is PyTorch's float ->
+    bf16 copy or a ``direct_copy`` that loads or stores with a cast; any
+    other copy (``torch.cat``, ``.contiguous``, a same-dtype gather) is
+    kept apart, with the graph's memcpy nodes. Every kernel of no other kind is the loss (its forward
+    and backward elementwise work and reductions)."""
+    n = name.lower()
+    if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "splitk")):
+        return "GEMMs"
+    if "bfloat16_copy" in n or ("direct_copy" in n and (
+            "withcast" in n or "gpu_kernel_impl<" in n)):
+        return "dtype casts"
+    if "copy" in n or "memcpy" in n:
+        return "other copies"
+    if "multi_tensor" in n or "foreach" in n:
+        return "Adam and the gradient clip (foreach)"
+    return "loss"
+
+
+UPDATE_KINDS = ("GEMMs", "dtype casts", "other copies",
+                "Adam and the gradient clip (foreach)", "loss")
+# the trainers whose update ``--profile`` splits by kind
+UPDATE_SPLIT = ("EV", "building fused")
+
+
+def update_split(label: str, train_step, carry, generator, cfg, tag: str):
+    """One traced run of the train step's minibatch updates
+    (``torch.profiler``): its device time split into ``UPDATE_KINDS``
+    (:func:`update_kind`), with each kind's top kernels (the copies' by
+    their whole name, which shows the casts)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    policy, opt = carry["policy"], carry["opt"]
+    flat = train_step.score(policy, train_step.rollout(policy, generator,
+                                                       carry))
+    train_step.update(policy, opt, flat, generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step.update(policy, opt, flat, generator)
+        torch.cuda.synchronize()
+    kinds: dict[str, list] = {k: [] for k in UPDATE_KINDS}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or _dev_us(e) == 0 \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        kinds[update_kind(e.key)].append(e)
+    total = sum(_dev_us(e) for v in kinds.values() for e in v) / 1e3
+    if total == 0:
+        print(f"profile {label} update split: the trace holds no device "
+              f"time (not measured) {tag}", flush=True)
+        return
+    split = {k: sum(_dev_us(e) for e in v) / 1e3 for k, v in kinds.items()}
+    print(f"profile {label} update split (device ms over "
+          f"{cfg.epochs * cfg.minibatches} minibatch updates, total "
+          f"{total:.1f}): "
+          + ", ".join(f"{k} {ms:.1f} ({ms / total:.1%})"
+                      for k, ms in split.items()) + f" {tag}", flush=True)
+    for k, v in kinds.items():
+        for e in sorted(v, key=_dev_us, reverse=True)[:3]:
+            name = e.key if "copies" in k or "casts" in k else e.key[:80]
+            print(f"  {k}: {_dev_us(e) / 1e3:8.1f} ms {e.count:6d} calls "
+                  f"{name}")
 
 
 def profile_trainers(tag: str):
@@ -543,8 +642,25 @@ def profile_trainers(tag: str):
             init_state, step = make_train_step(env, p, cfg, capture=capture)
             tgen = torch.Generator(device=p.device).manual_seed(seed)
             carry = init_state(tgen)
-            profile_train_step(f"{label} {'captured' if capture else 'eager'}",
-                               step, carry, tgen, cfg, tag)
+            kind = "captured" if capture else "eager"
+            roll_ms = profile_train_step(f"{label} {kind}", step, carry,
+                                         tgen, cfg, tag)
+            if label in UPDATE_SPLIT:
+                update_split(f"{label} {kind}", step, carry, tgen, cfg,
+                             tag)
+            if label == "EV generic" and capture:
+                # the whole-batch reset of every generic step, captured
+                # alone rollout_len times at the trainer's batch
+                rgen = torch.Generator(device=p.device).manual_seed(seed)
+
+                def resets():
+                    for _ in range(cfg.rollout_len):
+                        env.reset(p, rgen, cfg.num_envs)
+                reset_ms = captured_ms(resets, generators=(rgen,))
+                print(f"profile {label}: {cfg.rollout_len} whole-batch "
+                      f"resets at {cfg.num_envs} envs captured alone "
+                      f"{reset_ms:.1f} ms = {reset_ms / roll_ms:.1%} of the "
+                      f"captured rollout {roll_ms:.1f} ms {tag}", flush=True)
             del init_state, step, carry
     free_cuda()
 
@@ -970,7 +1086,7 @@ def f64_operands(kops):
         for f in ("A", "S", "G", "tau", "sigma_a", "sigma_s", "sigma_g")}))
 
 
-def check_solve(case: str, kops, args, iters: int, tag: str) -> float:
+def check_solve(case: str, kops, args, iters, tag: str) -> float:
     """``pdhg_solve_paired`` against its plain version. A float32 sum in
     another order can flip the bf16 rounding of an iterate, which the
     following iterations carry on, so some entries of a large batch leave
@@ -978,14 +1094,17 @@ def check_solve(case: str, kops, args, iters: int, tag: str) -> float:
     its sums: the plain version in float32 against the plain version
     summing in float64. The gate, for each output: the share of entries
     outside rtol 1e-4 / atol 2e-3 and max |d| over the output's largest
-    |value| each at most 1% or twice the yardstick's. Returns max |d|."""
+    |value| each at most 1% or twice the yardstick's. ``iters``: an int,
+    or (B,) int32 per-env budgets. Returns max |d|."""
     from sustaingym_tpu_torch.ops.cuda import lp_solve as K9
     got = K9.pdhg_solve_paired(kops, *args, iters)
     plain = K9.pdhg_solve_paired_ref(kops, *args, iters)
     wide = K9.pdhg_solve_paired_ref(f64_operands(kops),
                                     *(a.double() for a in args), iters)
     diffs, yard = solve_diffs(got, plain), solve_diffs(plain, wide)
-    print(f"pdhg_solve_paired {case} {iters} iterations: kernel vs plain "
+    what = (f"{iters} iterations" if isinstance(iters, int)
+            else "per-env budgets")
+    print(f"pdhg_solve_paired {case} {what}: kernel vs plain "
           f"(share outside, max|d|, max|d| / max|plain|) {diffs}; plain "
           f"float32 vs float64 sums {yard} {tag}", flush=True)
     if not all(share <= max(0.01, 2 * yard[k][0])
@@ -1227,6 +1346,146 @@ def market_slice(tag: str, want_profile: bool) -> list:
          "plain_ms": plain_ms, "bound_ms": warm_bound[0],
          "bound_by": warm_bound[1], "library_ms": None},
     ]
+
+
+# phase 35: batch and numpy seed of its market problems
+MIXED_BATCH, MIXED_SEED = 4096, 35
+# SHA-256 of pdhg_solve_paired's outputs with one int budget (cold, then
+# warm) on phase 35's problems, from the kernel before per-env budgets
+# (lp_solve.cu of commit 4cab02f) on an NVIDIA H100 80GB HBM3. It holds
+# only while the problems stay the same: a change to the market's problem
+# assembly (``_sced_problem``, ``make_params``' defaults, the packing of
+# ``pack_pdhg_operands``), to ``market_problems`` or to the toolchain
+# invalidates it, with the kernel unchanged. To regenerate it, unpack
+# that commit into a git-ignored directory (``git archive 4cab02f``) and
+# run ``python3 tools/kernel_times.py --root DIR`` on the card with this
+# checkout's tools/ (it prints ``pdhg_int_digest``)
+PARENT_PDHG_INT_DIGEST = (
+    "50bb0e07e6525017131f8e8e71947f7953ed8a6767274001d1ec7fe2ae61bdeb")
+
+
+def market_problems(env, p, batch: int, seed: int):
+    """``batch`` SCED problems of the market's first step, in
+    ``pdhg_solve_paired``'s operand order: days and bids (uniform over the
+    action box) drawn with numpy from ``seed``."""
+    import torch
+    from sustaingym_tpu_torch.envs.electricitymarket.env import MAX_BID
+    rng = np.random.default_rng(seed)
+    days = torch.as_tensor(rng.integers(0, p.n_days, batch),
+                           device=p.device)
+    bids = torch.as_tensor(rng.uniform(0, MAX_BID, (batch, 2 * p.horizon)),
+                           dtype=torch.float32, device=p.device)
+    state, _ = env.reset_at_day(p, days)
+    c, b, h, init, _ = env._sced_problem(p, state, bids)
+    ms = p.op.ms
+    return (c, b, h[:, :ms].contiguous(), h[:, ms:].contiguous(), p.ub,
+            init.x, init.y, init.z[:, :ms].contiguous(),
+            init.z[:, ms:].contiguous())
+
+
+def pdhg_int_digest(env, p, K9) -> str:
+    """SHA-256 of ``pdhg_solve_paired``'s (x, y, zp, zm) with one int
+    budget, the cold one then the warm one, on phase 35's problems. Calls
+    only what every version of the wrapper has, so it reads the kernel of
+    any checkout (``tools/kernel_times.py --root``)."""
+    kops = K9.pack_pdhg_operands(p.op)
+    market = market_problems(env, p, MIXED_BATCH, MIXED_SEED)
+    digest = hashlib.sha256()
+    for iters in (p.op.iters, p.lp_warm_iters):
+        for x in K9.pdhg_solve_paired(kops, *market, iters):
+            digest.update(x.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def mixed_budgets(tag: str) -> float:
+    """Phase 35: ``pdhg_solve_paired`` with per-env budgets, the cold and
+    the warm one mixed in one batch, on the market's own problems at B =
+    4096: against its plain version (``check_solve``'s gates); each env
+    bit-equal to a launch with one int budget, its own; the int launches'
+    outputs bit-equal to the parent kernel's (``PARENT_PDHG_INT_DIGEST``);
+    times of the mixed launch and of the uniform ones (CUDA events).
+    Returns the largest difference from the plain version."""
+    import torch
+    from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.ops.cuda import lp_solve as K9
+    env, p = make("electricitymarket", device=torch.device("cuda"))
+    cold, warm, B = p.op.iters, p.lp_warm_iters, MIXED_BATCH
+    market = market_problems(env, p, B, MIXED_SEED)
+    rng = np.random.default_rng(MIXED_SEED + 1)
+    budget = torch.as_tensor(rng.choice([cold, warm], B), dtype=torch.int32,
+                             device=p.device)
+    err = check_solve(f"market problems B={B}, cold {cold} and warm {warm} "
+                      f"mixed,", p.kops, market, budget, tag)
+    got = K9.pdhg_solve_paired(p.kops, *market, budget)
+    equal = {}
+    for k in (cold, warm):
+        rows = budget == k
+        uniform = K9.pdhg_solve_paired(p.kops, *market, k)
+        equal[k] = all(torch.equal(g[rows], u[rows])
+                       for g, u in zip(got, uniform))
+    digest = pdhg_int_digest(env, p, K9)
+    mixed_ms = cuda_ms(lambda: K9.pdhg_solve_paired(p.kops, *market, budget),
+                       5)
+    cold_ms = cuda_ms(lambda: K9.pdhg_solve_paired(p.kops, *market, cold), 5)
+    warm_ms = cuda_ms(lambda: K9.pdhg_solve_paired(p.kops, *market, warm), 5)
+    share = float((budget == cold).double().mean())
+    print(f"pdhg_solve_paired mixed budgets B={B} ({share:.1%} cold): each "
+          f"env bit-equal to a uniform launch at its own budget {equal}; "
+          f"int launches' digest {digest}, the parent kernel's "
+          f"{PARENT_PDHG_INT_DIGEST}: bit-equal "
+          f"{digest == PARENT_PDHG_INT_DIGEST}; mixed launch {mixed_ms:.4f} "
+          f"ms, uniform cold {cold_ms:.4f} ms, uniform warm {warm_ms:.4f} ms "
+          f"(CUDA events) {tag}", flush=True)
+    if not all(equal.values()):
+        fail("pdhg_solve_paired: an env with its own budget differs from "
+             "the uniform launch at that budget")
+    if digest != PARENT_PDHG_INT_DIGEST:
+        fail("pdhg_solve_paired: the int budget's outputs differ from the "
+             "parent kernel's")
+    return err
+
+
+def baselines_on_card(tag: str):
+    """Phase 36: the EV baselines' batched paths on the card against the
+    same runs on the CPU: ``offline_optimal_schedule`` of the busiest day
+    (3000 PDHG iterations; |d| <= 2e-3 on pilots in [0, 1], the bound of
+    its JAX comparison), and ``batch_returns``, the lockstep loop of
+    ``batch_run``, with the greedy policy over 64 seeds x 288 steps (each
+    return within rtol 2e-4 / atol 2e-3: the EV step's parity bound,
+    float32 sums in another order, over an episode)."""
+    import torch
+    from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.algorithms import batch_returns
+    from sustaingym_tpu_torch.algorithms.evcharging import (
+        offline_optimal_schedule)
+
+    def greedy(obs, generator):
+        return (obs["demands"] > 0).to(torch.float32)
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        env, p = make("evcharging", device=dev)
+        day = int(torch.argmax(p.day_num_evs))
+        t0 = time.perf_counter()
+        sched = offline_optimal_schedule(p, day).cpu()
+        t1 = time.perf_counter()
+        rets = batch_returns(env, p, greedy, range(64), STEPS).cpu()
+        t2 = time.perf_counter()
+        runs[dev] = sched, rets, t1 - t0, t2 - t1
+    (sc, rc, sc_s, rc_s), (sh, rh, sh_s, rh_s) = runs["cuda"], runs["cpu"]
+    d_sched = float((sc - sh).abs().max())
+    d_ret = (rc.double() - rh.double()).abs()
+    ok_ret = bool((d_ret <= 2e-3 + 2e-4 * rh.double().abs()).all())
+    lo, hi = float(sc.min()), float(sc.max())
+    print(f"offline_optimal_schedule day {day}: card {sc_s:.3f} s, CPU "
+          f"{sh_s:.3f} s, max |d| {d_sched:.3e} (pilots in [{lo:.3f}, "
+          f"{hi:.3f}]); batch_run greedy 64 seeds x "
+          f"{STEPS}: card {rc_s:.3f} s, CPU {rh_s:.3f} s, returns mean "
+          f"{float(rc.mean()):.6f}, max |d| {float(d_ret.max()):.3e} {tag}",
+          flush=True)
+    if not (d_sched <= 2e-3 and lo >= 0 and hi <= 1 and ok_ret
+            and bool(torch.isfinite(rc).all())):
+        fail("the EV baselines on the card differ from their CPU runs")
 
 
 BUILDING_FIELDS = ("obs", "zone_temperature", "reward", "comfort_level",
@@ -1768,10 +2027,16 @@ def run_off_policy(label: str, env, p, seed: int, tag: str, steps: int = 2):
     the bench's configuration (host clock, synchronised; the first holds
     the graphs' warm-up and capture, printed apart), the peak device memory
     of each step (their difference: the capture's extra), each metric
-    finite."""
+    finite; every kernel's launches over the steps, counted from 0: on the
+    market, ``pdhg_solve_paired`` once a step of the rollout's warm-up
+    and of each of its replays ((steps + 1) x rollout_len), every other
+    kernel never. Returns (cfg, the solve kernel's launches)."""
     import torch
     from sustaingym_tpu_torch.bench import off_policy_trainer
+    from sustaingym_tpu_torch.core.graph import counted_wrappers
     free_cuda()
+    for w in counted_wrappers():
+        w.launches = 0
     cfg, init_state, train_step = off_policy_trainer(label, env, p)
     tgen = torch.Generator(device=p.device).manual_seed(seed)
     carry = init_state(tgen)
@@ -1805,9 +2070,17 @@ def run_off_policy(label: str, env, p, seed: int, tag: str, steps: int = 2):
           f"memory {peaks[0]:.3f} GiB in the first step (the captures), "
           f"{peaks[-1]:.3f} GiB in the last: the capture's extra "
           f"{peaks[0] - peaks[-1]:.3f} GiB {tag}", flush=True)
+    launches = {w.__name__: w.launches for w in counted_wrappers()}
+    solves = (steps + 1) * cfg.rollout_len \
+        if env.name == "electricitymarket" else 0
+    want = {k: solves if k == "pdhg_solve_paired" else 0 for k in launches}
+    print(f"{label}: kernel launches over its {steps} train steps "
+          f"{launches} (required: {want}) {tag}", flush=True)
+    if launches != want:
+        fail(f"{label}: kernel launches {launches}, required {want}")
     del init_state, train_step, carry, graphs
     free_cuda()
-    return cfg
+    return cfg, launches["pdhg_solve_paired"]
 
 
 def check_off_policy_lr0(label: str, env, p, seed: int, tag: str,
@@ -1913,10 +2186,12 @@ def off_policy_cli(tag: str):
         shutil.rmtree(log)
 
 
-def off_policy_slice(tag: str, want_profile: bool):
+def off_policy_slice(tag: str, want_profile: bool) -> int:
     """Phases 28-34 (module docstring): each off-policy trainer's captured
-    steps, lr=0 step and captured-vs-eager check, the SAC CLI; the
-    kernels' launch counts over the slice, all 0."""
+    steps (with their launch gate), lr=0 step and captured-vs-eager check,
+    the SAC CLI; each phase's kernel launches: ``pdhg_solve_paired`` alone
+    on the market trainers, none elsewhere. Returns the solve kernel's
+    launches in the trainers' captured steps (their main path)."""
     import shutil
     import tempfile
 
@@ -1926,29 +2201,41 @@ def off_policy_slice(tag: str, want_profile: bool):
 
     dev = torch.device("cuda")
     tables = tempfile.mkdtemp(prefix="chip_smoke_off_policy_tables_")
-    for w in counted_wrappers():
-        w.launches = 0
     t0 = time.perf_counter()
+    main_path_solves = 0
+
+    def gate_phase(label: str, market: bool):
+        launches = {w.__name__: w.launches for w in counted_wrappers()}
+        print(f"{label}: kernel launches over its phase {launches} {tag}",
+              flush=True)
+        others = {k: v for k, v in launches.items()
+                  if v and not (market and k == "pdhg_solve_paired")}
+        if others or (market and not launches["pdhg_solve_paired"]):
+            fail(f"{label}: kernel launches {launches}")
+
     try:
         for seed, (label, entry) in enumerate(OFF_POLICY.items(), 40):
             env, p = make_env(entry[2], dev, tables, **entry[3])
-            cfg = run_off_policy(label, env, p, seed, tag)
+            cfg, solves = run_off_policy(label, env, p, seed, tag)
+            main_path_solves += solves
             batch = OFF_POLICY_CHECK.get(label, min(CHECK_BATCH,
                                                     cfg.num_envs))
             check_off_policy_lr0(label, env, p, seed, tag, batch)
             check_off_policy_captured(label, env, p, seed, tag, batch)
+            gate_phase(label, env.name == "electricitymarket")
             if want_profile:
                 OFF_POLICY_PROFILE.append((label, env, p, seed))
+        for w in counted_wrappers():
+            w.launches = 0
         off_policy_cli(tag)
+        gate_phase("SAC CLI", False)
     finally:
         shutil.rmtree(tables)
-    launches = {w.__name__: w.launches for w in counted_wrappers()}
-    print(f"off-policy slice: kernel launches {launches} (no kernel on this "
-          f"slice's path) in {time.perf_counter() - t0:.3f} s {tag}",
-          flush=True)
-    if any(launches.values()):
-        fail(f"a kernel launched on the off-policy path: {launches}")
+    print(f"off-policy slice in {time.perf_counter() - t0:.3f} s: "
+          f"pdhg_solve_paired launches {main_path_solves} in the market "
+          f"trainers' captured steps {tag}", flush=True)
     free_cuda()
+    return main_path_solves
 
 
 def captured_ms(fn, generators=(), reps: int = 3) -> float:
@@ -2028,8 +2315,8 @@ def profile_off_policy(tag: str):
                   f"alone {solve_ms:.1f} ms = {solve_ms / roll_ms:.1%} of "
                   f"the captured rollout {roll_ms:.1f} ms, "
                   f"{solve_ms / step_ms:.1%} of the step {step_ms:.1f} ms "
-                  f"(every captured solve runs the cold budget of "
-                  f"{p.op.iters} iterations) {tag}", flush=True)
+                  f"(one pdhg_solve_paired launch a step, each env at its "
+                  f"own budget) {tag}", flush=True)
         if label in ("SAC EV", "DQN MA EV"):
             rgen = torch.Generator(device=p.device).manual_seed(seed)
 
@@ -2287,7 +2574,10 @@ def main() -> int:
         "replaces": "sustaingym_tpu/ops/pallas/exog_gather.py:210"})
     kernels.append(ev_lockstep_slice(tag, want_profile))
     ma_slice(tag, want_profile)
-    off_policy_slice(tag, want_profile)
+    pdhg = next(k for k in kernels if k["name"] == "pdhg_solve_paired")
+    pdhg["launches"] += off_policy_slice(tag, want_profile)
+    pdhg["max_abs_err"] = max(pdhg["max_abs_err"], mixed_budgets(tag))
+    baselines_on_card(tag)
     profile_trainers(tag)
     profile_off_policy(tag)
     print(card_line())

@@ -18,7 +18,7 @@ from .graph import Graphs, tree_leaves
 from .struct import tree_map, tree_stack
 
 __all__ = ["rollout", "batch_reset", "batch_rollout", "episode_return",
-           "random_policy", "episode_loop", "join_episodes"]
+           "random_policy", "episode_loop", "join_episodes", "seeded_reset"]
 
 PolicyFn = Callable[[Any, Any, torch.Generator], Any]
 
@@ -141,3 +141,23 @@ def random_policy(env: FunctionalEnv, params, batch: int | None = None
         return space.sample_batch(generator, batch)
 
     return policy
+
+
+def seeded_reset(env, params, seeds):
+    """(state, timestep) of one env a seed, each at its seed's episode:
+    the env's ``day_from_seed`` / ``epoch_from_seed`` / ``month_from_seed``
+    where it has one, else ``env.reset`` of one env drawn from a
+    generator seeded with the seed (the batches joined)."""
+    seeds = [int(s) for s in seeds]
+    if hasattr(env, "day_from_seed"):
+        return env.reset_at_day(
+            params, [env.day_from_seed(params, s) for s in seeds])
+    if hasattr(env, "epoch_from_seed"):
+        return env.reset_at_epoch(
+            params, [env.epoch_from_seed(params, s) for s in seeds])
+    if hasattr(env, "month_from_seed"):
+        return env.reset_at_month(
+            params, [env.month_from_seed(params, s) for s in seeds])
+    parts = [env.reset(params, torch.Generator(device=params.device)
+                       .manual_seed(s), 1) for s in seeds]
+    return tree_map(lambda *xs: torch.cat(xs), *parts)

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from ...core import resolve_device
+from .datadriven import fit_data_driven
 from .env import (BuildingEnv, BuildingParams, BuildingState, calc_occupower,
                   kernel_config, make_params)
 from .params import (BUILDINGS, GROUND_TEMP, WEATHER, Ufactor, Zone,
@@ -25,6 +26,7 @@ def make_env(building: str = "OfficeSmall", weather: str = "Hot_Dry",
 __all__ = [
     "BuildingEnv", "BuildingParams", "BuildingState", "make_params",
     "make_env", "generate_building_params", "calc_occupower",
-    "kernel_config", "BUILDINGS", "GROUND_TEMP", "WEATHER", "Ufactor", "Zone",
+    "kernel_config", "fit_data_driven", "BUILDINGS", "GROUND_TEMP",
+    "WEATHER", "Ufactor", "Zone",
     "StochasticAmbientGenerator", "generate_stochastic_ambients",
 ]

@@ -233,6 +233,14 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
         return self._obs(params, t, prev_action, self._noisy(
             params, slab[..., :h + 1].transpose(1, 2), generator))
 
+
+    # ---- seeding --------------------------------------------------------
+    @staticmethod
+    def day_from_seed(params: CogenParams, seed: int) -> int:
+        """seed -> episode day: ``seed % n_days``, as the JAX package's
+        ``CogenEnv.day_from_seed``."""
+        return seed % params.n_days
+
     # ---- batched API ----------------------------------------------------
     def reset(self, params: CogenParams, generator: torch.Generator,
               batch: int) -> tuple[CogenState, TimeStep]:

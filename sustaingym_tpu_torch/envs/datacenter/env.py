@@ -146,6 +146,12 @@ def step_core(queue, day_vcc_sum, day_arrivals, a, arrivals, m_t, t):
 class DataCenterEnv(FunctionalEnv[DCParams, DCState]):
     name = "datacenter"
 
+    # ---- seeding --------------------------------------------------------
+    @staticmethod
+    def month_from_seed(params: DCParams, seed: int) -> int:
+        """seed -> episode month: ``seed % n_months``."""
+        return seed % params.n_months
+
     def reset(self, params: DCParams, generator: torch.Generator,
               batch: int) -> tuple[DCState, TimeStep]:
         """``batch`` envs on months drawn uniformly from ``generator``."""

@@ -19,20 +19,24 @@ axis written out (every state tensor is (B, ...)):
 
 The day's load and MOER rows are read by direct indexing,
 ``load[day, t:t+k]`` and ``moer[day, t, :k+1]``: the JAX package's rolled
-state slabs are a TPU workaround. :meth:`ElectricityMarketEnv.batch_unroll`
-runs each lockstep step's solve through the whole-solve CUDA kernel
-(``ops/cuda/lp_solve.py``) when the operator has exactly its math.
+state slabs are a TPU workaround. On the card, when the operator has
+exactly the kernel's math, every solve is one launch of the whole-solve
+CUDA kernel (``ops/cuda/lp_solve.py``): each lockstep step of
+:meth:`ElectricityMarketEnv.batch_unroll` with one budget, and each
+generic :meth:`ElectricityMarketEnv.step` with the per-env budgets on the
+device, so that a CUDA graph captures it.
 """
 from __future__ import annotations
 
 import datetime as dt
 from functools import partial
+from typing import Any
 
 import numpy as np
 import torch
 
 from ...core import (Box, DictSpace, Discrete, FunctionalEnv, TimeStep,
-                     dataclass, resolve_device, tree_stack)
+                     dataclass, replace, resolve_device, tree_stack)
 from ...core.graph import device_const
 from ...core.rollout import episode_loop, join_episodes
 from ...ops import lp
@@ -78,6 +82,10 @@ class MarketParams:
     intermediate_rewards: bool = True
     lp_warm_iters: int = 40       # warm budget (op.iters is the cold one)
     discrete: bool = False
+    # the solve kernel's packed operator (ops/cuda/lp_solve.py::
+    # PDHGOperands), made once on the card when the operator has the
+    # kernel's math; None on the CPU
+    kops: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -131,10 +139,9 @@ def make_params(month: str = "2021-05", horizon: int = 4,
     ``lp_iters`` 200, warm budget 40, preconditioner exponent 0.35.
 
     ``lp_bf16`` rounds the PDHG matrix-product operands to bf16 (float32
-    sums); None resolves to True on the card, where
-    :meth:`ElectricityMarketEnv.batch_unroll` then runs the whole-solve
-    kernel, and False on the CPU (the JAX package resolves it to "on the
-    TPU")."""
+    sums); None resolves to True on the card, where every solve then runs
+    the whole-solve kernel on the operator packed here (``kops``), and
+    False on the CPU (the JAX package resolves it to "on the TPU")."""
     from ...data.ev_etl import build_moer_pack
 
     device = resolve_device(device)
@@ -179,7 +186,7 @@ def make_params(month: str = "2021-05", horizon: int = 4,
     def idx(x):
         return torch.as_tensor(x, dtype=torch.long, device=device)
 
-    return MarketParams(
+    params = MarketParams(
         op=op, ub=f32(mats["ub"]),
         gen_cost_tiled=f32(np.tile(net.gen_cost, horizon)),
         line_rating=f32(net.line_rating), load_sf=f32(mats["load_sf"]),
@@ -189,20 +196,46 @@ def make_params(month: str = "2021-05", horizon: int = 4,
         n_days=n_days, ic=int(mats["ic"]), id=int(mats["id"]),
         intermediate_rewards=bool(intermediate_rewards),
         lp_warm_iters=int(lp_warm_iters), discrete=bool(discrete))
+    if device.type == "cuda" and uses_solve_kernel(params):
+        from ...ops.cuda.lp_solve import pack_pdhg_operands
+        params = replace(params, kops=pack_pdhg_operands(op))
+    return params
 
 
 def uses_solve_kernel(params: MarketParams) -> bool:
-    """Whether :meth:`ElectricityMarketEnv.batch_unroll` solves through
-    ``pdhg_solve_paired``: only for an operator with exactly the kernel's
-    math (no G rows, relax 1, bf16 products), as in the JAX package; any
-    other configuration runs ``solve_lp``, the same math as ``step``."""
+    """Whether the solves run through ``pdhg_solve_paired``: only for an
+    operator with exactly the kernel's math (no G rows, relax 1, bf16
+    products), as in the JAX package; any other configuration runs
+    ``solve_lp``. :meth:`ElectricityMarketEnv.step` takes the kernel on
+    the card only (on the CPU it keeps ``solve_lp``'s per-env loop)."""
     op = params.op
     return (op.mg == 0 and op.relax == 1.0
             and op.matmul_dtype == torch.bfloat16)
 
 
+def kernel_solve(params: MarketParams, kops, c, b, h, init: lp.LPSolution,
+                 iters) -> lp.LPSolution:
+    """One ``pdhg_solve_paired`` call on the packed operator ``kops``:
+    the SCED problem in ``solve_lp``'s layout (h and z as [plus, minus])
+    split into the kernel's operands; ``iters`` an int or (B,) int32
+    per-env budgets."""
+    from ...ops.cuda.lp_solve import pdhg_solve_paired
+    ms = params.op.ms
+    x, y, zp, zm = pdhg_solve_paired(
+        kops, c, b, h[:, :ms].contiguous(), h[:, ms:].contiguous(),
+        params.ub, init.x, init.y, init.z[:, :ms].contiguous(),
+        init.z[:, ms:].contiguous(), iters)
+    return lp.LPSolution(x=x, y=y, z=torch.cat([zp, zm], -1))
+
+
 class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
     name = "electricitymarket"
+
+    # ---- seeding --------------------------------------------------------
+    @staticmethod
+    def day_from_seed(params: MarketParams, seed: int) -> int:
+        """seed -> episode day: ``seed % n_days``."""
+        return seed % params.n_days
 
     def reset(self, params: MarketParams, generator: torch.Generator,
               batch: int) -> tuple[MarketState, TimeStep]:
@@ -268,14 +301,21 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
         """Builds and solves the SCED LP of the current step: the cold
         budget for envs at an episode's first step, the warm budget for the
         others, in one batched solve (each env frozen after its own
-        budget)."""
+        budget). With the packed operator (``params.kops``, on the card)
+        the solve is one ``pdhg_solve_paired`` launch that reads the
+        budgets on the device; otherwise ``solve_lp``."""
         c, b, h, init, load0 = self._sced_problem(params, state, action)
         iters = torch.where(state.t == 0, params.op.iters,
                             params.lp_warm_iters)
-        sol = lp.solve_lp(params.op, c, b, h, torch.zeros_like(params.ub),
-                          params.ub, init=init, iters=iters,
-                          max_iters=max(params.op.iters,
-                                        params.lp_warm_iters))
+        if params.kops is not None:
+            sol = kernel_solve(params, params.kops, c, b, h, init,
+                               iters.to(torch.int32))
+        else:
+            sol = lp.solve_lp(params.op, c, b, h,
+                              torch.zeros_like(params.ub), params.ub,
+                              init=init, iters=iters,
+                              max_iters=max(params.op.iters,
+                                            params.lp_warm_iters))
         return self._cleared(params, sol, load0)
 
     @staticmethod
@@ -390,8 +430,9 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
         from ...ops.cuda.lp_solve import pack_pdhg_operands
 
         L = T_STEPS
-        kops = (pack_pdhg_operands(params.op) if uses_solve_kernel(params)
-                else None)
+        kops = params.kops
+        if kops is None and uses_solve_kernel(params):
+            kops = pack_pdhg_operands(params.op)
         state, ts = self._episode_start(params, 0, batch, generator, days)
         obs, parts = ts.obs, []
         for ep, t0 in enumerate(range(0, num_steps, L)):
@@ -417,21 +458,14 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
         solve through ``pdhg_solve_paired`` on ``kops`` (the packed
         operator) or, when it is None, through ``solve_lp``: the part of
         :meth:`batch_unroll` that a CUDA graph captures."""
-        from ...ops.cuda.lp_solve import pdhg_solve_paired
-
         op = params.op
-        ms = op.ms
         lb = torch.zeros_like(params.ub)
 
         def solve(c, b, h, init, iters):
             if kops is None:
                 return lp.solve_lp(op, c, b, h, lb, params.ub, init=init,
                                    iters=iters)
-            x, y, zp, zm = pdhg_solve_paired(
-                kops, c, b, h[:, :ms].contiguous(), h[:, ms:].contiguous(),
-                params.ub, init.x, init.y, init.z[:, :ms].contiguous(),
-                init.z[:, ms:].contiguous(), iters)
-            return lp.LPSolution(x=x, y=y, z=torch.cat([zp, zm], -1))
+            return kernel_solve(params, kops, c, b, h, init, iters)
 
         traj = []
         for t in range(seg):

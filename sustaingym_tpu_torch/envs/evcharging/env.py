@@ -346,6 +346,13 @@ def _episode_steps(params, step_row_fn, policy, policy_params, seg: int,
 class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
     name = "evcharging"
 
+    # ---- seeding --------------------------------------------------------
+    @staticmethod
+    def day_from_seed(params: EVParams, seed: int) -> int:
+        """seed -> episode day: ``seed % n_days``, the sequential days of
+        the JAX package's ``EVChargingEnv.day_from_seed``."""
+        return seed % params.n_days
+
     # ---- batched API ----------------------------------------------------
     def reset(self, params: EVParams, generator: torch.Generator,
               batch: int) -> tuple[EVState, TimeStep]:

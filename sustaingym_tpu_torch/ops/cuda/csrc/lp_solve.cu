@@ -77,7 +77,8 @@ constexpr int kMaxSmem = 232448;  // bytes of shared memory a CTA may use
 struct Problem {
   const float *c, *b, *hp, *hm, *ub, *x0, *y0, *zp0, *zm0;
   float *x, *y, *zp, *zm;
-  int ub_stride;  // 0: one ub row shared by every env; n: one per env
+  const int* budget;  // (B,) per-env iterations (kPerEnv), else unused
+  int ub_stride;      // 0: one ub row shared by every env; n: one per env
 };
 
 // Problem sizes and their 16-padded tile counts: mt1 variable tiles, mt2
@@ -114,8 +115,9 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[NT][4],
 }
 
 // E = 8 NT envs per CTA (NT even); warp w owns variable and dual-row tiles
-// w + s W, s < TPW, for the W warps of the CTA.
-template <int NT, int TPW>
+// w + s W, s < TPW, for the W warps of the CTA. kPerEnv: each env runs
+// p.budget[e] iterations, else every env runs d.iters.
+template <int NT, int TPW, bool kPerEnv>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 pdhg_paired_kernel(const __nv_bfloat16* __restrict__ Kp,
                    const float* __restrict__ tau, const float* __restrict__ sig,
@@ -128,6 +130,7 @@ pdhg_paired_kernel(const __nv_bfloat16* __restrict__ Kp,
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rp][ldk]
   __nv_bfloat16* ws = Ks + Rp * ldk;  // bf16(w)  [E][ldw]
   __nv_bfloat16* xs = ws + E * ldw;   // bf16(xb) [E][ldx]
+  int* bs = reinterpret_cast<int*>(xs + E * ldx);  // budgets [E] (kPerEnv)
   const int W = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int e0 = blockIdx.x * E;
@@ -191,9 +194,26 @@ pdhg_paired_kernel(const __nv_bfloat16* __restrict__ Kp,
       }
     }
   }
+  if constexpr (kPerEnv) {
+    for (int el = threadIdx.x; el < E; el += blockDim.x)
+      bs[el] = e0 + el < B ? max(p.budget[e0 + el], 0) : 0;
+  }
   __syncthreads();
 
-  for (int it = 0; it < d.iters; ++it) {
+  int iters = d.iters;
+  if constexpr (kPerEnv) {
+    iters = 0;
+    for (int el = 0; el < E; ++el) iters = max(iters, bs[el]);
+  }
+
+  for (int it = 0; it < iters; ++it) {
+    // bit 2 nb + c: the thread's env 8 nb + 2 t + c still iterates
+    unsigned live = 0;
+    if constexpr (kPerEnv) {
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+        live |= (unsigned)(it < bs[8 * (j >> 1) + 2 * t + (j & 1)]) << j;
+    }
     // ---- phase 1: grad = (c + A' w_A) + S' w_S and the primal step ----
 #pragma unroll
     for (int s = 0; s < TPW; ++s) {
@@ -213,7 +233,10 @@ pdhg_paired_kernel(const __nv_bfloat16* __restrict__ Kp,
           for (int q = 0; q < 4; ++q) {
             const float grad = (cv[s][nb][q] + ga[nb][q]) + gs[nb][q];
             const float xo = xv[s][nb][q];
-            const float xn = fminf(fmaxf(xo - tj[s][q >> 1] * grad, 0.0f), ubv[s][nb][q]);
+            float xn = fminf(fmaxf(xo - tj[s][q >> 1] * grad, 0.0f), ubv[s][nb][q]);
+            if constexpr (kPerEnv) {
+              if (!((live >> (2 * nb + (q & 1))) & 1u)) xn = xo;
+            }
             xs[(8 * nb + 2 * t + (q & 1)) * ldx + 16 * i + g + 8 * (q >> 1)] =
                 __float2bfloat16_rn(2.0f * xn - xo);
             xv[s][nb][q] = xn;
@@ -237,13 +260,17 @@ pdhg_paired_kernel(const __nv_bfloat16* __restrict__ Kp,
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const float sg = sr[s][q >> 1], v = acc[nb][q];
+            bool on = true;
+            if constexpr (kPerEnv) on = (live >> (2 * nb + (q & 1))) & 1u;
             float w;
             if (a_rows) {
-              d1[s][nb][q] = d1[s][nb][q] + sg * (v - h1[s][nb][q]);
+              if (on) d1[s][nb][q] = d1[s][nb][q] + sg * (v - h1[s][nb][q]);
               w = d1[s][nb][q];
             } else {
-              d1[s][nb][q] = fmaxf(d1[s][nb][q] + sg * (v - h1[s][nb][q]), 0.0f);
-              d2[s][nb][q] = fmaxf(d2[s][nb][q] + sg * (-v - h2[s][nb][q]), 0.0f);
+              if (on) {
+                d1[s][nb][q] = fmaxf(d1[s][nb][q] + sg * (v - h1[s][nb][q]), 0.0f);
+                d2[s][nb][q] = fmaxf(d2[s][nb][q] + sg * (-v - h2[s][nb][q]), 0.0f);
+              }
               w = d1[s][nb][q] - d2[s][nb][q];
             }
             ws[(8 * nb + 2 * t + (q & 1)) * ldw + 16 * i + g + 8 * (q >> 1)] =
@@ -278,10 +305,10 @@ pdhg_paired_kernel(const __nv_bfloat16* __restrict__ Kp,
   }
 }
 
-// Launches the (NT, TPW) instance if its warps and shared memory fit, or
-// with `ctas` set, stores how many of its CTAs an SM holds and its envs
-// per CTA instead; returns -1 if they do not fit.
-template <int NT, int TPW>
+// Launches the (NT, TPW, kPerEnv) instance if its warps and shared memory
+// fit, or with `ctas` set, stores how many of its CTAs an SM holds and its
+// envs per CTA instead; returns -1 if they do not fit.
+template <int NT, int TPW, bool kPerEnv>
 int launch(const __nv_bfloat16* Kp, const float* tau, const float* sig,
            const Problem& p, const Dims& d, cudaStream_t stream, int* ctas,
            int* envs) {
@@ -289,27 +316,29 @@ int launch(const __nv_bfloat16* Kp, const float* tau, const float* sig,
   const int mt = d.mt1 > d.mt2 ? d.mt1 : d.mt2;
   const int warps = (mt + TPW - 1) / TPW;
   const int n_p = 16 * d.mt1, Rp = 16 * d.mt2;
-  const int smem = 2 * (Rp * (n_p + 8) + E * (Rp + 8) + E * (n_p + 8));
+  const int smem = 2 * (Rp * (n_p + 8) + E * (Rp + 8) + E * (n_p + 8)) +
+                   (kPerEnv ? 4 * E : 0);
   if (warps > kMaxWarps || smem > kMaxSmem) return -1;
-  cudaError_t err = cudaFuncSetAttribute(
-      pdhg_paired_kernel<NT, TPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(pdhg_paired_kernel<NT, TPW, kPerEnv>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (ctas != nullptr) {
     *envs = E;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas, pdhg_paired_kernel<NT, TPW>, warps * 32, smem);
+        ctas, pdhg_paired_kernel<NT, TPW, kPerEnv>, warps * 32, smem);
   }
   const int grid = (d.B + E - 1) / E;
-  pdhg_paired_kernel<NT, TPW><<<grid, warps * 32, smem, stream>>>(Kp, tau, sig, p, d);
+  pdhg_paired_kernel<NT, TPW, kPerEnv><<<grid, warps * 32, smem, stream>>>(Kp, tau, sig, p, d);
   return (int)cudaGetLastError();
 }
 
 // The first instance that fits the operator: E = 32 envs a CTA, then 16.
+template <bool kPerEnv>
 int dispatch(const __nv_bfloat16* Kp, const float* tau, const float* sig,
              const Problem& p, const Dims& d, cudaStream_t stream,
              int* ctas = nullptr, int* envs = nullptr) {
-  int err = launch<4, 1>(Kp, tau, sig, p, d, stream, ctas, envs);
-  if (err < 0) err = launch<2, 2>(Kp, tau, sig, p, d, stream, ctas, envs);
+  int err = launch<4, 1, kPerEnv>(Kp, tau, sig, p, d, stream, ctas, envs);
+  if (err < 0) err = launch<2, 2, kPerEnv>(Kp, tau, sig, p, d, stream, ctas, envs);
   return err < 0 ? (int)cudaErrorInvalidValue : err;
 }
 
@@ -324,17 +353,24 @@ Dims dims(int n, int me, int ms, int B, int iters) {
 
 // Kp: (pad16(me) + pad16(ms), pad16(n)) bf16, the A rows then the S rows,
 // each block zero-padded (ops/cuda/lp_solve.py::pack_pdhg_operands).
+// budget: null (every env runs `iters`) or (B,) int32 per-env budgets on
+// the device (negative ones run 0 iterations; `iters` is then unused).
 extern "C" int pdhg_solve_paired_launch(
     const void* Kp, const float* tau, const float* sig, const float* c,
     const float* b, const float* hp, const float* hm, const float* ub,
     int ub_stride, const float* x0, const float* y0, const float* zp0,
-    const float* zm0, int n, int me, int ms, int B, int iters, float* x,
-    float* y, float* zp, float* zm, void* stream) {
+    const float* zm0, int n, int me, int ms, int B, int iters,
+    const int* budget, float* x, float* y, float* zp, float* zm,
+    void* stream) {
   if (B <= 0 || n <= 0 || me < 0 || ms < 0 || iters < 0)
     return (int)cudaErrorInvalidValue;
-  const Problem p{c, b, hp, hm, ub, x0, y0, zp0, zm0, x, y, zp, zm, ub_stride};
-  return dispatch(static_cast<const __nv_bfloat16*>(Kp), tau, sig, p,
-                  dims(n, me, ms, B, iters), (cudaStream_t)stream);
+  const Problem p{c, b, hp, hm, ub, x0, y0, zp0, zm0, x, y, zp, zm, budget,
+                  ub_stride};
+  const auto* K = static_cast<const __nv_bfloat16*>(Kp);
+  const Dims d = dims(n, me, ms, B, iters);
+  if (budget != nullptr)
+    return dispatch<true>(K, tau, sig, p, d, (cudaStream_t)stream);
+  return dispatch<false>(K, tau, sig, p, d, (cudaStream_t)stream);
 }
 
 // CTAs of the instance pdhg_solve_paired_launch takes for (n, me, ms)
@@ -342,6 +378,6 @@ extern "C" int pdhg_solve_paired_launch(
 extern "C" int pdhg_solve_paired_ctas_per_sm(int n, int me, int ms, int* ctas,
                                              int* envs) {
   if (n <= 0 || me < 0 || ms < 0) return (int)cudaErrorInvalidValue;
-  return dispatch(nullptr, nullptr, nullptr, Problem{}, dims(n, me, ms, 1, 0),
-                  nullptr, ctas, envs);
+  return dispatch<false>(nullptr, nullptr, nullptr, Problem{},
+                         dims(n, me, ms, 1, 0), nullptr, ctas, envs);
 }

@@ -10,6 +10,12 @@ What bounds it and how it is laid out is in the ``.cu`` file.
 Per-env arrays are env-major (B, rows) float32 and B is any size: the TPU
 kernel's 128-lane groups, 8-row padding and transposes have no counterpart.
 
+``iters`` is one budget for every env (an int) or a (B,) int32 tensor on
+the device, one budget an env: each env stops after its own, as
+``solve_lp``'s (B,) budget does, and ends with the bits of a launch at its
+own budget. The kernel reads the budgets on the device, so a CUDA graph
+captures the launch (the market's generic step).
+
 A CUDA ``c`` launches the kernel (its count is
 ``pdhg_solve_paired.launches``); a CPU one runs ``pdhg_solve_paired_ref``,
 a thin adapter onto ``solve_lp`` with that math: the oracle for the
@@ -22,15 +28,16 @@ import torch
 from ..lp import LPOperator, LPSolution, solve_lp
 from ...core.graph import count_launches
 from ...core.struct import dataclass, replace
-from .wrap import I, P, PI, bind, check, ctas_per_sm, on_card, pad16, raise_on
+from .wrap import (I, P, PI, bind, check, ctas_per_sm, on_card, pad16, ptr,
+                   raise_on)
 
 __all__ = ["PDHGOperands", "pack_pdhg_operands", "pdhg_solve_paired",
            "pdhg_solve_paired_ref", "pdhg_occupancy"]
 
 # K, tau, sig, c, b, hp, hm, ub | ub_stride | x0, y0, zp0, zm0 |
-# n, me, ms, B, iters | x, y, zp, zm, stream
+# n, me, ms, B, iters | budget, x, y, zp, zm, stream
 _SIGNATURES = {"pdhg_solve_paired_launch":
-               [P] * 8 + [I] + [P] * 4 + [I] * 5 + [P] * 5,
+               [P] * 8 + [I] + [P] * 4 + [I] * 5 + [P] * 6,
                "pdhg_solve_paired_ctas_per_sm": [I, I, I, PI, PI]}
 
 
@@ -66,9 +73,10 @@ def pack_pdhg_operands(op: LPOperator) -> PDHGOperands:
 
 
 def pdhg_solve_paired_ref(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
-                          zm0, iters: int):
+                          zm0, iters: int | torch.Tensor):
     """Plain version of :func:`pdhg_solve_paired`: ``solve_lp`` with bf16
-    products, relax 1 and separate A and S blocks."""
+    products, relax 1 and separate A and S blocks; a (B,) ``iters`` goes to
+    ``solve_lp`` as its per-env budget."""
     op = replace(kops.op, matmul_dtype=torch.bfloat16, relax=1.0,
                  merge_blocks=False)
     sol = solve_lp(op, c, b, torch.cat([hp, hm], -1), torch.zeros_like(c),
@@ -80,10 +88,13 @@ def pdhg_solve_paired_ref(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
 
 
 def pdhg_solve_paired(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
-                      zm0, iters: int):
+                      zm0, iters: int | torch.Tensor):
     """``iters`` PDHG iterations for B envs: ``c``, ``x0`` (B, n); ``b``,
     ``y0`` (B, me); ``hp``, ``hm``, ``zp0``, ``zm0`` (B, ms); ``ub`` (n,) or
-    (B, n); lower bounds 0. Returns (x, y, zp, zm), env-major float32."""
+    (B, n); lower bounds 0. ``iters``: an int, or (B,) int32 per-env
+    budgets on ``c``'s device (negative ones run 0 iterations; their values
+    are read on the device only). Returns (x, y, zp, zm), env-major
+    float32."""
     if not on_card(c, "pdhg_solve_paired"):
         return pdhg_solve_paired_ref(kops, c, b, hp, hm, ub, x0, y0, zp0,
                                      zm0, iters)
@@ -103,7 +114,11 @@ def pdhg_solve_paired(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
         check("ub", ub, f32, (n,), dev)
     else:
         check("ub", ub, f32, (B, n), dev)
-    if int(iters) < 0:
+    budget = None
+    if isinstance(iters, torch.Tensor):
+        check("iters", iters, torch.int32, (B,), dev)
+        budget, iters = iters, 0
+    elif int(iters) < 0:
         raise ValueError(f"pdhg_solve_paired: iters {iters} < 0")
     x = torch.empty((B, n), dtype=f32, device=dev)
     y = torch.empty((B, me), dtype=f32, device=dev)
@@ -117,8 +132,9 @@ def pdhg_solve_paired(kops: PDHGOperands, c, b, hp, hm, ub, x0, y0, zp0,
             c.data_ptr(), b.data_ptr(), hp.data_ptr(), hm.data_ptr(),
             ub.data_ptr(), 0 if ub.ndim == 1 else n, x0.data_ptr(),
             y0.data_ptr(), zp0.data_ptr(), zm0.data_ptr(), n, me, ms, B,
-            int(iters), x.data_ptr(), y.data_ptr(), zp.data_ptr(),
-            zm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            int(iters), ptr(budget), x.data_ptr(), y.data_ptr(),
+            zp.data_ptr(), zm.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "pdhg_solve_paired")
     pdhg_solve_paired.launches += 1
     return x, y, zp, zm

@@ -372,6 +372,73 @@ def test_pdhg_solve_paired_kernel_matches_plain(cuda, batch, per_env_ub):
         assert torch.equal(zp, torch.zeros_like(zp)) and torch.equal(zm, zm0)
 
 
+@pytest.mark.parametrize("horizon,batch", [(4, 64), (4, 37), (6, 45)])
+def test_pdhg_solve_paired_per_env_budgets_bit_equal(cuda, horizon, batch):
+    """(B,) int32 budgets, mixed within each CTA (the 32-env instance at
+    horizon 4, the 16-env one at horizon 6; 37 and 45 envs leave a ragged
+    last CTA): one launch, and each env bit-equal to a launch with one
+    int budget, its own (negative budgets run 0 iterations). The wrapper
+    refuses budgets of another dtype or shape."""
+    _, p = make("electricitymarket", horizon=horizon, device=cuda)
+    c, b, hp, hm, x0, y0, zp0, zm0 = _market_problem(p, batch, 1)
+    args = (c, b, hp, hm, p.ub, x0, y0, zp0, zm0)
+    rng = np.random.default_rng(2)
+    budget = torch.as_tensor(rng.choice([50, 20, 7, 0, -3], batch),
+                             dtype=torch.int32, device=cuda)
+    before = K9.pdhg_solve_paired.launches
+    got = K9.pdhg_solve_paired(p.kops, *args, budget)
+    assert K9.pdhg_solve_paired.launches == before + 1
+    own = budget.clamp_min(0)
+    for k in (50, 20, 7, 0):
+        rows = own == k
+        assert bool(rows.any())
+        uniform = K9.pdhg_solve_paired(p.kops, *args, k)
+        for g, u in zip(got, uniform):
+            assert torch.equal(g[rows], u[rows]), k
+    for bad in (budget.long(), budget[:-1].contiguous()):
+        with pytest.raises(ValueError):
+            K9.pdhg_solve_paired(p.kops, *args, bad)
+
+
+def test_captured_generic_market_step_matches_eager(cuda):
+    """The market's generic step with autoreset (``capturable_autoreset_
+    step``, the off-policy and generic PPO rollouts' step) solves through
+    ``pdhg_solve_paired`` with per-env budgets, one launch a step: envs
+    at their first step (cold budget) and later ones (warm) in one batch,
+    six steps captured in a CUDA graph against the same steps eager from
+    the same state and generator: bit-equal."""
+    from sustaingym_tpu_torch.core import (capturable_autoreset_step,
+                                           tree_select)
+    from sustaingym_tpu_torch.core.graph import Graphs, tree_leaves
+    env, p = make("electricitymarket", device=cuda)
+    assert p.kops is not None
+    B, T = 64, 6
+    step = capturable_autoreset_step(env)
+    space = env.action_space(p)
+    g0 = torch.Generator(device=cuda).manual_seed(9)
+    fresh, _ = env.reset(p, g0, B)
+    later, _ = step(p, fresh, space.sample_batch(g0, B), g0)
+    state = tree_select(torch.arange(B, device=cuda) % 2 == 0, fresh, later)
+    assert set(state.t.tolist()) == {0, 1}
+
+    def run(state):
+        out = []
+        for _ in range(T):
+            state, ts = step(p, state, space.sample_batch(gen, B), gen)
+            out.append(ts.reward)
+        return state, torch.stack(out)
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    before = K9.pdhg_solve_paired.launches
+    eager = run(state)
+    assert K9.pdhg_solve_paired.launches == before + T
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    captured = Graphs(cuda)("market steps", run, state, generators=(gen,))
+    assert K9.pdhg_solve_paired.launches == before + 3 * T
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(captured),
+                                                 tree_leaves(eager)))
+
+
 def test_market_batch_unroll_on_card(cuda):
     """The card's default market (bf16 products) solves every lockstep
     step with one kernel launch; across the episode boundary the obs
@@ -812,8 +879,8 @@ def test_evaluation_graph_sees_updated_weights(cuda):
 def test_generic_rollout_captured_on_every_env(cuda, tmp_path, name):
     """The generic rollout (a length other than the episode's) of every
     other env is captured too: its step and whole-batch reset copy no host
-    data (the market's per-env solve budgets run to their bound under
-    capture). Two train steps crossing an episode end, captured against
+    data (the market's step reads its per-env solve budgets on the card,
+    in its one ``pdhg_solve_paired`` launch). Two train steps crossing an episode end, captured against
     eager: bit-equal parameters, metrics and generator state."""
     from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
     if name == "building":

@@ -201,6 +201,56 @@ def test_per_env_budgets_freeze_each_env():
                                        atol=1e-4, err_msg=k)
 
 
+def test_pdhg_solve_paired_ref_per_env_budgets():
+    """The kernel's plain version with a (B,) int32 budget (what the
+    market's generic step gives the kernel on the card) is ``solve_lp``'s
+    per-env freeze, bit for bit; each env equals the JAX package's Pallas
+    kernel (interpret mode) run at that env's own budget, by the port's
+    gate for a kernel against its plain version (``chip_smoke.
+    check_solve``): at most 1% of each output's entries outside SOLVE and
+    max |d| within 1% of the output's largest value (a float32 sum in
+    another order can flip one bf16 rounding, which later iterations
+    carry on: here 1 entry of 468); a budget of 0 or below returns the
+    clipped warm start."""
+    jop, top, ub = _sced_ops(bf16=True)
+    B = 8
+    d = _problem(top, B, seed=6)
+    n, me, ms = top.n, top.me, top.ms
+    budget = torch.tensor([50, 20, 0, -3, 50, 20, 7, 50], dtype=torch.int32)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in d.items()}
+    tub = torch.as_tensor(ub, dtype=torch.float32)
+    kops = K9.pack_pdhg_operands(top)
+    args = (t["c"], t["b"], t["h"][:, :ms].contiguous(),
+            t["h"][:, ms:].contiguous(), tub, t["x0"], t["y0"],
+            t["z0"][:, :ms].contiguous(), t["z0"][:, ms:].contiguous())
+    got = K9.pdhg_solve_paired(kops, *args, budget)
+    op = replace(top, relax=1.0, merge_blocks=False)
+    sol = tlp.solve_lp(op, t["c"], t["b"], t["h"], torch.zeros_like(tub),
+                       tub, init=tlp.LPSolution(t["x0"], t["y0"], t["z0"]),
+                       iters=budget.long())
+    for g, w in zip(got, (sol.x, sol.y, sol.z[:, :ms], sol.z[:, ms:])):
+        assert torch.equal(g, w)
+    jub = jnp.broadcast_to(jnp.asarray(ub, jnp.float32), (B, n))
+    for k in (50, 20, 7):
+        want = jpdhg(
+            jpack(jop), jnp.asarray(d["c"]), jnp.asarray(d["b"]),
+            jnp.asarray(d["h"][:, :ms]), jnp.asarray(d["h"][:, ms:]), jub,
+            jnp.asarray(d["x0"]), jnp.asarray(d["y0"]),
+            jnp.asarray(d["z0"][:, :ms]), jnp.asarray(d["z0"][:, ms:]),
+            dims=(n, me, ms), iters=k, w=8, interpret=True)
+        rows = (budget == k).numpy()
+        for g, w in zip(got, want):
+            g, w = g.numpy()[rows], np.asarray(w)[rows]
+            diff = np.abs(g - w)
+            outside = diff > SOLVE["atol"] + SOLVE["rtol"] * np.abs(w)
+            assert outside.mean() <= 0.01, (k, outside.sum())
+            assert diff.max() <= 0.01 * np.abs(w).max(), (k, diff.max())
+    for i in (2, 3):
+        assert torch.equal(got[0][i], torch.minimum(t["x0"][i], tub))
+        assert torch.equal(got[1][i], t["y0"][i])
+        assert torch.equal(got[2][i], t["z0"][i, :ms].clamp_min(0))
+
+
 def test_paired_form_matches_stacked():
     """The paired-row operator is plain PDHG on the stacked [A; S; -S; G]
     system: float64 iterates agree to float reassociation."""

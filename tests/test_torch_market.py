@@ -175,6 +175,39 @@ def test_batch_unroll_matches_generic(bf16):
     assert np.isfinite(fast.reward.numpy()).all()
 
 
+def test_generic_step_through_the_kernel_wrapper():
+    """With the packed operator (``params.kops``, which ``make_params``
+    fills on the card), the generic step's solve is one
+    ``pdhg_solve_paired`` call with the per-env budgets (cold at t = 0,
+    warm after) as an int32 tensor. On CPU tensors the wrapper runs its
+    plain version, so the step equals the ``solve_lp`` route bit for bit,
+    envs at their first and at a later step together; on the CPU
+    ``make_params`` leaves ``kops`` empty."""
+    from sustaingym_tpu_torch.core import replace
+    from sustaingym_tpu_torch.core.graph import tree_leaves
+    env, p = tem.make_env(lp_bf16=True, device="cpu", **SMALL)
+    assert p.kops is None and tem.uses_solve_kernel(p)
+    pk = replace(p, kops=K9.pack_pdhg_operands(p.op))
+    rng = np.random.default_rng(8)
+    state, _ = env.reset_at_day(p, torch.tensor([0, 4, 9]))
+    st_k = state
+    for t in range(3):
+        acts = torch.from_numpy(_bids(rng, 3))
+        if t == 1:   # env 0 restarts: cold and warm budgets in one batch
+            fresh, _ = env.reset_at_day(p, torch.tensor([2]))
+            state, st_k = (replace(s, **{
+                f: torch.cat([getattr(fresh, f), getattr(s, f)[1:]])
+                for f in s.__dataclass_fields__}) for s in (state, st_k))
+            assert state.t.tolist() == [0, 1, 1]
+        calls = K9.pdhg_solve_paired.launches
+        state, ts = env.step(p, state, acts)
+        st_k, ts_k = env.step(pk, st_k, acts)
+        assert K9.pdhg_solve_paired.launches == calls   # CPU: plain version
+        for a, b in zip(tree_leaves(state) + tree_leaves(ts),
+                        tree_leaves(st_k) + tree_leaves(ts_k)):
+            assert torch.equal(a, b)
+
+
 def _from_jax_policy(obs_dim, act_dim, hidden, seed):
     tree = jppo.init_policy(jax.random.PRNGKey(seed), obs_dim, act_dim,
                             hidden, dtype=jnp.float32)

@@ -26,7 +26,10 @@ paths' shapes:
   products nearly gone: the env step, draws and barriers);
 - ``pdhg_solve_paired`` at B = 4096 on the market's own problems (reset
   envs, bids uniform over the action box): one warm (40 iterations) and one
-  cold (200) solve.
+  cold (200) solve; and ``chip_smoke.pdhg_int_digest``, the SHA-256 of its
+  int-budget outputs on ``chip_smoke.py`` phase 35's problems (the value
+  of ``chip_smoke.PARENT_PDHG_INT_DIGEST`` when run on the checkout
+  before per-env budgets).
 
 Each call (the EV and PDHG ones) goes through its wrapper, whose range
 checks wait on the host between launches (~0.1 ms).
@@ -207,6 +210,7 @@ def main() -> int:
         for name, x in zip(("x", "y", "zp", "zm"),
                            K9.pdhg_solve_paired(kops, *market, iters)):
             outs[f"pdhg_solve_paired {label} {name}"] = x.cpu()
+    times["pdhg_int_digest"] = cs.pdhg_int_digest(env, p, K9)
     print(json.dumps(times), flush=True)
     if args.save:
         torch.save(outs, args.save)
