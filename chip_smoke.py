@@ -197,9 +197,9 @@ its own budget; no other kernel is on this path). Each of the bench's six
 agent-steps/s, the graphs' warm-up and capture seconds, the peak device
 memory of the first step and of the second, whose difference is the
 capture's extra; every launch count set to 0 before them and read after
-them: on the market trainers ``pdhg_solve_paired`` once a step of the
-rollout's warm-up and of each replay, 3 x rollout_len, on the others no
-kernel at all), its
+them: on the market trainers ``pdhg_solve_paired`` once a rollout step
+and once for each one-step rollout graph's warm-up, 2 x rollout_len + 1,
+on the others no kernel at all), its
 lr=0 step (``alpha_lr`` 0 for SAC: every online weight and ``log_alpha``
 bit-equal, the targets' Polyak step of equal values printed) with finite
 losses, and one train step captured against eager under
@@ -233,6 +233,27 @@ Slice 8, the solve kernel's per-env budgets and the EV baselines:
     ``offline_optimal_schedule`` of the busiest day and ``batch_run``'s
     lockstep loop (``algorithms.batch_returns``) with the greedy policy
     over 64 seeds x 288 steps (``baselines_on_card``).
+
+Slice 9, the PPO update's bf16 GEMMs, the reset schedule and ranks:
+
+37. the learner's three bf16 products at the EV trainer's minibatch rows
+    (24576, H = 256) as bf16 GEMMs with float32 output, and the float32
+    route of the same values, against float64 (``GEMM_GATE``), timed;
+38. the captured EV and fused building trainers (8192 x 288), two train
+    steps each, and their update's device time by kind
+    (``update_split``);
+39. the generic rollouts' reset schedule: the EV generic trainer (8192 x
+    64) and SAC EV (2048 x 64), nine rollout phases each from a fresh
+    carry (two with a reset), timed, the guard at 0; the EV generic
+    trainer captured against eager over five steps that cross the reset;
+40. two gloo ranks sharing the card: the policy kernels' ``env_offset``
+    launches bit-equal to the full launch's rows at 8192 x 288; two dp = 2
+    train steps of the EV fused trainer (8192 x 288) against one rank on
+    the same global batch (parameters bit-equal across the ranks, each
+    rank's launches), the lr = 0 step at 1024 envs (``DP_GATE``), a dp =
+    2 SAC EV step and a dp = 1 x mp = 2 MA cogen step (and two at lr = 0:
+    the exact-ratio invariant on each rank); each rank's wall time and peak memory
+    (``distribution_slice``).
 
 ``python3 chip_smoke.py --profile`` adds, for each trainer captured and
 the same trainer eager (``capture=False``, the before): its phases
@@ -286,6 +307,13 @@ STEPS, CHECK_BATCH = 288, 1024
 # the gate of check_captured, and why
 CAPTURE_GATE = ("gate: bit-equal, the graph replays the eager step's "
                 "kernels on the same inputs and Philox offsets")
+# the bf16 GEMM gate: each output within GEMM_GATE * 2^-24 * sum_k
+# |a_k b_k| of the float64 product of the same bf16 values (float32 sums
+# of exact products, in any order)
+GEMM_GATE = 64.0
+# dp = 2 against one rank at lr = 0: every metric within rel of one
+# rank's, |d| / max(|one rank|, floor) (the sums' order differs)
+DP_GATE = (1e-3, 1e-5)
 COGEN_STEPS, COGEN_CHECK = 96, 4096
 DC_STEPS, DC_CHECK = 672, 4096
 MKT_STEPS = 288
@@ -570,7 +598,8 @@ def update_kind(name: str) -> str:
     kept apart, with the graph's memcpy nodes. Every kernel of no other kind is the loss (its forward
     and backward elementwise work and reductions)."""
     n = name.lower()
-    if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "splitk")):
+    if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "splitk",
+                            "nvjet")):
         return "GEMMs"
     if "bfloat16_copy" in n or ("direct_copy" in n and (
             "withcast" in n or "gpu_kernel_impl<" in n)):
@@ -700,6 +729,7 @@ def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
         print(f"{label} train step {i}: {dt:.3f} s{held} = "
               f"{env_steps / dt:.0f} env-steps/s{per_agent}; "
               f"{json.dumps(m)} {tag}", flush=True)
+    train_step.check(carry)         # the generic rollout's reset guard
     print(f"{label} trainer: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {tag}",
           flush=True)
@@ -1713,7 +1743,7 @@ def building_slice(tag: str, want_profile: bool) -> tuple[list, int]:
                           device=dev)
     pol_args = (K5._env_args(p, m, e, T, "building_policy_segment")
                 + K.policy_weight_args(w)
-                + [HIDDEN, None, 69,
+                + [HIDDEN, None, 69, 0,       # seed 69, env_offset 0
                    pol_out.data_ptr(), pol_lrn.data_ptr(), stream])
     pol_ms = cuda_ms(lambda: raise_on(
         lib.building_policy_segment_launch(*pol_args),
@@ -2029,10 +2059,12 @@ def run_off_policy(label: str, env, p, seed: int, tag: str, steps: int = 2):
     of each step (their difference: the capture's extra), each metric
     finite; every kernel's launches over the steps, counted from 0: on the
     market, ``pdhg_solve_paired`` once a step of the rollout's warm-up
-    and of each of its replays ((steps + 1) x rollout_len), every other
+    and of each of its replays (steps x rollout_len, plus one warm-up of
+    each one-step rollout graph the reset schedule used), every other
     kernel never. Returns (cfg, the solve kernel's launches)."""
     import torch
     from sustaingym_tpu_torch.bench import off_policy_trainer
+    from sustaingym_tpu_torch.core import reset_schedule
     from sustaingym_tpu_torch.core.graph import counted_wrappers
     free_cuda()
     for w in counted_wrappers():
@@ -2065,13 +2097,19 @@ def run_off_policy(label: str, env, p, seed: int, tag: str, steps: int = 2):
         print(f"{label} train step {i}: {dt:.3f} s{held} = "
               f"{env_steps / dt:.0f} env-steps/s{per_agent}; "
               f"{json.dumps(m)} {tag}", flush=True)
+    train_step.check(carry)         # the rollout's reset guard
     print(f"{label} trainer: carry (networks, optimizers, ring "
           f"{cfg.capacity} x {cfg.num_envs}) {held_gib:.3f} GiB; peak device "
           f"memory {peaks[0]:.3f} GiB in the first step (the captures), "
           f"{peaks[-1]:.3f} GiB in the last: the capture's extra "
           f"{peaks[0] - peaks[-1]:.3f} GiB {tag}", flush=True)
     launches = {w.__name__: w.launches for w in counted_wrappers()}
-    solves = (steps + 1) * cfg.rollout_len \
+    # one launch a rollout step, plus the warm-up of each one-step graph
+    # (with and without the reset) that the schedule used
+    ep_len = env.episode_steps(p)
+    graphs_used = len({r for i in range(steps) for r in reset_schedule(
+        ep_len, i * cfg.rollout_len % ep_len, cfg.rollout_len)})
+    solves = steps * cfg.rollout_len + graphs_used \
         if env.name == "electricitymarket" else 0
     want = {k: solves if k == "pdhg_solve_paired" else 0 for k in launches}
     print(f"{label}: kernel launches over its {steps} train steps "
@@ -2333,6 +2371,278 @@ def profile_off_policy(tag: str):
     free_cuda()
 
 
+
+# ---- slice 9: the PPO update's bf16 GEMMs, the reset schedule, ranks --
+
+def bf16_gemm_gate(tag: str):
+    """Phase 37: the PPO learner's three bf16-valued products at the EV
+    trainer's minibatch rows (8192 x 288 / 96), H = 256: the bf16 GEMM
+    with float32 output (``ppo.bf16_matmul``) and the float32 route of the
+    same bf16 values, each against the float64 product, gated by
+    ``GEMM_GATE`` per output; both routes' largest error over its bound
+    printed, and their times (CUDA events)."""
+    import torch
+    from sustaingym_tpu_torch.bench import TRAINERS
+    from sustaingym_tpu_torch.parallel.ppo import bf16_matmul
+    cfg = TRAINERS["EV"][3]
+    rows = cfg["num_envs"] * STEPS // cfg["minibatches"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37)
+    n = 54
+    for name, k, m in (("obs x trunk1", 2 + 2 * n + 36, 256),
+                       ("h1 x trunk2", 256, 256),
+                       ("h2 x [mu; value]", 256, n + 1)):
+        a = torch.randn((rows, k), generator=g, device=dev).bfloat16()
+        w = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        ref = a.double() @ w.double().t()
+        bound = 2.0 ** -24 * (a.double().abs() @ w.double().abs().t())
+        ratio = {}
+        for route, fn in (("bf16 GEMM", lambda: bf16_matmul(a, w)),
+                          ("float32", lambda: a.float() @ w.float().t())):
+            out = fn()
+            ratio[route] = float(((out.double() - ref).abs()
+                                  / bound.clamp_min(1e-300)).max())
+            ratio[route + " ms"] = cuda_ms(fn, 20)
+        print(f"bf16 GEMM gate {name} ({rows} x {k} x {m}): largest "
+              f"|error| / (2^-24 sum|a b|): bf16 GEMM "
+              f"{ratio['bf16 GEMM']:.3f}, float32 route "
+              f"{ratio['float32']:.3f} (gate {GEMM_GATE}); "
+              f"{ratio['bf16 GEMM ms']:.4f} ms vs "
+              f"{ratio['float32 ms']:.4f} ms {tag}", flush=True)
+        if max(ratio["bf16 GEMM"], ratio["float32"]) > GEMM_GATE:
+            fail(f"bf16 GEMM gate {name}: {ratio}")
+        del a, w, ref, bound
+    free_cuda()
+
+
+def fused_update_splits(tag: str):
+    """Phase 38: the captured EV and fused building trainers at the
+    bench's size, one train step each (host clock), then the update's
+    device time by kind (``update_split``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sustaingym_tpu_torch import bench
+    from sustaingym_tpu_torch.parallel import make_train_step
+    dev = torch.device("cuda")
+    tables = tempfile.mkdtemp(prefix="chip_smoke_split_tables_")
+    try:
+        for label in UPDATE_SPLIT:
+            _, name, make_kwargs, _ = bench.TRAINERS[label]
+            env, p = bench.make_env(name, dev, tables, **make_kwargs)
+            cfg = bench.train_config(label)
+            init_state, step = make_train_step(env, p, cfg)
+            gen = torch.Generator(device=dev).manual_seed(38)
+            carry = init_state(gen)
+            for i in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                carry, m = step(carry, gen)
+                m = {k: float(v) for k, v in m.items()}
+                dt = time.perf_counter() - t0
+                print(f"{label} captured train step {i}: {dt:.4f} s; "
+                      f"{json.dumps(m)} {tag}", flush=True)
+            update_split(f"{label} captured", step, carry, gen, cfg, tag)
+            del init_state, step, carry
+            free_cuda()
+    finally:
+        shutil.rmtree(tables)
+
+
+def reset_schedule_slice(tag: str):
+    """Phase 39: the generic rollouts reset only at the steps that end
+    every episode. The EV generic trainer (8192 x 64, projection on) and
+    SAC EV (2048 x 64): nine captured rollout phases from a fresh carry
+    (the clock from 0 to 576: two with a reset), each timed (CUDA
+    events), the guard read (0); then captured against eager over five
+    train steps at 1024 envs (crossing the reset: ``check_captured``)."""
+    import torch
+    from sustaingym_tpu_torch import make
+    from sustaingym_tpu_torch.bench import off_policy_trainer
+    from sustaingym_tpu_torch.core import reset_schedule
+    from sustaingym_tpu_torch.parallel import make_train_step
+    dev = torch.device("cuda")
+    cfg, _ = trainer_configs("EV generic")
+    env, p = make("evcharging", device=dev)
+    sac_env, sac_p = make("evcharging", device=dev, project_action=False)
+    for label in ("EV generic", "SAC EV"):
+        free_cuda()
+        gen = torch.Generator(device=dev).manual_seed(39)
+        if label == "SAC EV":
+            _, init_state, step = off_policy_trainer(label, sac_env, sac_p)
+            carry = init_state(gen)
+
+            def roll():
+                step.rollout(carry, gen)
+        else:
+            init_state, step = make_train_step(env, p, cfg)
+            carry = init_state(gen)
+
+            def roll():
+                step.rollout(carry["policy"], gen, carry)
+        times = []
+        for _ in range(9):
+            phase = int(carry["env_phase"])
+            times.append((phase, any(reset_schedule(STEPS, phase, 64)),
+                          cuda_ms(roll, 1)))
+        step.check(carry)
+        guard = int(carry["reset_guard"])
+        resets = [t for _, r, t in times[1:] if r]
+        plain = [t for _, r, t in times[1:] if not r]
+        print(f"{label} rollout (64 steps, captured): "
+              f"{', '.join(f'clock {ph}: {t:.3f} ms' for ph, _, t in times)}; "
+              f"without a reset {np.mean(plain):.3f} ms, with one "
+              f"{np.mean(resets):.3f} ms (the first holds the captures); "
+              f"reset guard {guard} {tag}", flush=True)
+        if guard:
+            fail(f"{label}: the reset guard reads {guard}")
+        del init_state, step, carry
+    free_cuda()
+    check_captured("EV generic", env, p, cfg, 39, tag, steps=5)
+
+
+def rank_line(label: str, r: dict) -> str:
+    return (f"rank {r['rank']}: path {r['path']}, launches {r['launches']}, "
+            f"wall {r['wall']:.3f} s (timed steps {r['seconds']:.3f} s), "
+            f"peak device memory {r['peak_gib']:.3f} GiB")
+
+
+def distribution_slice(tag: str):
+    """Phase 40: the data-parallel slice on the one card, as two gloo
+    ranks sharing it (NCCL needs a card a rank). ``ev_policy_segment`` and
+    ``building_policy_segment`` at their main-path shapes (8192 x 288, H =
+    256): the launch over each rank's half (``env_offset`` 0 and 4096) and
+    over an unaligned split bit-equal to the full launch's rows; then, each
+    against one rank on the same global batch (``bench_scaling``): two
+    dp = 2 PPO train steps of the EV fused trainer (8192 global envs x
+    288, 96 minibatches; the largest metric difference, the parameters
+    bit-equal across the ranks, each rank's kernel launches), the same at
+    lr = 0 and 1024 envs (gate: every metric within ``DP_GATE``), one dp =
+    2 SAC EV step (2048 x 64), one dp = 1 x mp = 2 step of MA cogen
+    (4096 x 96, 24 minibatches) and two at lr = 0 and 512 envs (gate: the
+    exact-ratio invariant on every rank);
+    each rank's wall time and peak memory. At lr > 0 Adam's first steps
+    carry the sums' reassociation into every parameter (a gradient near 0
+    takes a step of about lr of either sign), so those differences are
+    printed, not gated."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sustaingym_tpu_torch import bench
+    from sustaingym_tpu_torch.bench import HIDDEN
+    from sustaingym_tpu_torch.bench_scaling import rank_run, run_ranks
+    from sustaingym_tpu_torch.ops.cuda import building_rollout as K5
+    from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
+    from sustaingym_tpu_torch.parallel import init_policy
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(40)
+    B = bench.TRAINERS["EV"][3]["num_envs"]
+    tables = tempfile.mkdtemp(prefix="chip_smoke_dp_tables_")
+    try:
+        _, p = bench.make_env("evcharging", dev, tables)
+        n, k = p.n_stations, p.moer_forecast_steps
+        w = K.pack_policy_weights(init_policy(
+            2 + 2 * n + k, n, HIDDEN, torch.Generator().manual_seed(3),
+            dev))
+        days = torch.randint(p.n_days, (B,), generator=g, device=dev)
+        _, bp = bench.make_env("building", dev, tables)
+        bw = K.pack_policy_weights(init_policy(
+            bp.n + 4, bp.n, HIDDEN, torch.Generator().manual_seed(4),
+            dev))
+        epochs = torch.randint(bp.length_of_weather - STEPS, (B,),
+                               generator=g, device=dev)
+        for name, fn in (
+                ("ev_policy_segment", lambda o, b: K.ev_policy_segment(
+                    p, w, days[o:o + b], STEPS, seed=41, env_offset=o)),
+                ("building_policy_segment",
+                 lambda o, b: K5.building_policy_segment(
+                     bp, bw, epochs[o:o + b], STEPS, seed=42,
+                     env_offset=o))):
+            full = fn(0, B)
+            equal = {}
+            for o, b in ((0, B // 2), (B // 2, B // 2), (1000, 3001)):
+                part = fn(o, b)
+                equal[(o, b)] = all(torch.equal(x, y[:, o:o + b])
+                                    for x, y in zip(part, full))
+            print(f"{name} {B} x {STEPS} H={HIDDEN}: the launches at "
+                  f"env_offset o over b envs bit-equal to rows [o, o + b) "
+                  f"of the full launch: {equal} {tag}", flush=True)
+            if not all(equal.values()):
+                fail(f"{name}: an env_offset launch differs from the full "
+                     f"launch's rows")
+            del full, part
+    finally:
+        shutil.rmtree(tables)
+    del w, bw, days, epochs
+    free_cuda()
+
+    ev = {"num_envs": B, "rollout_len": None, "hidden": HIDDEN,
+          "minibatches": bench.TRAINERS["EV"][3]["minibatches"],
+          "epochs": 4, "obs_bf16": True}
+    cogen = {"num_envs": 4096, "rollout_len": 96, "hidden": HIDDEN,
+             "minibatches": 24, "epochs": 4, "reward_scale": 1e-4}
+    # (label, env, algo, config, mp, make kwargs, train steps, gate): the
+    # gate "close" holds every metric to one rank's within DP_GATE; "ratio"
+    # holds the exact-ratio invariant on every rank (|pg_loss| < 1e-5 at
+    # lr = 0: the update's forward through the split equals the
+    # scoring's). Cogen's metrics are not held to one rank's: its plant
+    # thresholds its switch actions, so float32 reassociation in the
+    # forward moves some envs' trajectories
+    cases = (
+        ("EV fused dp=2", "evcharging", "ppo", ev, 1, {}, 2, None),
+        ("EV fused dp=2 lr=0", "evcharging", "ppo",
+         {**ev, "num_envs": CHECK_BATCH, "minibatches": 12, "lr": 0.0}, 1,
+         {}, 2, "close"),
+        ("SAC EV dp=2", "evcharging", "sac",
+         {"num_envs": 2048, "rollout_len": 64, "hidden": HIDDEN}, 1,
+         {"project_action": False}, 1, None),
+        ("MA cogen dp=1 x mp=2", "cogen-multiagent", "ppo", cogen, 2, {}, 1,
+         None),
+        ("MA cogen dp=1 x mp=2 lr=0", "cogen-multiagent", "ppo",
+         {**cogen, "num_envs": 512, "minibatches": 3, "lr": 0.0}, 2, {}, 2,
+         "ratio"))
+    for label, name, algo, cfg, mp, kw, steps, gate in cases:
+        free_cuda()
+        one = rank_run(name, algo, cfg, 1, steps - 1, 43, "cuda", kw)
+        free_cuda()
+        two = run_ranks(2, name, algo, cfg, mp=mp, steps=steps - 1, seed=43,
+                        device="cuda", make_kwargs=kw)
+        diff = {key: max(abs(a[key] - r["metrics"][i][key])
+                         for r in two for i, a in enumerate(one["metrics"]))
+                for key in one["metrics"][0]}
+        rel = max(abs(a[key] - r["metrics"][i][key])
+                  / max(abs(a[key]), DP_GATE[1])
+                  for r in two for i, a in enumerate(one["metrics"])
+                  for key in a)
+        same = len({r["params"] for r in two}) == 1
+        print(f"{label}: {steps} train step(s) on 2 gloo ranks "
+              f"sharing the card against 1 rank, global batch "
+              f"{cfg['num_envs']}: metrics max|d| {diff}, largest "
+              f"|d| / max(|one rank|, {DP_GATE[1]}) {rel:.3e}; parameters "
+              f"bit-equal across the ranks {same}; one rank: "
+              f"{rank_line(label, one)}; "
+              + "; ".join(rank_line(label, r) for r in two) + f" {tag}",
+              flush=True)
+        if not same:
+            fail(f"{label}: the ranks' parameters differ")
+        if gate == "close" and rel > DP_GATE[0]:
+            fail(f"{label}: dp = 2 differs from one rank by {rel:.3e}")
+        if gate == "ratio":
+            pg = max(abs(m["pg_loss"]) for r in two for m in r["metrics"])
+            print(f"{label}: largest |pg_loss| on the ranks {pg:.3e} "
+                  f"(gate < 1e-5) {tag}", flush=True)
+            if not pg < 1e-5:
+                fail(f"{label}: lr = 0 exact-ratio invariant broken "
+                     f"through the split: |pg_loss| {pg}")
+        if name == "evcharging" and algo == "ppo" and not all(
+                r["launches"].get("ev_policy_segment") for r in two):
+            fail(f"{label}: a rank launched no ev_policy_segment")
+    free_cuda()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2578,6 +2888,10 @@ def main() -> int:
     pdhg["launches"] += off_policy_slice(tag, want_profile)
     pdhg["max_abs_err"] = max(pdhg["max_abs_err"], mixed_budgets(tag))
     baselines_on_card(tag)
+    bf16_gemm_gate(tag)
+    fused_update_splits(tag)
+    reset_schedule_slice(tag)
+    distribution_slice(tag)
     profile_trainers(tag)
     profile_off_policy(tag)
     print(card_line())

@@ -13,7 +13,8 @@ from typing import Any, Callable, TypeVar
 
 import torch
 
-__all__ = ["dataclass", "replace", "tree_map", "tree_select", "tree_stack"]
+__all__ = ["dataclass", "replace", "tree_assign_", "tree_map",
+           "tree_select", "tree_stack"]
 
 T = TypeVar("T")
 
@@ -53,3 +54,25 @@ def tree_select(pred: torch.Tensor, on_true: T, on_false: T) -> T:
 def tree_stack(trees: list[T], dim: int = 0) -> T:
     """Stacks a list of matching trees along a new axis ``dim``."""
     return tree_map(lambda *xs: torch.stack(xs, dim), *trees)
+
+
+def _leaves(tree: Any) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    tree_map(lambda x: out.append(x) or x, tree)
+    return out
+
+
+@torch.no_grad()
+def tree_assign_(dst: Any, src: Any) -> None:
+    """Copies the tensor leaves of ``src`` into the matching leaves of
+    ``dst`` in place. A leaf of ``src`` that shares memory with another
+    leaf of ``dst`` (a field a step returned unchanged under another
+    name) is cloned before any copy, so no copy reads a leaf that an
+    earlier one overwrote."""
+    d, s = _leaves(dst), _leaves(src)
+    ptrs = {x.untyped_storage().data_ptr() for x in d}
+    s = [x.clone() if x.untyped_storage().data_ptr() in ptrs
+         and x.data_ptr() != y.data_ptr() else x for x, y in zip(s, d)]
+    for x, y in zip(s, d):
+        if x.data_ptr() != y.data_ptr():
+            y.copy_(x)

@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from ...core import (Box, FunctionalEnv, MultiDiscrete, TimeStep, dataclass,
-                     kernel_seed, random_policy, resolve_device, tree_map,
-                     tree_stack)
+                     draw_env_rows, env_offset, kernel_seed, random_policy,
+                     resolve_device, tree_map, tree_stack)
 from ...core.graph import device_const
 from ...core.rollout import episode_loop, join_episodes
 
@@ -204,8 +204,9 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
         """(batch,) starting epochs, uniform in [0, T-2]."""
         if generator is None:
             raise ValueError("pass reset `epochs` or a torch.Generator")
-        return torch.randint(params.length_of_weather - 1, (batch,),
-                             generator=generator, device=generator.device)
+        return draw_env_rows(lambda b: torch.randint(
+            params.length_of_weather - 1, (b,), generator=generator,
+            device=generator.device), batch)
 
     def reset(self, params: BuildingParams, generator: torch.Generator,
               batch: int) -> tuple[BuildingState, TimeStep]:
@@ -458,7 +459,8 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
         / ``comfort_cost`` / ``power_cost`` / ``done`` (T, B) and the reset
         ``epochs`` (B,). ``noise`` (T, B, n) prescribes the normal draws;
         otherwise the kernel draws Box–Muller normals from a Philox stream
-        seeded from ``generator``."""
+        seeded from ``generator``, keyed by the global env index
+        (``core.env_offset`` under a data-parallel mesh)."""
         from ...ops.cuda.building_rollout import building_policy_segment
         from ...ops.cuda.ev_rollout import pack_policy_weights
 
@@ -472,7 +474,8 @@ class BuildingEnv(FunctionalEnv[BuildingParams, BuildingState]):
         e0 = self._episode_epochs(params, 0, batch, generator, epochs)
         seed = kernel_seed(generator) if noise is None else 0
         out, lrn = building_policy_segment(params, pack_policy_weights(policy),
-                                           e0, L, noise=noise, seed=seed)
+                                           e0, L, noise=noise, seed=seed,
+                                           env_offset=env_offset())
         done = torch.zeros((L, batch), dtype=torch.bool, device=params.device)
         done[-1] = True
         return {"lrn": lrn, "reward": out[..., 0], "done": done,

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ...core import (Box, DictSpace, FunctionalEnv, TimeStep, dataclass,
-                     kernel_seed, resolve_device, tree_map,
+                     draw_env_rows, kernel_seed, resolve_device, tree_map,
                      tree_stack)
 from ...core.graph import device_const, device_index
 from ...core.rollout import episode_loop, join_episodes
@@ -183,13 +183,14 @@ def sample_action(generator: torch.Generator, batch: int) -> torch.Tensor:
     dev = generator.device
     low = device_const(ACTION_LOW, dev)
     high = device_const(ACTION_HIGH, dev)
-    u = torch.rand((batch, len(ACTION_KEYS)), generator=generator, device=dev)
+    u = draw_env_rows(lambda b: torch.rand(
+        (b, len(ACTION_KEYS)), generator=generator, device=dev), batch)
     a = low + u * (high - low)
-    bins = torch.rand((batch, len(BINARY_IDX)), generator=generator,
-                      device=dev) < 0.5
+    bins = draw_env_rows(lambda b: torch.rand(
+        (b, len(BINARY_IDX)), generator=generator, device=dev), batch) < 0.5
     a[:, device_index(BINARY_IDX, dev)] = bins.float()
-    a[:, BAYS_IDX] = torch.randint(1, 13, (batch,), generator=generator,
-                                   device=dev).float()
+    a[:, BAYS_IDX] = draw_env_rows(lambda b: torch.randint(
+        1, 13, (b,), generator=generator, device=dev), batch).float()
     return a
 
 
@@ -209,8 +210,10 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
             return window
         if generator is None:
             raise ValueError("noisy forecasts need a torch.Generator")
-        noise = params.forecast_noise_std * torch.randn(
-            window[:, 1:].shape, generator=generator, device=generator.device)
+        shape = window[:, 1:].shape
+        noise = params.forecast_noise_std * draw_env_rows(
+            lambda b: torch.randn((b,) + shape[1:], generator=generator,
+                                  device=generator.device), shape[0])
         return torch.cat([window[:, :1], window[:, 1:] + noise.to(
             window.device)], 1)
 
@@ -247,8 +250,9 @@ class CogenEnv(FunctionalEnv[CogenParams, CogenState]):
         """``batch`` envs on days drawn from ``generator``: uniform over
         0 .. n_days - 2. The JAX package draws randint(0, n_days - 1), which
         never picks the last day; the port keeps that range."""
-        day = torch.randint(params.n_days - 1, (batch,), generator=generator,
-                            device=generator.device)
+        day = draw_env_rows(lambda b: torch.randint(
+            params.n_days - 1, (b,), generator=generator,
+            device=generator.device), batch)
         return self.reset_at_day(params, day, generator)
 
     def reset_at_day(self, params: CogenParams, day,

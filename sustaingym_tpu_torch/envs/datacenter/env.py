@@ -29,8 +29,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from ...core import (Box, FunctionalEnv, TimeStep, dataclass, kernel_seed,
-                     resolve_device, tree_map, tree_stack)
+from ...core import (Box, FunctionalEnv, TimeStep, dataclass, draw_env_rows,
+                     kernel_seed, resolve_device, tree_map, tree_stack)
 from ...core.rollout import episode_loop, join_episodes
 
 HOURS_PER_DAY = 24
@@ -155,8 +155,9 @@ class DataCenterEnv(FunctionalEnv[DCParams, DCState]):
     def reset(self, params: DCParams, generator: torch.Generator,
               batch: int) -> tuple[DCState, TimeStep]:
         """``batch`` envs on months drawn uniformly from ``generator``."""
-        month = torch.randint(params.n_months, (batch,), generator=generator,
-                              device=generator.device)
+        month = draw_env_rows(lambda b: torch.randint(
+            params.n_months, (b,), generator=generator,
+            device=generator.device), batch)
         return self.reset_at_month(params, month)
 
     def reset_at_month(self, params: DCParams, month

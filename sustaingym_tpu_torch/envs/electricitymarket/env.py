@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ...core import (Box, DictSpace, Discrete, FunctionalEnv, TimeStep,
-                     dataclass, replace, resolve_device, tree_stack)
+                     dataclass, draw_env_rows, replace, resolve_device,
+                     tree_stack)
 from ...core.graph import device_const
 from ...core.rollout import episode_loop, join_episodes
 from ...ops import lp
@@ -240,8 +241,9 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
     def reset(self, params: MarketParams, generator: torch.Generator,
               batch: int) -> tuple[MarketState, TimeStep]:
         """``batch`` envs on days drawn uniformly from ``generator``."""
-        day = torch.randint(params.n_days, (batch,), generator=generator,
-                            device=generator.device)
+        day = draw_env_rows(lambda b: torch.randint(
+            params.n_days, (b,), generator=generator,
+            device=generator.device), batch)
         return self.reset_at_day(params, day)
 
     def reset_at_day(self, params: MarketParams, day

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ...core import (Box, DictSpace, FunctionalEnv, TimeStep, dataclass,
-                     kernel_seed, resolve_device, tree_stack)
+                     draw_env_rows, env_offset, kernel_seed, resolve_device,
+                     tree_stack)
 from ...core.rollout import episode_loop, join_episodes
 from ...ops import qp
 from .sites import SiteSpec, load_site
@@ -357,8 +358,9 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
     def reset(self, params: EVParams, generator: torch.Generator,
               batch: int) -> tuple[EVState, TimeStep]:
         """``batch`` envs on uniform days drawn from ``generator``."""
-        day = torch.randint(params.n_days, (batch,), generator=generator,
-                            device=generator.device)
+        day = draw_env_rows(lambda b: torch.randint(
+            params.n_days, (b,), generator=generator,
+            device=generator.device), batch)
         return self.reset_at_day(params, day)
 
     def reset_at_day(self, params: EVParams, day) -> tuple[EVState, TimeStep]:
@@ -439,8 +441,9 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         if days is None:
             if generator is None:
                 raise ValueError("pass reset `days` or a torch.Generator")
-            days = torch.randint(params.n_days, (episodes, batch),
-                                 generator=generator, device=generator.device)
+            days = draw_env_rows(lambda b: torch.randint(
+                params.n_days, (episodes, b), generator=generator,
+                device=generator.device), batch, axis=1)
         days = torch.as_tensor(days, dtype=torch.long,
                                device=params.device).reshape(-1, batch)
         if days.shape[0] != episodes:
@@ -523,7 +526,8 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         :meth:`fused_layout`) — plus ``reward``/``done``/info (T, B) and
         the reset ``days`` (episodes, B). ``noise`` (T, B, n) prescribes
         the normal draws; otherwise the kernel draws Box–Muller normals
-        from a Philox stream seeded from ``generator``."""
+        from a Philox stream seeded from ``generator``, keyed by the global
+        env index (``core.env_offset`` under a data-parallel mesh)."""
         from ...ops.cuda.ev_rollout import (ev_policy_segment,
                                             pack_policy_weights)
 
@@ -540,7 +544,8 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
             else:
                 nz, seed = noise[ep * L:(ep + 1) * L], 0
             out, lrn = ev_policy_segment(params, weights, days[ep], L,
-                                         noise=nz, seed=seed)
+                                         noise=nz, seed=seed,
+                                         env_offset=env_offset())
             outs.append(out)
             lrns.append(lrn)
         out = torch.cat(outs)

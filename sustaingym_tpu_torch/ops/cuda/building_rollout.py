@@ -36,8 +36,8 @@ from ...envs.building.env import (MAX_KERNEL_ZONES, OCCU_COEF, BuildingParams,
                                   _seq_sum, div, kernel_config)
 from .ev_rollout import (PolicyWeights, _actor_ref, check_policy_weights,
                          policy_weight_args)
-from .wrap import (F, I, P, PI, U64, bind, check, ctas_per_sm, on_card, ptr,
-                   raise_on, seeded)
+from .wrap import (F, I, P, PI, U64, bind, check, ctas_per_sm, env_normals,
+                   on_card, ptr, raise_on, seeded)
 
 __all__ = ["building_fused_layout", "segment_step", "building_segment",
            "building_segment_ref", "building_policy_segment",
@@ -139,13 +139,13 @@ def building_segment_ref(params: BuildingParams, epochs: torch.Tensor, T: int,
 def building_policy_segment_ref(params: BuildingParams,
                                 weights: PolicyWeights, epochs: torch.Tensor,
                                 T: int, noise: torch.Tensor | None = None,
-                                seed: int = 0):
+                                seed: int = 0, env_offset: int = 0):
     """Plain version of :func:`building_policy_segment`. Returns (out
     (T, B, 3) f32 reward | comfort_cost | power_cost, learner block
-    (T, B, 2n + 4) bf16)."""
+    (T, B, 2n + 4) bf16). Without ``noise`` env e draws as global env
+    ``env_offset + e`` (``wrap.env_normals``)."""
     _check_config(params, "building_policy_segment")
     n, B, dev = params.n, epochs.shape[0], params.device
-    gen = seeded(dev, seed) if noise is None else None
     m = _operator(params)
     out = torch.empty((T, B, 3), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, 2 * n + 4), dtype=torch.bfloat16, device=dev)
@@ -158,7 +158,7 @@ def building_policy_segment_ref(params: BuildingParams,
                         -1).to(torch.bfloat16)
         mu = _actor_ref(weights, obs)
         z = (noise[t] if noise is not None else
-             torch.randn((B, n), generator=gen, device=dev))
+             env_normals(dev, seed, t, env_offset, B, n))
         u = mu + weights.sigma * z
         lrn[t] = torch.cat([obs, u.to(torch.bfloat16)], -1)
         row = params.exog[epochs + t]
@@ -178,9 +178,9 @@ _ENV_ARGS = [P, P, P, F, F, I, P, I, P, I, I]
 _SIGNATURES = {
     "building_segment_launch": _ENV_ARGS + [P, U64, P, P, P, P, P, P, P],
     "building_policy_segment_launch": _ENV_ARGS + [
-        P, P, P, P, P, P, P, I, P, U64, P, P, P],
+        P, P, P, P, P, P, P, I, P, U64, I, P, P, P],
     "building_policy_segment_launch_plan": _ENV_ARGS + [
-        P, P, P, P, P, P, P, I, I, I, I, I, I, P, U64, P, P, P],
+        P, P, P, P, P, P, P, I, I, I, I, I, I, P, U64, I, P, P, P],
     "building_policy_segment_plan": [I, I] + [PI] * 7,
 }
 
@@ -261,18 +261,19 @@ count_launches(building_segment)
 def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
                             epochs: torch.Tensor, T: int,
                             noise: torch.Tensor | None = None,
-                            seed: int = 0):
+                            seed: int = 0, env_offset: int = 0):
     """One episode segment with the actor in the kernel. ``weights`` from
     ``ev_rollout.pack_policy_weights`` (trunk1 (n + 4, H)); ``noise``
     (T, B, n) prescribed normals, else Box–Muller draws seeded by
-    ``seed``. Returns (out (T, B, 3) f32 reward | comfort_cost |
+    ``seed``, env e drawing as global env ``env_offset + e`` (a
+    data-parallel rank's slice). Returns (out (T, B, 3) f32 reward | comfort_cost |
     power_cost, learner block (T, B, 2n + 4) bf16; see
     :func:`building_fused_layout`). The launcher lays the actor out in the
     card's shared memory (:func:`building_policy_plan`) and refuses one
     whose 16-env activation tiles do not fit."""
     if not on_card(params.exog, "building_policy_segment"):
         return building_policy_segment_ref(params, weights, epochs, T, noise,
-                                           seed)
+                                           seed, env_offset)
     m = _operator(params)
     args = _env_args(params, m, epochs, T, "building_policy_segment")
     n, B, dev = params.n, epochs.shape[0], params.device
@@ -280,6 +281,8 @@ def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
     check_policy_weights(weights, n + 4, H, n, dev)
     if noise is not None:
         check("noise", noise, torch.float32, (T, B, n), dev)
+    if env_offset < 0:
+        raise ValueError(f"env_offset {env_offset} < 0")
     out = torch.empty((T, B, 3), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, 2 * n + 4), dtype=torch.bfloat16, device=dev)
     if B == 0:
@@ -288,7 +291,7 @@ def building_policy_segment(params: BuildingParams, weights: PolicyWeights,
         err = bind("building_rollout",
                    _SIGNATURES).building_policy_segment_launch(
             *args, *policy_weight_args(weights), H, ptr(noise),
-            seed % 2 ** 64, out.data_ptr(), lrn.data_ptr(),
+            seed % 2 ** 64, env_offset, out.data_ptr(), lrn.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "building_policy_segment")
     building_policy_segment.launches += 1

@@ -428,12 +428,13 @@ __device__ __forceinline__ void hidden_layer(const __nv_bfloat16* in, int ld_in,
 
 // Env `j` of the CTA's inputs of step t, staged for its stepping thread
 // in buffer t & 1: the exogenous row, and the n normals (prescribed, or
-// Box-Muller draws counted by (zone pair, step, env, stream 1)).
+// Box-Muller draws counted by (zone pair, step, global env e0 + e, stream
+// 1): a launch over a slice of a global batch draws that slice's numbers).
 template <int N>
 __device__ __forceinline__ void stage_inputs(float4* wbuf, float* zbuf, int j,
                                              int envs, const float4* rows,
                                              const float* noise, uint2 key,
-                                             int t, int e, int B) {
+                                             int t, int e, int B, int e0) {
   const int slot = (t & 1) * envs + j;
   wbuf[slot] = rows[t];
   float* z = zbuf + slot * N;
@@ -444,7 +445,8 @@ __device__ __forceinline__ void stage_inputs(float4* wbuf, float* zbuf, int j,
 #pragma unroll
     for (int g = 0; g < (N + 1) / 2; ++g) {
       const float2 p = box_muller(
-          philox4x32_10(make_uint4((uint32_t)g, (uint32_t)t, (uint32_t)e, 1u), key));
+          philox4x32_10(make_uint4((uint32_t)g, (uint32_t)t, (uint32_t)(e0 + e), 1u),
+                        key));
       z[2 * g] = p.x;
       if (2 * g + 1 < N) z[2 * g + 1] = p.y;
     }
@@ -455,7 +457,7 @@ template <int N>
 __global__ void __launch_bounds__(kPolicyWarps * 32, 1)
 building_policy_segment_kernel(Env env, Actor act, Plan pl,
                                const float* __restrict__ noise, uint64_t seed,
-                               float* __restrict__ out,
+                               int env_offset, float* __restrict__ out,
                                __nv_bfloat16* __restrict__ lrn) {
   constexpr int K = 2 * N + 4, D = N + 4, LW = 2 * N + 4;
   extern __shared__ uint4 smem4[];
@@ -509,7 +511,8 @@ building_policy_segment_kernel(Env env, Actor act, Plan pl,
   const int j = l - kStager, ej = blockIdx.x * envs + j;
   const bool stager = j >= 0 && j < envs && ej < B;
   const float4* stage_rows = env.table + (stager ? env.epochs[ej] : 0);
-  if (stager) stage_inputs<N>(wbuf, zbuf, j, envs, stage_rows, noise, key, 0, ej, B);
+  if (stager) stage_inputs<N>(wbuf, zbuf, j, envs, stage_rows, noise, key, 0, ej, B,
+                              env_offset);
   float x[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = env_s[N * K + i];
@@ -549,7 +552,8 @@ building_policy_segment_kernel(Env env, Actor act, Plan pl,
                           lay.ld_mu, pl.tiles);
     __syncthreads();
     if (stager && t + 1 < env.T)
-      stage_inputs<N>(wbuf, zbuf, j, envs, stage_rows, noise, key, t + 1, ej, B);
+      stage_inputs<N>(wbuf, zbuf, j, envs, stage_rows, noise, key, t + 1, ej, B,
+                      env_offset);
     if (live) {
       const size_t te = (size_t)t * B + e;
       __nv_bfloat16* lrow = lrn + te * LW;
@@ -595,7 +599,7 @@ cudaError_t smem_limit(int* limit) {
 
 template <int N>
 int policy_launch(const Env& env, const Actor& act, const Plan& pl,
-                  const float* noise, uint64_t seed, float* out,
+                  const float* noise, uint64_t seed, int env_offset, float* out,
                   __nv_bfloat16* lrn, cudaStream_t stream) {
   const size_t smem = policy_layout(N + 4, act.H, N, env_floats(N), pl).total;
   int limit = 0;
@@ -608,7 +612,7 @@ int policy_launch(const Env& env, const Actor& act, const Plan& pl,
   const int envs = kTile * pl.tiles;
   const int grid = (env.B + envs - 1) / envs;
   building_policy_segment_kernel<N><<<grid, kPolicyWarps * 32, smem, stream>>>(
-      env, act, pl, noise, seed, out, lrn);
+      env, act, pl, noise, seed, env_offset, out, lrn);
   return (int)cudaGetLastError();
 }
 
@@ -627,7 +631,7 @@ int policy_occupancy(size_t smem, int* ctas) {
 using SegmentFn = int (*)(const Env&, const float*, uint64_t, float*, float*,
                           float*, float*, float*, float*, cudaStream_t);
 using PolicyFn = int (*)(const Env&, const Actor&, const Plan&, const float*,
-                         uint64_t, float*, __nv_bfloat16*, cudaStream_t);
+                         uint64_t, int, float*, __nv_bfloat16*, cudaStream_t);
 using OccupancyFn = int (*)(size_t, int*);
 constexpr SegmentFn kSegment[kMaxZones] = {
     segment_launch<1>, segment_launch<2>, segment_launch<3>, segment_launch<4>,
@@ -677,9 +681,10 @@ extern "C" int building_policy_segment_launch(
     float beta, int n, const float* table, int rows, const int64_t* epochs,
     int B, int T, const void* w1, const float* b1, const void* w2,
     const float* b2, const void* wm, const float* bm, const float* sigma,
-    int H, const float* noise, uint64_t seed, float* out, __nv_bfloat16* lrn,
-    void* stream) {
-  if (bad_env(n, table, rows, B, T) || H <= 0) return (int)cudaErrorInvalidValue;
+    int H, const float* noise, uint64_t seed, int env_offset, float* out,
+    __nv_bfloat16* lrn, void* stream) {
+  if (bad_env(n, table, rows, B, T) || H <= 0 || env_offset < 0)
+    return (int)cudaErrorInvalidValue;
   int limit = 0;
   const cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
@@ -689,7 +694,8 @@ extern "C" int building_policy_segment_launch(
                 reinterpret_cast<const float4*>(table), epochs, B, T};
   const Actor act{static_cast<const uint4*>(w1), b1, static_cast<const uint4*>(w2),
                   b2, static_cast<const uint4*>(wm), bm, sigma, n + 4, H};
-  return kPolicy[n - 1](env, act, pl, noise, seed, out, lrn, (cudaStream_t)stream);
+  return kPolicy[n - 1](env, act, pl, noise, seed, env_offset, out, lrn,
+                        (cudaStream_t)stream);
 }
 
 // building_policy_segment_launch under a plan given by the caller instead
@@ -700,15 +706,16 @@ extern "C" int building_policy_segment_launch_plan(
     int B, int T, const void* w1, const float* b1, const void* w2,
     const float* b2, const void* wm, const float* bm, const float* sigma,
     int H, int tiles, int bias, int k1, int k2, int k3, const float* noise,
-    uint64_t seed, float* out, __nv_bfloat16* lrn, void* stream) {
+    uint64_t seed, int env_offset, float* out, __nv_bfloat16* lrn, void* stream) {
   const Plan pl{tiles, bias, k1, k2, k3};
-  if (bad_env(n, table, rows, B, T) || bad_plan(n, H, pl))
+  if (bad_env(n, table, rows, B, T) || bad_plan(n, H, pl) || env_offset < 0)
     return (int)cudaErrorInvalidValue;
   const Env env{m, target, ac, q_rate, beta,
                 reinterpret_cast<const float4*>(table), epochs, B, T};
   const Actor act{static_cast<const uint4*>(w1), b1, static_cast<const uint4*>(w2),
                   b2, static_cast<const uint4*>(wm), bm, sigma, n + 4, H};
-  return kPolicy[n - 1](env, act, pl, noise, seed, out, lrn, (cudaStream_t)stream);
+  return kPolicy[n - 1](env, act, pl, noise, seed, env_offset, out, lrn,
+                        (cudaStream_t)stream);
 }
 
 // The plan building_policy_segment_launch takes on the current card for n

@@ -65,7 +65,9 @@
 //    kernel arguments. No early stop: every iteration runs.
 //  * Random draws: counter-based Philox4x32-10 (philox.cuh) keyed by the
 //    caller's seed and counted by (lane, step, env, stream), so the draws do
-//    not depend on launch geometry.
+//    not depend on launch geometry. The policy kernel counts the global env
+//    index (env_offset + e): a data-parallel rank's launch over its slice
+//    of the global batch draws that slice's numbers.
 //  * No fast-math: rintf (round half to even, like jnp.round), IEEE sqrtf
 //    and division.
 
@@ -585,7 +587,8 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
                          const float* __restrict__ moer, int moer_w, int k_fc,
                          const int64_t* __restrict__ days, int B, int T,
                          const float* __restrict__ noise, uint64_t seed,
-                         float* __restrict__ out, __nv_bfloat16* __restrict__ lrn) {
+                         int env_offset, float* __restrict__ out,
+                         __nv_bfloat16* __restrict__ lrn) {
   extern __shared__ float smem[];  // dynamic: 16-byte aligned
   const int n = op.n, D = ac.D;
   SharedC sc{smem, smem + kMaxStations * kMaxConeRows};
@@ -634,8 +637,10 @@ ev_policy_segment_kernel(Operators op, Actor ac, const float* __restrict__ table
         z0 = L.v0 ? nz[L.s0] : 0.0f;
         z1 = L.v1 ? nz[L.s1] : 0.0f;
       } else {
-        const float2 z = box_muller(
-            philox4x32_10(make_uint4(L.lane, t, e, 1u), philox_key(seed)));
+        // counted by the global env index: a launch over a slice of a
+        // global batch draws that slice's numbers
+        const float2 z = box_muller(philox4x32_10(
+            make_uint4(L.lane, t, (unsigned)(env_offset + e), 1u), philox_key(seed)));
         z0 = z.x;
         z1 = z.y;
       }
@@ -722,8 +727,8 @@ extern "C" int ev_policy_segment_launch(
     const float* table, int table_w, int rows_per_day, const float* moer,
     int moer_w, int k_fc,
     const int64_t* days, int B, int T, const float* noise, uint64_t seed,
-    float* out, __nv_bfloat16* lrn, void* stream) {
-  if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0 ||
+    int env_offset, float* out, __nv_bfloat16* lrn, void* stream) {
+  if (n > kMaxStations || m2 > kMaxConeRows || B <= 0 || T <= 0 || env_offset < 0 ||
       D != 2 + 2 * n + k_fc || 1 + k_fc > moer_w)
     return (int)cudaErrorInvalidValue;
   Operators op{C, radii, step, mags, minp, n, m2, iters, restart, project};
@@ -736,7 +741,7 @@ extern "C" int ev_policy_segment_launch(
   const int grid = (B + kTile - 1) / kTile;
   ev_policy_segment_kernel<<<grid, kTile * 32, smem, (cudaStream_t)stream>>>(
       op, ac, table, table_w, rows_per_day, moer, moer_w, k_fc, days, B, T,
-      noise, seed, out, lrn);
+      noise, seed, env_offset, out, lrn);
   return (int)cudaGetLastError();
 }
 

@@ -38,8 +38,8 @@ from ...core import dataclass
 from ...core.graph import count_launches
 from ...envs.evcharging.env import EVParams, EVState, MAX_TIMESTEP, advance
 from ...ops.qp import SOCProjection
-from .wrap import (F, I, P, PI, U64, bind, check, ctas_per_sm, on_card, pad16,
-                   ptr, raise_on, seeded)
+from .wrap import (F, I, P, PI, U64, bind, check, ctas_per_sm, env_normals,
+                   on_card, pad16, ptr, raise_on, seeded)
 
 __all__ = ["PolicyWeights", "b_fragments", "pack_policy_weights",
            "check_policy_weights", "policy_weight_args", "ev_fused_layout",
@@ -205,12 +205,13 @@ def _policy_obs(st: EVState, moer_row: torch.Tensor, t: int, k: int
 
 def ev_policy_segment_ref(params: EVParams, weights: PolicyWeights,
                           days: torch.Tensor, T: int,
-                          noise: torch.Tensor | None = None, seed: int = 0):
+                          noise: torch.Tensor | None = None, seed: int = 0,
+                          env_offset: int = 0):
     """Plain version of :func:`ev_policy_segment`. Returns (out (T, B, 4),
-    learner block (T, B, D + n) bf16)."""
+    learner block (T, B, D + n) bf16). Without ``noise`` env e draws as
+    global env ``env_offset + e`` (``wrap.env_normals``)."""
     n, B, dev = params.n_stations, days.shape[0], params.device
     k = params.moer_forecast_steps
-    gen = seeded(dev, seed) if noise is None else None
     st = _zero_state(days, n)
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, ev_fused_layout(n, k)["width"]),
@@ -219,7 +220,7 @@ def ev_policy_segment_ref(params: EVParams, weights: PolicyWeights,
         obs = _policy_obs(st, params.moer[days, t], t, k).to(torch.bfloat16)
         mu = _actor_ref(weights, obs)
         z = (noise[t] if noise is not None else
-             torch.randn((B, n), generator=gen, device=dev))
+             env_normals(dev, seed, t, env_offset, B, n))
         u = mu + weights.sigma * z
         lrn[t] = torch.cat([obs, u.to(torch.bfloat16)], -1)
         st, reward, terms = advance(params, st, torch.tanh(u) * 0.5 + 0.5,
@@ -238,8 +239,8 @@ _SIGNATURES = {
     "ev_segment_launch": _OP_ARGS + [P, F, F, P, I, I, P, I, I, P, U64, P, P,
                                      P, P],
     "ev_policy_segment_launch": _OP_ARGS + [
-        P, P, P, P, P, P, P, I, I, P, I, I, P, I, I, P, I, I, P, U64, P, P,
-        P],
+        P, P, P, P, P, P, P, I, I, P, I, I, P, I, I, P, I, I, P, U64, I, P,
+        P, P],
     "ev_policy_segment_ctas_per_sm": [I, I, I, PI],
     "ev_segment_ctas_per_sm": [I, I, PI, PI],
 }
@@ -340,10 +341,12 @@ count_launches(ev_segment)
 
 def ev_policy_segment(params: EVParams, weights: PolicyWeights,
                       days: torch.Tensor, T: int,
-                      noise: torch.Tensor | None = None, seed: int = 0):
+                      noise: torch.Tensor | None = None, seed: int = 0,
+                      env_offset: int = 0):
     """One episode segment with the actor in the kernel; the obs channels
     come from the MOER pack ``params.moer``. ``noise`` (T, B, n) prescribed
-    normals, else Box–Muller draws seeded by ``seed``. Returns (out
+    normals, else Box–Muller draws seeded by ``seed``, env e drawing as
+    global env ``env_offset + e`` (a data-parallel rank's slice). Returns (out
     (T, B, 4) f32, learner block (T, B, D + n) bf16; see
     :func:`ev_fused_layout`). The dual-FISTA operator only: the policy
     kernel has no ADMM branch (nor has the TPU kernel)."""
@@ -351,7 +354,8 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
         raise ValueError("ev_policy_segment computes the dual-FISTA "
                          "projection only, not ADMM")
     if not on_card(params.step_table, "the EV kernels"):
-        return ev_policy_segment_ref(params, weights, days, T, noise, seed)
+        return ev_policy_segment_ref(params, weights, days, T, noise, seed,
+                                     env_offset)
     dev, n, m2 = _check_common(params, days, T)
     table, moer, k = params.step_table, params.moer, params.moer_forecast_steps
     B = days.shape[0]
@@ -364,6 +368,8 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
     check_policy_weights(weights, D, H, n, dev)
     if noise is not None:
         check("noise", noise, torch.float32, (T, B, n), dev)
+    if env_offset < 0:
+        raise ValueError(f"env_offset {env_offset} < 0")
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, D + n), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
@@ -371,7 +377,7 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
             *_op_args(params, n, m2), *policy_weight_args(weights), D, H,
             table.data_ptr(), table.shape[2], table.shape[1],
             moer.data_ptr(), moer.shape[2], k, days.data_ptr(), B, T,
-            ptr(noise), seed % 2 ** 64,
+            ptr(noise), seed % 2 ** 64, env_offset,
             out.data_ptr(), lrn.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "ev_policy_segment")

@@ -5,10 +5,11 @@ launch error."""
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-__all__ = ["on_card", "check", "ptr", "pad16", "seeded", "bind", "ctas_per_sm",
+__all__ = ["on_card", "check", "ptr", "pad16", "seeded", "env_normals", "bind", "ctas_per_sm",
            "raise_on"]
 
 P, I, U64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
@@ -48,6 +49,22 @@ def seeded(device, seed: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     return g
+
+
+def env_normals(device, seed: int, t: int, env_offset: int, B: int,
+                n: int) -> torch.Tensor:
+    """(B, n) N(0, 1) draws of step ``t`` for the global envs
+    ``[env_offset, env_offset + B)``: Box–Muller normals of the uniforms
+    of a generator seeded by (``seed``, ``t``), env-major. A CPU
+    generator fills uniforms in order, so on the CPU an env's draws do not
+    depend on the envs before or after it: a launch over a slice of a
+    global batch draws that slice's rows (the policy kernels key their
+    Philox stream by the global env index for the same reason)."""
+    g = seeded(device, (seed + t * 0x9E3779B97F4A7C15) % 2 ** 64)
+    u = torch.rand((env_offset + B, n, 2), generator=g,
+                   device=device)[env_offset:]
+    r = torch.sqrt(-2.0 * torch.log1p(-u[..., 0]))
+    return r * torch.cos(2.0 * math.pi * u[..., 1])
 
 
 _BOUND: dict[str, ctypes.CDLL] = {}

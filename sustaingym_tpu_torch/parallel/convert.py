@@ -25,7 +25,7 @@ from torch import nn
 from ..core import resolve_device
 from .ddpg import DetActor
 from .dqn import QNet
-from .ppo import ActorCritic, StackedActorCritic
+from .ppo import ActorCritic, StackedActorCritic, shard_policy
 from .sac import Critic, SACActor
 
 __all__ = ["from_jax", "to_jax", "load_jax_carry"]
@@ -56,13 +56,16 @@ def _load_dense(module: nn.Module, tree: dict) -> nn.Module:
     return module
 
 
-def from_jax(tree: dict, device="cuda") -> nn.Module:
+def from_jax(tree: dict, device="cuda", mesh=None) -> nn.Module:
     """The port's module (module docstring) on ``device`` (the card unless
     the caller asks for the CPU) holding the weights of a JAX tree of
-    array-likes (numpy arrays, or anything ``np.asarray`` reads)."""
+    array-likes (numpy arrays, or anything ``np.asarray`` reads). With a
+    ``mesh`` whose mp > 1 a PPO policy keeps this rank's shard of the full
+    parameters (``ppo.shard_policy``); the other networks are replicated
+    and need none."""
     device = resolve_device(device)
     if "value" in tree:
-        return _policy_from_jax(tree, device)
+        return shard_policy(_policy_from_jax(tree, device), mesh)
     if "q1" in tree:
         return nn.ModuleDict({q: from_jax(tree[q], device)
                               for q in ("q1", "q2")})

@@ -7,8 +7,8 @@ target action (``policy_noise`` clipped to ``noise_clip``; plain DDPG is
 ``policy_noise=0`` away), the actor trained through ``q1`` only, and
 Polyak targets for the actor and both critics, over the on-device replay
 ring (``offpolicy.py``: the rollout and each update as CUDA graphs on the
-card). Not ported yet: the mesh sharding of the carry
-(``shard_ddpg_carry``).
+card). ``mesh`` splits the env batch and the ring over dp, the JAX
+package's ``shard_ddpg_carry`` (``offpolicy``).
 """
 from __future__ import annotations
 
@@ -73,7 +73,8 @@ def det_actor_apply(actor: DetActor, obs: torch.Tensor) -> torch.Tensor:
 
 
 def make_ddpg_train_step(env, env_params, cfg: DDPGConfig,
-                         capture: bool = True) -> tuple[Callable, Callable]:
+                         capture: bool | None = None, mesh=None
+                         ) -> tuple[Callable, Callable]:
     """Builds (init_state, train_step) (``offpolicy.make_off_policy_step``):
     the carry holds ``actor``, ``critics`` ({q1, q2}), their Polyak
     ``actor_target`` and ``targets``, and the Adam optimizers
@@ -106,7 +107,7 @@ def make_ddpg_train_step(env, env_params, cfg: DDPGConfig,
                         -1.0, 1.0)
         return a, to_env_action(a)
 
-    def update(carry, batch, draws):
+    def update(carry, batch, draws, red):
         actor, critics = carry["actor"], carry["critics"]
         obs, next_obs = batch["obs"], batch["next_obs"]
         with torch.no_grad():
@@ -122,16 +123,18 @@ def make_ddpg_train_step(env, env_params, cfg: DDPGConfig,
         x = torch.cat([obs, batch["act"]], -1)
         e1 = critic_x(critics["q1"], x) - target
         e2 = critic_x(critics["q2"], x) - target
-        c_loss = 0.5 * (torch.mean(e1 ** 2) + torch.mean(e2 ** 2))
+        c_loss = 0.5 * (red.mean(e1 ** 2) + red.mean(e2 ** 2))
         carry["critic_opt"].zero_grad(set_to_none=True)
         c_loss.backward()
+        red.grads(critics.parameters())
         carry["critic_opt"].step()
 
         a = det_actor_apply(actor, obs)
-        a_loss = -torch.mean(critic_x(critics["q1"],
-                                      torch.cat([obs, a], -1)))
+        a_loss = -red.mean(critic_x(critics["q1"],
+                                    torch.cat([obs, a], -1)))
         carry["actor_opt"].zero_grad(set_to_none=True)
         a_loss.backward(inputs=list(actor.parameters()))
+        red.grads(actor.parameters())
         carry["actor_opt"].step()
 
         polyak(carry["actor_target"], actor, cfg.tau)
@@ -145,4 +148,4 @@ def make_ddpg_train_step(env, env_params, cfg: DDPGConfig,
                       init=init, act=act, update=update,
                       act_field=((act_dim,), torch.float32), actor=actor,
                       actor_key="actor")
-    return make_off_policy_step(env, env_params, cfg, learner, capture)
+    return make_off_policy_step(env, env_params, cfg, learner, capture, mesh)

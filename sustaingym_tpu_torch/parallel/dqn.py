@@ -13,8 +13,8 @@ with uniform bins gets one independent Q head per action dimension
 batch axis, each agent's heads from ``nvec.shape[-1]``.
 
 The ring keeps ``act`` as int64, the index dtype ``torch.gather`` takes
-(the JAX ring keeps int32). Not ported yet: the mesh sharding of the
-carry (``shard_dqn_carry``).
+(the JAX ring keeps int32). ``mesh`` splits the env batch and the ring
+over dp, the JAX package's ``shard_dqn_carry`` (``offpolicy``).
 """
 from __future__ import annotations
 
@@ -113,12 +113,14 @@ def _heads(env, space) -> tuple[int, int, int]:
 
 
 def make_dqn_train_step(env, env_params, cfg: DQNConfig,
-                        capture: bool = True) -> tuple[Callable, Callable]:
+                        capture: bool | None = None, mesh=None
+                        ) -> tuple[Callable, Callable]:
     """Builds (init_state, train_step) (``offpolicy.make_off_policy_step``):
     the carry holds ``qnet``, its Polyak ``target``, its Adam ``opt`` and
     ``iter`` (train steps taken, for the linear epsilon decay); the
     metrics are ``mean_reward``, ``epsilon`` (the rollout's) and
-    ``q_loss``. ``train_step.actor_fn`` is the greedy action."""
+    ``q_loss``. ``train_step.actor_fn`` is the greedy action. ``mesh``: the
+    dp split (``offpolicy``)."""
     check_gates(env, "heterogeneous per-agent action dims are only "
                 "supported by the PPO learner; use --algo ppo")
     space = env.action_space(env_params)
@@ -149,7 +151,7 @@ def make_dqn_train_step(env, env_params, cfg: DQNConfig,
         a = torch.where(explore, random_a, greedy)
         return a, to_env_action(a)
 
-    def update(carry, batch, draws):
+    def update(carry, batch, draws, red):
         qnet = carry["qnet"]
         next_obs = batch["next_obs"]
         with torch.no_grad():
@@ -167,9 +169,10 @@ def make_dqn_train_step(env, env_params, cfg: DQNConfig,
                    + cfg.gamma * (1.0 - batch["done"][..., None]) * q_next)
         q = qnet_apply(qnet, batch["obs"], act_dim, n_bins)
         q_a = torch.gather(q, -1, batch["act"][..., None])[..., 0]
-        loss = torch.mean(huber_loss(q_a, tgt))
+        loss = red.mean(huber_loss(q_a, tgt))
         carry["opt"].zero_grad(set_to_none=True)
         loss.backward()
+        red.grads(qnet.parameters())
         carry["opt"].step()
         polyak(carry["target"], qnet, cfg.tau)
         return loss.detach()[None]
@@ -181,4 +184,4 @@ def make_dqn_train_step(env, env_params, cfg: DQNConfig,
     learner = Learner(metrics=("q_loss",), init=init, act=act,
                       update=update, act_field=((act_dim,), torch.long),
                       actor=actor, actor_key="qnet", epsilon=epsilon)
-    return make_off_policy_step(env, env_params, cfg, learner, capture)
+    return make_off_policy_step(env, env_params, cfg, learner, capture, mesh)

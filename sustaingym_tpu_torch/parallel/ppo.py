@@ -65,10 +65,14 @@ CUDA graphs (``core/graph.py``), captured at the first train step and
 replayed after. ``make_train_step(..., capture=False)`` builds the same
 step without graphs, for comparisons.
 
-Not ported yet: sharding (``parallel/mesh.py`` and the dp/mp carry).
+With a ``mesh`` (``parallel/mesh.py``) the env batch is split over the dp
+ranks and the MLP's hidden over the mp ranks, as the JAX package's
+``carry_shardings`` lays them out (:func:`make_train_step`,
+:func:`shard_policy`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from functools import partial
@@ -77,12 +81,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import (Discrete, MultiDiscrete, capturable_autoreset_step,
-                    dataclass, flatdim, flatten)
+from ..core import (Discrete, MultiDiscrete, ScheduleGuard, dataclass,
+                    draw_env_rows, env_shard, flatdim, flatten,
+                    phased_autoreset_step, reset_schedule, tree_assign_,
+                    tree_map)
 from ..core.graph import Graphs, device_const, tree_leaves
+from .mesh import Mesh, mp_all_reduce
 
 __all__ = ["PPOConfig", "ActorCritic", "StackedActorCritic", "init_policy",
            "init_stacked_policy", "policy_apply", "policy_apply_bf16",
+           "policy_apply_bf16_ref", "bf16_matmul",
            "per_agent_apply", "default_act_transform", "gae", "loss_fn",
            "clip_by_global_norm", "make_train_step"]
 
@@ -199,7 +207,8 @@ def per_agent_apply(policy: StackedActorCritic, obs: torch.Tensor
     slice through its own weights, one batched product a layer."""
     h = torch.tanh(torch.einsum("...ad,adh->...ah", obs, policy.trunk1.weight)
                    + policy.trunk1.bias)
-    h = torch.tanh(torch.einsum("...ah,ahk->...ak", h, policy.trunk2.weight)
+    z = torch.einsum("...ah,ahk->...ak", h, policy.trunk2.weight)
+    h = torch.tanh(mp_all_reduce(z, getattr(policy, "mp_group", None))
                    + policy.trunk2.bias)
     mu = torch.einsum("...ah,ahm->...am", h, policy.mu.weight) + policy.mu.bias
     value = (torch.einsum("...ah,ahv->...av", h, policy.value.weight)
@@ -207,11 +216,66 @@ def per_agent_apply(policy: StackedActorCritic, obs: torch.Tensor
     return mu, policy.log_std, value
 
 
+# the mp split (the JAX package's carry_shardings, Megatron form): trunk1
+# column-parallel (its output hidden), trunk2 row-parallel (its input
+# hidden); the axis of each in a torch Linear's (dout, din) weight and in
+# the stacked (n_agents, din, dout) one, whose agent axis is never split
+_MP_AXES = {False: {("trunk1", "weight"): 0, ("trunk1", "bias"): 0,
+                    ("trunk2", "weight"): 1},
+            True: {("trunk1", "weight"): -1, ("trunk1", "bias"): -1,
+                   ("trunk2", "weight"): -2}}
+
+
+def _mp_axes(policy: nn.Module) -> dict:
+    return _MP_AXES[isinstance(policy, StackedActorCritic)]
+
+
+def mp_param_axes(policy: nn.Module) -> dict:
+    """{parameter: (state-dict name, sharded axis)} of the mp split
+    (empty without one, or for a module that is not a PPO policy)."""
+    if getattr(policy, "mp_group", None) is None:
+        return {}
+    return {getattr(getattr(policy, layer), attr): (f"{layer}.{attr}", axis)
+            for (layer, attr), axis in _mp_axes(policy).items()}
+
+
+@torch.no_grad()
+def shard_policy(policy: nn.Module, mesh: Mesh | None) -> nn.Module:
+    """Splits ``policy`` (``ActorCritic`` or ``StackedActorCritic``) over
+    ``mesh``'s mp group in place, Megatron style: trunk1's output hidden
+    and trunk2's input hidden keep this rank's 1 / mp; the heads and
+    ``log_std`` stay whole. Nothing changes without a split. Make the
+    optimizer after it: its state follows the shards."""
+    if mesh is None or mesh.mp == 1:
+        return policy
+    for (layer, attr), axis in _mp_axes(policy).items():
+        mod = getattr(policy, layer)
+        setattr(mod, attr, nn.Parameter(
+            mesh.model_shard(getattr(mod, attr).detach(), axis)))
+    policy.mp_group = mesh.mp_group
+    return policy
+
+
+@torch.no_grad()
+def unsharded_state(policy: nn.Module, mesh: Mesh | None) -> dict:
+    """``policy``'s state dict with the mp shards gathered: the one-rank
+    format (every mp rank calls it; checkpoints)."""
+    state = {k: v.detach().clone() for k, v in policy.state_dict().items()}
+    for key, axis in mp_param_axes(policy).values():
+        state[key] = mesh.unshard(state[key], axis)
+    return state
+
+
 def policy_apply(policy: ActorCritic, obs: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """obs (..., obs_dim) f32 -> (mu, log_std, value), all f32."""
+    """obs (..., obs_dim) f32 -> (mu, log_std, value), all f32. Under an
+    mp split (:func:`shard_policy`) trunk1 is column-parallel and trunk2
+    row-parallel: its partial sums are all-reduced over the mp group
+    before the bias."""
     h = torch.tanh(obs @ policy.trunk1.weight.t() + policy.trunk1.bias)
-    h = torch.tanh(h @ policy.trunk2.weight.t() + policy.trunk2.bias)
+    z = h @ policy.trunk2.weight.t()
+    h = torch.tanh(mp_all_reduce(z, getattr(policy, "mp_group", None))
+                   + policy.trunk2.bias)
     mu = h @ policy.mu.weight.t() + policy.mu.bias
     value = (h @ policy.value.weight.t() + policy.value.bias)[..., 0]
     return mu, policy.log_std, value
@@ -221,12 +285,50 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def policy_apply_bf16(policy: ActorCritic, obs: torch.Tensor
-                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mu, log_std, value) from bf16 obs with bf16 weights and hidden
-    activations and f32 accumulation — the kernel actor's numerics, used
-    for both the rollout's scoring and every update. The f32 matmuls of
-    bf16-valued operands need full f32 precision (no TF32)."""
+class _Bf16Matmul(torch.autograd.Function):
+    """x (..., K) bf16 @ w (N, K).T bf16 -> (..., N) float32: one bf16
+    tensor-core GEMM with float32 output (``aten::mm.dtype``), the JAX
+    package's bf16 ``einsum(..., preferred_element_type=float32)``.
+    Products of bf16 values are exact in float32, so it equals the float32
+    product of the same values up to the order of the sums. The backward
+    keeps float32 products (each has a float32 cotangent operand) and
+    returns bf16 gradients, as a bf16 cast's backward rounds them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[0],))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g2 @ w.float()).reshape(x.shape).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            gw = (g2.t() @ x.reshape(-1, x.shape[-1]).float()
+                  ).to(torch.bfloat16)
+        return gx, gw
+
+
+def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T of bf16 tensors with float32 output: the bf16 GEMM on a
+    CUDA tensor (:class:`_Bf16Matmul`), on the CPU the float32 product of
+    the same values (its plain version)."""
+    if x.device.type == "cuda":
+        return _Bf16Matmul.apply(x, w)
+    return x.float() @ w.float().t()
+
+
+def policy_apply_bf16_ref(policy: ActorCritic, obs: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain version of :func:`policy_apply_bf16`: the bf16-valued
+    operands multiplied in float32 (full float32: no TF32). The CPU's
+    route."""
     h = torch.tanh(obs.float() @ _bf(policy.trunk1.weight).t()
                    + policy.trunk1.bias)
     h = torch.tanh(_bf(h) @ _bf(policy.trunk2.weight).t()
@@ -234,6 +336,31 @@ def policy_apply_bf16(policy: ActorCritic, obs: torch.Tensor
     h = _bf(h)
     mu = h @ _bf(policy.mu.weight).t() + policy.mu.bias
     value = (h @ _bf(policy.value.weight).t() + policy.value.bias)[..., 0]
+    return mu, policy.log_std, value
+
+
+def policy_apply_bf16(policy: ActorCritic, obs: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mu, log_std, value) from bf16 obs with bf16 weights and hidden
+    activations and f32 accumulation — the kernel actor's numerics, used
+    for both the rollout's scoring and every update. On a CUDA device the
+    three products (obs x trunk1, h1 x trunk2, h2 x [mu; value]) are bf16
+    GEMMs with float32 output (:func:`bf16_matmul`), each weight cast to
+    bf16 once; elsewhere :func:`policy_apply_bf16_ref`."""
+    if obs.device.type != "cuda":
+        return policy_apply_bf16_ref(policy, obs)
+    bf = torch.bfloat16
+    h = torch.tanh(bf16_matmul(obs.to(bf), policy.trunk1.weight.to(bf))
+                   + policy.trunk1.bias)
+    h = torch.tanh(bf16_matmul(h.to(bf), policy.trunk2.weight.to(bf))
+                   + policy.trunk2.bias)
+    # both heads in one product: the hidden gradient is summed in float32
+    # before its bf16 cast, as the plain version sums it
+    heads = torch.cat([policy.mu.weight, policy.value.weight]).to(bf)
+    out = bf16_matmul(h.to(bf), heads)
+    act_dim = policy.mu.weight.shape[0]
+    mu = out[..., :act_dim] + policy.mu.bias
+    value = (out[..., act_dim:] + policy.value.bias)[..., 0]
     return mu, policy.log_std, value
 
 
@@ -274,8 +401,10 @@ def _categorical_entropy(logits):
 def _sample_categorical(logits, generator):
     """Bins drawn by the Gumbel-max rule, as ``jax.random.categorical``:
     argmax(logits - log(-log U)), U ~ U[tiny, 1) from ``generator``."""
-    u = torch.rand(logits.shape, generator=generator,
-                   device=generator.device)
+    shape = logits.shape
+    u = draw_env_rows(lambda b: torch.rand(
+        (b,) + shape[1:], generator=generator, device=generator.device),
+        shape[0])
     u = u.clamp_min(torch.finfo(u.dtype).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), -1)
 
@@ -323,9 +452,36 @@ def _logits(mu: torch.Tensor, n_bins: int) -> torch.Tensor:
     return mu.reshape(mu.shape[:-1] + (-1, n_bins))
 
 
+class DpReduce:
+    """A dp rank's reductions over one global minibatch of ``count`` rows,
+    this rank holding some of them: a mean is the local sum over the
+    global count, a term of the parameters alone (the Gaussian entropy)
+    is 1 / dp of it on every rank, and the advantages are normalised by
+    the global minibatch's mean and population std (all-reduced sums, two
+    passes). Summed over the dp group each equals the one-rank value up
+    to the order of the sums."""
+
+    def __init__(self, mesh: Mesh, count: int):
+        self.mesh, self.count = mesh, count
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        return x.sum() / (self.count * math.prod(x.shape[1:]))
+
+    def param_term(self, x: torch.Tensor) -> torch.Tensor:
+        return x / self.mesh.dp
+
+    def normalize(self, adv: torch.Tensor) -> torch.Tensor:
+        # over every element: a stacked policy's rows carry their agents
+        n = self.count * math.prod(adv.shape[1:])
+        mean = self.mesh.dp_sum_(adv.sum().reshape(1)) / n
+        dev = adv - mean
+        var = self.mesh.dp_sum_((dev * dev).sum().reshape(1)) / n
+        return dev / (torch.sqrt(var) + 1e-8)
+
+
 def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig,
             apply=policy_apply_bf16, n_bins: int = 0, mask=None,
-            uma: bool = False):
+            uma: bool = False, red: DpReduce | None = None):
     """Clipped-PPO (or, with ``cfg.algo == "a2c"``, A2C) loss on one
     minibatch, scored by ``apply`` (the same function that scored the
     rollout), with a Gaussian head or, for ``n_bins`` > 0, a categorical
@@ -334,47 +490,65 @@ def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig,
     masked out of the log-prob and the entropy, which is summed over the
     real components and divided by n_agents. ``uma``: the uniform-obs
     path's rows, ``u`` and ``logp`` (rows, n_agents) around one ``mu``,
-    each row's advantage broadcast over its agents."""
+    each row's advantage broadcast over its agents. ``red``: a dp rank's
+    share of a global minibatch (:class:`DpReduce`); each returned term
+    is then this rank's part of the global one."""
+    mean = torch.mean if red is None else red.mean
+    param = (lambda x: x) if red is None else red.param_term
     mu, log_std, value = apply(policy, batch["obs"])
     ent_terms = log_std + 0.5 * math.log(2 * math.pi * math.e)
     if n_bins:
         logits = _logits(mu, n_bins)
         logp = _categorical_logp(logits, batch["u"])
-        ent = torch.mean(_categorical_entropy(logits))
+        ent = mean(_categorical_entropy(logits))
     elif uma:
         logp = _uma_logp(mu, log_std, batch["u"])
-        ent = torch.sum(ent_terms)
+        ent = param(torch.sum(ent_terms))
     elif mask is not None:
         logp = _gauss_logp(mu, log_std, batch["u"], mask)
-        ent = torch.sum(mask * ent_terms) / mask.shape[0]
+        ent = param(torch.sum(mask * ent_terms) / mask.shape[0])
     else:
         logp = _gauss_logp(mu, log_std, batch["u"])
-        ent = torch.sum(ent_terms)
+        ent = param(torch.sum(ent_terms))
     adv = batch["adv"]
-    # population std, as jnp.std
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if red is None:
+        # population std, as jnp.std
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    else:
+        adv = red.normalize(adv)
     if uma:
         adv = adv[:, None]
     if cfg.algo == "a2c":
-        pg = -(logp * adv).mean()
+        pg = -mean(logp * adv)
     else:
         ratio = torch.exp(logp - batch["logp"])
-        pg = -torch.minimum(
+        pg = -mean(torch.minimum(
             ratio * adv,
-            torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
-        ).mean()
-    vf = 0.5 * torch.mean((value - batch["ret"]) ** 2)
+            torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv))
+    vf = 0.5 * mean((value - batch["ret"]) ** 2)
     loss = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
     return loss, {"pg_loss": pg, "vf_loss": vf, "entropy": ent}
 
 
 @torch.no_grad()
-def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float, mesh: Mesh | None = None,
+                        sharded=()) -> torch.Tensor:
     """optax.clip_by_global_norm: g <- g / norm * max_norm where
     norm >= max_norm (no epsilon, unlike ``clip_grad_norm_``). Returns the
-    norm; never synchronises with the device."""
+    norm; never synchronises with the device. Under an mp split each
+    parameter counts once: the replicated ones locally, the ``sharded``
+    ones' squares summed over the mp group."""
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    if mesh is None or mesh.mp == 1:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    else:
+        ids = {id(p) for p in sharded}
+        held = [p for p in params if p.grad is not None]
+        rep = sum(torch.sum(p.grad * p.grad) for p in held
+                  if id(p) not in ids)
+        own = sum(torch.sum(p.grad * p.grad) for p in held if id(p) in ids)
+        norm = torch.sqrt(rep + mesh.mp_sum_(own.reshape(1))[0])
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
     return norm
@@ -446,8 +620,9 @@ def _sampler(prep, apply, act, n_bins: int, agents: int = 0):
             u = _sample_categorical(_logits(mu, n_bins), generator)
             return obs, u, u
         shape = mu.shape[:-1] + (agents,) if agents else mu.shape
-        u = mu + torch.exp(log_std) * torch.randn(
-            shape, generator=generator, device=generator.device)
+        u = mu + torch.exp(log_std) * draw_env_rows(lambda b: torch.randn(
+            (b,) + shape[1:], generator=generator, device=generator.device),
+            shape[0])
         if agents:
             return obs, u, act(u[..., None])[..., 0]
         return obs, u, act(u)
@@ -478,12 +653,16 @@ class _SamplingPolicy:
         return action
 
 
-def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
+def make_train_step(env, env_params, cfg: PPOConfig,
+                    capture: bool | None = None, mesh: Mesh | None = None,
+                    path: str | None = None):
     """Builds (init_state, train_step).
 
     ``init_state(generator) -> carry`` with the policy and its Adam state,
     and for the generic rollout the envs' states and obs (``env_states``,
-    ``obs``: reset from ``generator``, carried across train steps);
+    ``obs``: reset from ``generator``, carried across train steps), the
+    steps since their episodes began (``env_phase``, a CPU int64) and the
+    reset schedule's guard (``reset_guard``);
     ``train_step(carry, generator) -> (carry, metrics)`` runs one rollout +
     update in place on the params' device and returns 0-d metric tensors
     (no host synchronisation). Its three phases are also attributes of
@@ -493,11 +672,14 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     (re-scoring and GAE) and ``update(policy, opt, samples, generator) ->
     summed metrics``; and
     ``train_step.graphs``, the trainer's :class:`core.graph.Graphs` (None
-    without capture), ``train_step.path`` ("fused", "episodic" or
+    without capture), ``train_step.captured`` (the phases captured),
+    ``train_step.path`` ("fused", "episodic" or
     "generic"), ``train_step.uma`` (the uniform-obs multi-agent path),
     ``train_step.per_agent`` (per-agent stacked policies),
     ``train_step.n_agents`` (1 for a single-agent env),
-    ``train_step.rollout_len`` and ``train_step.actor(policy, obs) ->
+    ``train_step.rollout_len``, ``train_step.check(carry)`` (reads the
+    generic rollout's reset guard now; train steps read it one step late)
+    and ``train_step.actor(policy, obs) ->
     actions``, the deterministic evaluation policy (also ``actor_fn``,
     with ``actor_key`` "policy": the evaluation hooks of every learner).
 
@@ -508,20 +690,62 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     ``batch_unroll`` (not for per-agent policies, nor for a discrete
     multi-agent view); else, and at any other length, the generic path,
     which needs the env's batched ``step`` and ``reset`` (module
-    docstring, which also lists the multi-agent paths).
+    docstring, which also lists the multi-agent paths). ``path``, if
+    given, must be the one this resolves to, else a ``ValueError`` says
+    why it is not.
 
-    On a CUDA device, with ``capture`` (the default), the rollout's step
-    loop, the scoring and each minibatch update run as CUDA graphs
-    captured at the first train step (never here: a checkpoint
-    restored after ``init_state`` replaces the optimizer state they bind).
-    A phase holds one graph: another policy or optimizer state (a carry
-    made earlier, ``opt.load_state_dict``) replaces it, and
+    The generic rollout resets the envs only at the steps that end every
+    episode (``core.env.reset_schedule`` from ``env_phase``; every step
+    where the env has no fixed ``episode_steps``), and counts in
+    ``reset_guard`` the steps where the envs broke that schedule: a count
+    other than 0 raises at the next read.
+
+    ``mesh`` (``parallel/mesh.py``): ``cfg.num_envs`` is the global batch,
+    each dp rank rolls out its ``num_envs / dp`` envs (every draw at the
+    global size, ``core.env_shard``; the kernels' streams keyed by the
+    global env index), scores them and computes their GAE, and the
+    update equals the one-rank update of the global batch up to the order
+    of the sums: every rank draws the global permutations, takes the rows
+    of each global minibatch that it holds (no batch moves between
+    ranks), and the loss's means are its sums over the global count
+    (:class:`DpReduce`); the gradients and metrics are all-reduced over
+    dp before the clip, so Adam keeps the parameters equal on every rank.
+    With mp > 1 the policy is split (:func:`shard_policy`); the fused
+    kernels need whole weights, so the path resolves as the JAX gate
+    does on a multi-device mesh (``path="fused"`` raises).
+
+    On a CUDA device the phases run as CUDA graphs captured at the first
+    train step (never here: a checkpoint restored after ``init_state``
+    replaces the optimizer state they bind): the rollout's step loop (the
+    episodic path's episode, the generic path's one-step graphs with and
+    without the reset, replayed in the schedule's order, each writing its
+    trajectory row at a device counter), the scoring and each minibatch
+    update. A phase holds one graph: another policy or optimizer state
+    (a carry made earlier, ``opt.load_state_dict``) replaces it, and
     ``init_state`` drops them all with their memory pool.
     What a phase returns is then the graph's output, rewritten when that
-    phase runs again. ``capture=False`` runs the same step eagerly (for
-    comparisons); on the CPU every step is eager."""
+    phase runs again. ``capture`` None captures what the mesh allows:
+    with more than one rank the update and the metrics' reduction hold
+    collectives (gloo cannot be captured) and run eagerly, and with mp >
+    1 the rollout and scoring too; ``capture=True`` asks for the whole
+    step and raises with more than one rank; ``capture=False`` runs the
+    same step eagerly (for comparisons). On the CPU every step is
+    eager."""
     if cfg.algo not in ("ppo", "a2c"):
         raise ValueError(f"unknown on-policy algo {cfg.algo!r}")
+    multi = mesh is not None and mesh.size > 1
+    if capture and multi:
+        raise ValueError(
+            f"capture=True with a mesh of {mesh.size} ranks: the update's "
+            f"collectives cannot be captured; pass capture=None (the "
+            f"rollout and scoring captured where they hold none) or False")
+    dp = 1 if mesh is None else mesh.dp
+    mp = 1 if mesh is None else mesh.mp
+    if cfg.num_envs % dp:
+        raise ValueError(f"num_envs={cfg.num_envs} not divisible by "
+                         f"dp={dp}")
+    B = cfg.num_envs // dp            # this rank's envs
+    offset = 0 if mesh is None else mesh.d * B
     ep_len = env.episode_steps(env_params)
     T = ep_len if cfg.rollout_len is None else int(cfg.rollout_len)
     if not T or T < 1:
@@ -533,11 +757,13 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     ma = bool(getattr(env, "agent_axis", False))
     pap = bool(getattr(env, "per_agent_policy", False))
     # the fused kernels compute Box actions only: their
-    # fused_policy_unroll_supported is False for a discrete space
-    fused = (not ma and whole and cfg.obs_bf16
-             and hasattr(env, "fused_policy_unroll")
-             and env.fused_policy_unroll_supported(env_params,
-                                                   cfg.num_envs))
+    # fused_policy_unroll_supported is False for a discrete space; they
+    # need the whole weights, so an mp split turns them off (the JAX
+    # gate's single-device term); under dp each rank runs them on its own
+    fused_env = (not ma and whole and cfg.obs_bf16
+                 and hasattr(env, "fused_policy_unroll")
+                 and env.fused_policy_unroll_supported(env_params, B))
+    fused = fused_env and mp == 1
     # a discrete view and per-agent policies take the generic path, as in
     # the JAX package
     episodic = (whole and hasattr(env, "batch_unroll") and not pap
@@ -550,7 +776,14 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     uma = (ma and episodic
            and getattr(env, "uniform_agent_obs", None) is not None
            and env.uniform_agent_obs(env_params))
-    path = "fused" if fused else "episodic" if episodic else "generic"
+    resolved = "fused" if fused else "episodic" if episodic else "generic"
+    if path is not None and path != resolved:
+        why = (f"the fused policy kernels need the whole weights; mp={mp} "
+               f"splits them" if path == "fused" and fused_env else
+               "see make_train_step's docstring for each path's gate")
+        raise ValueError(f"path={path!r} asked for, this configuration "
+                         f"resolves to {resolved!r}: {why}")
+    path = resolved
     if path == "generic" and not (hasattr(env, "step")
                                   and hasattr(env, "reset")):
         raise ValueError(
@@ -571,12 +804,26 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
         space = env.action_space(env_params)
         act_dim, n_bins = _action_head(space, per_agent=ma)
         n_agents = int(space.shape[0]) if ma else 1
-    graphs = Graphs(device) if capture and device.type == "cuda" else None
+    on_card = capture is not False and device.type == "cuda"
+    # the phases a graph may hold: none with a collective in them
+    captured = (("rollout", "score", "update") if not multi
+                else ("rollout", "score") if mp == 1 else ())
+    if not on_card:
+        captured = ()
+    graphs = Graphs(device) if captured else None
+    roll_graphs = graphs if "rollout" in captured else None
     obs_space = env.observation_space(env_params)
     obs_dim = flatdim(obs_space)
     head_dim = act_dim * n_bins if n_bins else act_dim
     act = None if n_bins else default_act_transform(
         env, env_params, space if pap else None)
+
+    def shard():
+        """The block in which this rank draws as its rows of the global
+        batch (a no-op without dp)."""
+        if dp == 1:
+            return contextlib.nullcontext()
+        return env_shard(offset, B, cfg.num_envs)
 
     def stored(obs):
         return obs.to(torch.bfloat16) if cfg.obs_bf16 else obs
@@ -597,8 +844,8 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
                              f"{obs_dim}")
 
         def unroll(policy, generator, carry):
-            out = env.fused_policy_unroll(env_params, policy, cfg.num_envs,
-                                          T, generator=generator)
+            out = env.fused_policy_unroll(env_params, policy, B, T,
+                                          generator=generator)
             lrn = out["lrn"]                        # (T, B, D + n) bf16
             return {"obs": lrn[..., :D],
                     "u": lrn[..., u_lo:u_lo + act_dim].float(),
@@ -626,43 +873,82 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
             if sampler is None:
                 samplers.clear()
                 sampler = samplers[policy] = _SamplingPolicy(sample, T)
-            ts = roll(env_params, sampler, policy, cfg.num_envs, T,
-                      generator, graphs=graphs)
+            ts = roll(env_params, sampler, policy, B, T, generator,
+                      graphs=roll_graphs)
             # uma: the base env's global reward, each agent's share
             reward = ts.reward / share if uma else ts.reward
             return {"obs": sampler.obs, "u": sampler.u,
                     "reward": reward, "done": ts.done}
     elif path == "generic":
-        step = capturable_autoreset_step(env)
+        step = phased_autoreset_step(env)
+        held = {}     # the rollout's buffers, made at its first call
 
-        def generic_steps(policy, generator, state, obs_raw):
-            """T autoreset steps from (state, obs_raw): the part of the
-            generic rollout that a CUDA graph captures."""
-            rows = {"obs": [], "u": [], "reward": [], "done": []}
-            for _ in range(T):
-                obs, u, action = sample(policy, obs_raw, generator)
-                state, ts = step(env_params, state, action, generator)
-                obs_raw = ts.obs
-                for key, v in zip(rows, (obs, u, ts.reward, ts.done)):
-                    rows[key].append(v)
-            out = {key: torch.stack(v) for key, v in rows.items()}
-            out["last_obs"] = prep(obs_raw)
-            return state, obs_raw, out
+        def buffers(carry):
+            """The env state, obs, trajectory rows and row counter that
+            both one-step graphs read and write in place."""
+            if "bufs" not in held:
+                obs = prep(carry["obs"])
+                lead = tuple(obs.shape[:-1]) if ma else (B,)
+                rows = {"obs": obs.new_empty((T,) + tuple(obs.shape)),
+                        "u": torch.empty(
+                            (T,) + lead + (act_dim,), device=device,
+                            dtype=torch.long if n_bins else torch.float32),
+                        "reward": torch.empty((T,) + lead, device=device),
+                        "done": torch.empty((T, B), dtype=torch.bool,
+                                            device=device)}
+                held["bufs"] = {
+                    "env": tree_map(torch.clone, {
+                        "state": carry["env_states"], "obs": carry["obs"]}),
+                    "rows": rows,
+                    "counter": torch.zeros(1, dtype=torch.long,
+                                           device=device)}
+            bufs = held["bufs"]
+            tree_assign_(bufs["env"], {"state": carry["env_states"],
+                                       "obs": carry["obs"]})
+            return bufs
+
+        def generic_step(policy, generator, bufs, guard, reset):
+            """One autoreset step of the envs in ``bufs``, its row written
+            at the counter: the part of the generic rollout that a CUDA
+            graph captures (one graph with the reset, one without)."""
+            env_now = bufs["env"]
+            obs, u, action = sample(policy, env_now["obs"], generator)
+            state, ts = step(env_params, env_now["state"], action,
+                             generator, reset, guard if ep_len else None)
+            tree_assign_(env_now, {"state": state, "obs": ts.obs})
+            i = bufs["counter"]
+            for key, v in zip(bufs["rows"], (obs, u, ts.reward, ts.done)):
+                row = bufs["rows"][key]
+                row.index_copy_(0, i, v[None].to(row.dtype))
+            i.add_(1)
+            return ()
 
         def unroll(policy, generator, carry):
             if carry is None:
                 raise ValueError("the generic rollout needs the carry")
-            inputs = (carry["env_states"], carry["obs"])
-            fn = partial(generic_steps, policy, generator)
-            if graphs is None:
-                state, obs_raw, out = fn(*inputs)
-            else:
-                key = ("generic", id(policy), id(generator)) + tuple(
-                    (x.shape, x.dtype) for x in tree_leaves(inputs))
-                state, obs_raw, out = graphs(key, fn, *inputs,
-                                             generators=(generator,),
-                                             slot="rollout")
-            carry["env_states"], carry["obs"] = state, obs_raw
+            bufs = buffers(carry)
+            guard = carry["reset_guard"]
+            bufs["counter"].zero_()
+            phase = int(carry["env_phase"])
+            # restored after a capture's warm-up; the rows are not: the
+            # replay after it rewrites the very row from the same inputs
+            state = tree_leaves(bufs["env"]) + [bufs["counter"], guard]
+            for reset in reset_schedule(ep_len, phase, T):
+                fn = partial(generic_step, policy, generator, bufs, guard,
+                             reset)
+                if roll_graphs is None:
+                    fn()
+                else:
+                    key = ("generic", reset, id(policy), id(generator),
+                           id(bufs), id(guard))
+                    roll_graphs(key, fn, generators=(generator,),
+                                state=state, slot=("rollout", reset))
+            carry["env_states"] = bufs["env"]["state"]
+            carry["obs"] = bufs["env"]["obs"]
+            if ep_len:
+                carry["env_phase"].fill_((phase + T) % ep_len)
+            out = dict(bufs["rows"])
+            out["last_obs"] = prep(bufs["env"]["obs"])
             return out
 
     def logp_of(mu, log_std, u):
@@ -681,18 +967,23 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
         else:
             policy = init_policy(obs_dim, head_dim, cfg.hidden, generator,
                                  device)
+        shard_policy(policy, mesh)
         carry = {"policy": policy, "opt": _adam(policy.parameters(), cfg,
                                                 device)}
         if path == "generic":
-            carry["env_states"], ts = env.reset(env_params, generator,
-                                                cfg.num_envs)
+            with shard():
+                carry["env_states"], ts = env.reset(env_params, generator, B)
             carry["obs"] = ts.obs
+            carry["env_phase"] = torch.zeros((), dtype=torch.long)
+            carry["reset_guard"] = torch.zeros((), dtype=torch.long,
+                                               device=device)
         return carry
 
     @torch.no_grad()
     def rollout(policy: ActorCritic, generator: torch.Generator,
                 carry: dict | None = None) -> dict:
-        return unroll(policy, generator, carry)
+        with shard():
+            return unroll(policy, generator, carry)
 
     def score_body(policy, obs, u, reward, done, last_obs=None):
         mu, log_std, value = apply(policy, obs)
@@ -732,7 +1023,7 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
     def score(policy: ActorCritic, out: dict) -> dict:
         args = (out["obs"], out["u"], out["reward"], out["done"]) + (
             (out["last_obs"],) if "last_obs" in out else ())
-        if graphs is None:
+        if graphs is None or "score" not in captured:
             return score_body(policy, *args)
         key = ("score", id(policy)) + tuple(
             (a.shape, a.dtype) for a in args)
@@ -753,9 +1044,39 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
             sums.add_(torch.stack([metrics[k].detach() for k in METRICS]))
         return sums
 
+    # rows of the flat block: (t, env) with the agents inside a row (uma,
+    # stacked policies), or (t, env, agent) for a shared policy over a view
+    row_agents = n_agents if ma and not (uma or pap) else 1
+
+    def dp_minibatch(policy, opt, flat, idx, mb, sums):
+        """A dp rank's part of one global minibatch update: its ``idx``
+        rows, the loss's terms over the global count ``mb``, the gradients
+        and metrics all-reduced over dp before the clip."""
+        batch = {key: v[idx] for key, v in flat.items()}
+        loss, metrics = loss_fn(policy, batch, cfg, apply, n_bins, mask, uma,
+                                red=DpReduce(mesh, mb))
+        opt.zero_grad(set_to_none=False)
+        loss.backward()
+        params = list(policy.parameters())
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            stats = torch.stack([metrics[k].detach() for k in METRICS])
+            buf = mesh.dp_sum_(torch.cat([p.grad.reshape(-1) for p in params]
+                                         + [stats]))
+            at = 0
+            for p in params:
+                p.grad.copy_(buf[at:at + p.numel()].view_as(p))
+                at += p.numel()
+            sums.add_(buf[at:])
+        clip_by_global_norm(params, cfg.max_grad_norm, mesh,
+                            mp_param_axes(policy))
+        opt.step()
+
     def update(policy: ActorCritic, opt, flat: dict,
                generator: torch.Generator) -> dict:
-        n = flat["logp"].shape[0]
+        n = flat["logp"].shape[0] * dp      # the global batch's rows
         mb = n // cfg.minibatches
         dropped = n - mb * cfg.minibatches
         if mb == 0:
@@ -776,10 +1097,21 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
         count = cfg.epochs * cfg.minibatches
         mb_idx = torch.stack([p[:cfg.minibatches * mb] for p in perms]
                              ).reshape(count, mb)
-        counter = torch.zeros(1, dtype=torch.long, device=device)
         sums = torch.zeros(len(METRICS), device=device)
+        if multi:
+            # this rank's rows of each global minibatch, in its order (all
+            # of them at dp = 1)
+            per_t = cfg.num_envs * row_agents
+            e = mb_idx // row_agents % cfg.num_envs
+            own = (e >= offset) & (e < offset + B)
+            local = (mb_idx // per_t * (B * row_agents)
+                     + (e - offset) * row_agents + mb_idx % row_agents)
+            for idx in torch.split(local[own], own.sum(1).tolist()):
+                dp_minibatch(policy, opt, flat, idx, mb, sums)
+            return dict(zip(METRICS, sums))
+        counter = torch.zeros(1, dtype=torch.long, device=device)
         body = partial(minibatch_body, policy, opt)
-        if graphs is None:
+        if graphs is None or "update" not in captured:
             for _ in range(count):
                 body(flat, mb_idx, counter, sums)
         else:
@@ -788,6 +1120,8 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
             sums = graphs(key, body, flat, mb_idx, counter, sums,
                           state=state, repeat=count, slot="update")
         return dict(zip(METRICS, sums))
+
+    guard = ScheduleGuard(env, ep_len) if path == "generic" else None
 
     def train_step(carry: dict, generator: torch.Generator):
         policy, opt = carry["policy"], carry["opt"]
@@ -799,13 +1133,27 @@ def make_train_step(env, env_params, cfg: PPOConfig, capture: bool = True):
         sums = update(policy, opt, score(policy, out), generator)
         count = cfg.epochs * cfg.minibatches
         metrics.update({key: v / count for key, v in sums.items()})
+        if multi:
+            # every rank reports the global metrics
+            keys = list(metrics)
+            local = torch.stack([metrics[k] for k in keys])
+            local[:2] = mesh.dp_sum_(local[:2].clone()) / dp
+            metrics = dict(zip(keys, local))
+        if guard is not None:
+            guard.push(carry["reset_guard"])
         return carry, metrics
+
+    def check(carry: dict) -> None:
+        """Reads the reset guard of the newest train step now."""
+        if guard is not None:
+            guard.check()
 
     train_step.rollout, train_step.score = rollout, score
     train_step.update, train_step.graphs = update, graphs
+    train_step.captured, train_step.check = captured, check
     train_step.path, train_step.rollout_len = path, T
     train_step.uma, train_step.per_agent = uma, pap
-    train_step.n_agents = n_agents
+    train_step.n_agents, train_step.mesh = n_agents, mesh
 
     @torch.no_grad()
     def actor(policy: ActorCritic, obs_raw) -> torch.Tensor:

@@ -9,8 +9,9 @@ card). Three Adam optimizers with optax's rule (``ppo.adam``), the third
 on the 0-d ``log_alpha``; no gradient clipping, as in the JAX package.
 
 Multi-agent views with an agent axis (MA building) train one shared actor
-over the (B, n_agents, D) obs, each agent's action width. Not ported yet:
-the mesh sharding of the carry (``shard_sac_carry``).
+over the (B, n_agents, D) obs, each agent's action width. ``mesh``
+splits the env batch and the ring's env axis over dp, the JAX package's
+``shard_sac_carry`` (``offpolicy.make_off_policy_step``).
 """
 from __future__ import annotations
 
@@ -167,13 +168,14 @@ def box_action(env, env_params, algo: str, hint: str):
 
 
 def make_sac_train_step(env, env_params, cfg: SACConfig,
-                        capture: bool = True) -> tuple[Callable, Callable]:
+                        capture: bool | None = None, mesh=None
+                        ) -> tuple[Callable, Callable]:
     """Builds (init_state, train_step) (``offpolicy.make_off_policy_step``):
     the carry holds ``actor``, ``critics`` ({q1, q2}), ``targets``,
     ``log_alpha`` and their Adam optimizers ``actor_opt``, ``critic_opt``
     and ``alpha_opt``; the update metrics are ``q_loss``, ``actor_loss``,
     ``alpha`` and ``entropy``. ``train_step.actor_fn`` is tanh(mu) mapped
-    into the Box."""
+    into the Box. ``mesh``: the dp split (``offpolicy``)."""
     check_gates(env, "heterogeneous per-agent action dims are only "
                 "supported by the PPO learner (stacked per-agent "
                 "policies); use --algo ppo")
@@ -204,7 +206,7 @@ def make_sac_train_step(env, env_params, cfg: SACConfig,
                                   log_std)
         return a, to_env_action(a)
 
-    def update(carry, batch, draws):
+    def update(carry, batch, draws, red):
         actor, critics = carry["actor"], carry["critics"]
         log_alpha = carry["log_alpha"]
         obs, next_obs = batch["obs"], batch["next_obs"]
@@ -221,31 +223,35 @@ def make_sac_train_step(env, env_params, cfg: SACConfig,
         x = torch.cat([obs, batch["act"]], -1)
         e1 = critic_x(critics["q1"], x) - target
         e2 = critic_x(critics["q2"], x) - target
-        c_loss = 0.5 * (torch.mean(e1 ** 2) + torch.mean(e2 ** 2))
+        c_loss = 0.5 * (red.mean(e1 ** 2) + red.mean(e2 ** 2))
         carry["critic_opt"].zero_grad(set_to_none=True)
         c_loss.backward()
+        red.grads(critics.parameters())
         carry["critic_opt"].step()
 
         # the actor through the updated critics, with fresh actions
         mu, ls = actor_apply(actor, obs)
         a, logp = _sample_tanh_gauss(draws.normal(mu.shape, obs.device),
                                      mu, ls)
-        a_loss = torch.mean(alpha * logp - twin_min(critics, obs, a))
+        a_loss = red.mean(alpha * logp - twin_min(critics, obs, a))
         carry["actor_opt"].zero_grad(set_to_none=True)
         a_loss.backward(inputs=list(actor.parameters()))
+        red.grads(actor.parameters())
         carry["actor_opt"].step()
 
         # the temperature toward the entropy target
         logp = logp.detach()
-        al_loss = -torch.mean(torch.exp(log_alpha) * (logp + target_entropy))
+        al_loss = -red.mean(torch.exp(log_alpha) * (logp + target_entropy))
         carry["alpha_opt"].zero_grad(set_to_none=True)
         al_loss.backward()
+        red.grads([log_alpha])
         carry["alpha_opt"].step()
 
         polyak(carry["targets"], critics, cfg.tau)
         with torch.no_grad():
             return torch.stack([c_loss.detach(), a_loss.detach(),
-                                log_alpha.exp(), -logp.mean()])
+                                red.param(log_alpha.exp()),
+                                -red.mean(logp)])
 
     def actor(net, obs):
         return to_env_action(torch.tanh(actor_apply(net, obs)[0]))
@@ -254,4 +260,4 @@ def make_sac_train_step(env, env_params, cfg: SACConfig,
                       init=init, act=act, update=update,
                       act_field=((act_dim,), torch.float32), actor=actor,
                       actor_key="actor")
-    return make_off_policy_step(env, env_params, cfg, learner, capture)
+    return make_off_policy_step(env, env_params, cfg, learner, capture, mesh)

@@ -69,11 +69,15 @@ import contextlib
 import csv
 import json
 import os
+import sys
 import time
 
 # the env carry: replaced on restore (its tensors may alias one another,
 # as a reset's); every other tensor is copied into in place
 ENV_CARRY = ("env_states", "obs")
+# the carry entries a dp mesh splits, and their env axis (the off-policy
+# ring is (capacity, num_envs, ...)); checkpoints hold the whole batch
+DP_AXES = {"env_states": 0, "obs": 0, "buffer": 1}
 
 
 def _kind(value) -> str:
@@ -88,24 +92,103 @@ def _kind(value) -> str:
     return "tensors"
 
 
-def save_checkpoint(path: str, carry: dict, generator, step: int) -> None:
+def _mp_axes(carry: dict) -> dict:
+    """{parameter: (state-dict name, axis)} of every mp-split parameter
+    of the carry's networks."""
+    from torch import nn
+
+    from sustaingym_tpu_torch.parallel.ppo import mp_param_axes
+    return {p: ax for v in carry.values() if isinstance(v, nn.Module)
+            for p, ax in mp_param_axes(v).items()}
+
+
+def _opt_slots(opt, axes: dict) -> dict:
+    """{index in ``opt``'s state dict: axis} of its mp-split parameters."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return {i: axes[p][1] for i, p in enumerate(params) if p in axes}
+
+
+def _whole(k: str, v, kind: str, axes: dict, mesh):
+    """Carry entry ``k`` in the one-rank format: mp shards and dp rows
+    gathered (every rank calls it: the gathers are collectives)."""
     import torch
+    import torch.distributed as dist
 
     from sustaingym_tpu_torch.core.graph import tree_leaves
-    os.makedirs(path, exist_ok=True)
+    from sustaingym_tpu_torch.parallel.ppo import mp_param_axes
+    if kind == "module":
+        state = dict(v.state_dict())
+        for name, axis in mp_param_axes(v).values():
+            state[name] = mesh.unshard(state[name], axis)
+        return state
+    if kind == "optimizer":
+        state = v.state_dict()
+        for i, axis in _opt_slots(v, axes).items():
+            state["state"][i] = {
+                s: (mesh.unshard(x, axis) if s != "step" else x)
+                for s, x in state["state"][i].items()}
+        return state
+    leaves = [x.detach() for x in tree_leaves(v)]
+    if mesh is not None and mesh.dp > 1 and k in DP_AXES:
+        whole = []
+        for x in leaves:
+            parts = [torch.empty_like(x) for _ in range(mesh.dp)]
+            dist.all_gather(parts, x.contiguous(), group=mesh.dp_group)
+            whole.append(torch.cat(parts, DP_AXES[k]))
+        leaves = whole
+    return [x.cpu() for x in leaves]
+
+
+def save_checkpoint(path: str, carry: dict, generator, step: int,
+                    mesh=None) -> None:
+    """Saves ``carry`` and ``generator`` to ``path/step_<step>.pt``. With
+    a ``mesh`` every rank calls it: the mp shards and the dp ranks' envs
+    and ring columns are gathered into the one-rank format, which rank 0
+    writes, so ``--restore`` works at any mesh."""
+    import torch
     kinds = {k: _kind(v) for k, v in carry.items()}
-    payload = {k: (v.state_dict() if kinds[k] != "tensors" else
-                   [x.detach().cpu() for x in tree_leaves(v)])
+    axes = _mp_axes(carry) if mesh is not None else {}
+    payload = {k: _whole(k, v, kinds[k], axes, mesh)
                for k, v in carry.items()}
+    if mesh is not None and mesh.rank != 0:
+        return
+    os.makedirs(path, exist_ok=True)
     torch.save({"iteration": step, "generator": generator.get_state(),
                 "carry": payload, "kinds": kinds},
                os.path.join(path, f"step_{step}.pt"))
 
 
-def restore_checkpoint(path: str, carry: dict, generator) -> int:
+def _shard_saved(k: str, saved, kind: str, value, axes: dict, mesh):
+    """A one-rank checkpoint's entry cut to this rank's part of
+    ``mesh``."""
+    from sustaingym_tpu_torch.parallel.ppo import mp_param_axes
+    if mesh is None:
+        return saved
+    if kind == "module":
+        saved = dict(saved)
+        for name, axis in mp_param_axes(value).values():
+            saved[name] = mesh.model_shard(saved[name], axis)
+        return saved
+    if kind == "optimizer":
+        for i, axis in _opt_slots(value, axes).items():
+            saved["state"][i] = {
+                s: (mesh.model_shard(x, axis) if s != "step" else x)
+                for s, x in saved["state"][i].items()}
+        return saved
+    if k in DP_AXES and mesh.dp > 1:
+        axis = DP_AXES[k]
+        rows = [mesh.data_slice(x.shape[axis]) for x in saved]
+        return [x.narrow(axis, r.start, r.stop - r.start).clone()
+                for x, r in zip(saved, rows)]
+    return saved
+
+
+def restore_checkpoint(path: str, carry: dict, generator,
+                       mesh=None) -> int:
     """Loads the newest ``step_<i>.pt`` of ``path`` into ``carry`` and
     ``generator``; returns its iteration. A checkpoint whose entries,
-    kinds or tensor shapes differ from ``carry``'s is refused."""
+    kinds or tensor shapes differ from ``carry``'s is refused. With a
+    ``mesh`` each rank takes its part of the one-rank checkpoint."""
     import torch
 
     from sustaingym_tpu_torch.core import tree_map
@@ -121,8 +204,9 @@ def restore_checkpoint(path: str, carry: dict, generator) -> int:
         raise SystemExit(f"{path}: the checkpoint's carry "
                          f"{ckpt.get('kinds')} does not match this "
                          f"trainer's {kinds}")
+    axes = _mp_axes(carry) if mesh is not None else {}
     for k, kind in kinds.items():
-        saved = ckpt["carry"][k]
+        saved = _shard_saved(k, ckpt["carry"][k], kind, carry[k], axes, mesh)
         if kind != "tensors":
             try:
                 carry[k].load_state_dict(saved)
@@ -159,7 +243,8 @@ def read_best(csv_path: str) -> float:
     return best
 
 
-def make_evaluator(env, env_params, train_step, episodes: int, seed: int):
+def make_evaluator(env, env_params, train_step, episodes: int, seed: int,
+                   capture: bool = True):
     """``evaluate(nets, i) -> row``: the deterministic actor
     (``train_step.actor_fn`` of ``nets``, the carry's
     ``train_step.actor_key``) over one
@@ -168,14 +253,15 @@ def make_evaluator(env, env_params, train_step, episodes: int, seed: int):
     ``mean_return`` and the mean of every float info field. One
     ``Graphs`` serves every evaluation, so on the card each one after the
     first replays its episode loop (the graph reads the policy's weights
-    in place)."""
+    in place). ``capture`` False runs the episodes eagerly (an mp split's
+    actor holds a collective)."""
     import torch
     from sustaingym_tpu_torch.core import batch_rollout
     from sustaingym_tpu_torch.core.graph import Graphs
 
     ep_len = env.episode_steps(env_params)
     device = env_params.device
-    graphs = Graphs(device)
+    graphs = Graphs(device) if capture else None
     gen = torch.Generator(device=device)
     actor = train_step.actor_fn
 
@@ -253,9 +339,41 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--save-every", type=int, default=10)
     parser.add_argument("--restore", default=None,
                         help="checkpoint dir to resume from")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="train over N ranks (0 = one process): the "
+                             "env batch split over N / mp data-parallel "
+                             "ranks; under torchrun WORLD_SIZE must be N, "
+                             "launched alone it spawns its N ranks (gloo "
+                             "where they share a card or run on the CPU)")
+    parser.add_argument("--mp", type=int, default=1,
+                        help="tensor-parallel width within the mesh: the "
+                             "PPO MLP's hidden split over mp ranks")
     args = parser.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
+
+    from sustaingym_tpu_torch.parallel import (init_distributed, make_mesh,
+                                               spawn)
+
+    if args.mesh > 1 and not dist.is_initialized():
+        if "WORLD_SIZE" in os.environ:
+            if int(os.environ["WORLD_SIZE"]) != args.mesh:
+                raise SystemExit(f"--mesh {args.mesh} under torchrun with "
+                                 f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
+            init_distributed(device=args.device)
+        else:
+            # launched alone: one process a rank, each running this main
+            # (by its import path: ``-m`` runs this file as __main__)
+            from sustaingym_tpu_torch.train import main as entry
+            spawn(entry, args.mesh,
+                  (sys.argv[1:] if argv is None else list(argv),),
+                  device=args.device, timeout=24 * 3600.0)
+            return
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh(args.mesh, mp=args.mp, device=args.device)
+    rank0 = mesh is None or mesh.rank == 0
 
     from sustaingym_tpu_torch import make
     from sustaingym_tpu_torch.parallel import (DDPGConfig, DQNConfig,
@@ -265,10 +383,12 @@ def main(argv: list[str] | None = None) -> None:
                                                make_sac_train_step,
                                                make_train_step)
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device is available")
+        if device.index is not None:
+            torch.cuda.set_device(device)
         # full-f32 matmuls for the projection and the learner's scoring
         torch.backends.cuda.matmul.allow_tf32 = False
     env_kwargs = json.loads(args.env_kwargs) if args.env_kwargs else {}
@@ -280,40 +400,63 @@ def main(argv: list[str] | None = None) -> None:
                   hidden=args.hidden, lr=args.lr, gamma=args.gamma)
     if args.algo == "sac":
         cfg = SACConfig(**common)
-        init_state, train_step = make_sac_train_step(env, env_params, cfg)
+        init_state, train_step = make_sac_train_step(env, env_params, cfg,
+                                                     mesh=mesh)
     elif args.algo == "dqn":
         cfg = DQNConfig(reward_scale=reward_scale, **common)
-        init_state, train_step = make_dqn_train_step(env, env_params, cfg)
+        init_state, train_step = make_dqn_train_step(env, env_params, cfg,
+                                                     mesh=mesh)
     elif args.algo == "ddpg":
         cfg = DDPGConfig(**common)
-        init_state, train_step = make_ddpg_train_step(env, env_params, cfg)
+        init_state, train_step = make_ddpg_train_step(env, env_params, cfg,
+                                                      mesh=mesh)
     else:
         cfg = PPOConfig(epochs=args.epochs, minibatches=args.minibatches,
                         reward_scale=reward_scale, obs_bf16=args.obs_bf16,
                         algo=args.algo, **common)
-        init_state, train_step = make_train_step(env, env_params, cfg)
+        init_state, train_step = make_train_step(env, env_params, cfg,
+                                                 mesh=mesh)
+    if mesh is not None and rank0:
+        print(f"mesh: dp={mesh.dp} mp={mesh.mp} on {device}", flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     carry = init_state(gen)
     start_iter = 0
     if args.restore:
-        start_iter = restore_checkpoint(args.restore, carry, gen)
-        print(f"restored checkpoint at iteration {start_iter}")
+        start_iter = restore_checkpoint(args.restore, carry, gen, mesh)
+        if rank0:
+            print(f"restored checkpoint at iteration {start_iter}")
 
-    os.makedirs(args.log_dir, exist_ok=True)
     csv_path = os.path.join(args.log_dir, "train_results.csv")
     ckpt_dir = os.path.join(args.log_dir, "checkpoints")
+    if rank0:
+        os.makedirs(args.log_dir, exist_ok=True)
     steps_per_iter = cfg.num_envs * train_step.rollout_len
     evaluate = (make_evaluator(env, env_params, train_step,
-                               args.eval_episodes, args.seed)
+                               args.eval_episodes, args.seed,
+                               capture=mesh is None or mesh.mp == 1)
                 if args.eval_every else None)
     eval_csv = os.path.join(args.log_dir, "eval_results.csv")
-    best = read_best(eval_csv)
+    best = read_best(eval_csv) if rank0 else float("-inf")
     eval_writer = None
 
     def run_eval(i: int, eval_f):
         nonlocal best, eval_writer
+        # every rank evaluates (an mp split's actor holds a collective);
+        # rank 0's return and best decide, so every rank saves together
         row = evaluate(carry[train_step.actor_key], i)
+        new_best = row["mean_return"] > best
+        if mesh is not None:
+            pack = torch.tensor([row["mean_return"], float(new_best)],
+                                dtype=torch.float64, device=device)
+            dist.broadcast(pack, 0)
+            row["mean_return"], new_best = float(pack[0]), bool(pack[1])
+        if new_best:
+            best = row["mean_return"]
+            save_checkpoint(os.path.join(args.log_dir, "best_model"), carry,
+                            gen, i, mesh)
+        if not rank0:
+            return
         if eval_writer is None:
             if eval_f.tell() > 0:
                 with open(eval_csv, newline="") as prev:
@@ -327,17 +470,16 @@ def main(argv: list[str] | None = None) -> None:
                 eval_writer.writeheader()
         eval_writer.writerow(row)
         eval_f.flush()
-        marker = ""
-        if row["mean_return"] > best:
-            best = row["mean_return"]
-            save_checkpoint(os.path.join(args.log_dir, "best_model"), carry,
-                            gen, i)
-            marker = " (new best, saved)"
+        marker = " (new best, saved)" if new_best else ""
         print(f"eval @ iter {i}: return={row['mean_return']:.4f}{marker}",
               flush=True)
 
-    with open(csv_path, "a", newline="") as f, \
-            (open(eval_csv, "a", newline="") if evaluate
+    def opened(path):
+        return (open(path, "a", newline="") if rank0
+                else contextlib.nullcontext())
+
+    with opened(csv_path) as f, \
+            (opened(eval_csv) if evaluate
              else contextlib.nullcontext()) as eval_f:
         writer = None
         for i in range(start_iter, start_iter + args.iterations):
@@ -347,21 +489,24 @@ def main(argv: list[str] | None = None) -> None:
             dt = time.perf_counter() - t0
             row.update(iteration=i, seconds=dt,
                        env_steps_per_s=steps_per_iter / dt)
-            if writer is None:
-                writer = csv.DictWriter(f, fieldnames=list(row))
-                if f.tell() == 0:
-                    writer.writeheader()
-            writer.writerow(row)
-            f.flush()
-            print(f"iter {i}: reward={row['mean_reward']:.4f} "
-                  f"({row['env_steps_per_s']:.0f} env-steps/s on "
-                  f"{device.type})", flush=True)
+            if rank0:
+                if writer is None:
+                    writer = csv.DictWriter(f, fieldnames=list(row))
+                    if f.tell() == 0:
+                        writer.writeheader()
+                writer.writerow(row)
+                f.flush()
+                print(f"iter {i}: reward={row['mean_reward']:.4f} "
+                      f"({row['env_steps_per_s']:.0f} env-steps/s on "
+                      f"{device.type})", flush=True)
             if (i + 1) % args.save_every == 0:
-                save_checkpoint(ckpt_dir, carry, gen, i + 1)
+                save_checkpoint(ckpt_dir, carry, gen, i + 1, mesh)
             if evaluate is not None and (i + 1) % args.eval_every == 0:
                 run_eval(i + 1, eval_f)
-    save_checkpoint(ckpt_dir, carry, gen, start_iter + args.iterations)
-    print(f"done; logs in {csv_path}")
+    train_step.check(carry)
+    save_checkpoint(ckpt_dir, carry, gen, start_iter + args.iterations, mesh)
+    if rank0:
+        print(f"done; logs in {csv_path}")
 
 
 if __name__ == "__main__":

@@ -194,7 +194,7 @@ def test_kernel_wrappers_validate_inputs(cuda, tmp_path):
     m = K5._operator(p)           # held: the launches read it by address
     args = (K5._env_args(p, m, epochs, T, "building_policy_segment")
             + K.policy_weight_args(w) + [64])
-    tail = [None, 0, out.data_ptr(), lrn.data_ptr(),
+    tail = [None, 0, 0, out.data_ptr(), lrn.data_ptr(),
             torch.cuda.current_stream().cuda_stream]
     assert lib.building_policy_segment_launch_plan(*args, 4, 1, 1, 4, 4,
                                                    *tail) == 0
@@ -596,7 +596,7 @@ def test_building_policy_segment_plans_bit_equal(cuda, tmp_path, H, tiles):
         out = torch.empty_like(want[0])
         lrn = torch.empty_like(want[1])
         assert lib.building_policy_segment_launch_plan(
-            *args, *plan, noise.data_ptr(), 0, out.data_ptr(),
+            *args, *plan, noise.data_ptr(), 0, 0, out.data_ptr(),
             lrn.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
         torch.cuda.synchronize()
         assert torch.equal(out, want[0]) and torch.equal(lrn, want[1]), plan
@@ -973,7 +973,8 @@ def test_captured_ma_train_step_matches_eager(cuda, tmp_path, case):
 def test_captured_ma_trainer_reinit_drops_its_graphs(cuda, tmp_path, case):
     """init_state on a multi-agent trainer drops its graphs: a second
     carry takes the step a fresh trainer takes from the same seed, with
-    one graph per phase."""
+    one graph per phase (the generic rollout, MA cogen's, two: its steps
+    without and with the reset, which its 96-step rollout reaches)."""
     from sustaingym_tpu_torch.parallel import make_train_step
     env, p, cfg = _ma_trainer(cuda, tmp_path, case)
     runs = []
@@ -984,7 +985,8 @@ def test_captured_ma_trainer_reinit_drops_its_graphs(cuda, tmp_path, case):
             step(init_state(gen), gen)
         gen = torch.Generator(device=cuda).manual_seed(5)
         carry, metrics = step(init_state(gen), gen)
-        assert len(step.graphs._captured) == 3
+        assert len(step.graphs._captured) == (
+            4 if step.path == "generic" else 3)
         runs.append(([w.detach().clone()
                       for w in carry["policy"].parameters()],
                      {k: float(v) for k, v in metrics.items()}))
@@ -1090,3 +1092,117 @@ def test_captured_off_policy_ring_holds_the_eager_transitions(cuda, case):
     assert not ring["obs"][T:].any()
     assert ring["obs"][:T].abs().sum() > 0
     assert torch.equal(ring["next_obs"][:T - 1], ring["obs"][1:T])
+
+
+@pytest.mark.parametrize("kernel", ["ev", "building"])
+def test_policy_kernels_env_offset_slices_bit_equal(cuda, tmp_path, kernel):
+    """The policy kernels key their Philox draws by the global env index:
+    a launch at ``env_offset`` o over b envs is bit-equal to rows [o,
+    o + b) of the launch over all (offsets that split 16-env tiles)."""
+    if kernel == "ev":
+        _, p, days, _ = _setup(cuda, "caltech", True, 100)
+        n, k = p.n_stations, p.moer_forecast_steps
+        w = K.pack_policy_weights(init_policy(
+            2 + 2 * n + k, n, 64, torch.Generator().manual_seed(0), cuda))
+
+        def launch(o, b):
+            return K.ev_policy_segment(p, w, days[o:o + b], 288, seed=11,
+                                       env_offset=o)
+    else:
+        _, p = _building(cuda, tmp_path)
+        w = K.pack_policy_weights(init_policy(
+            p.n + 4, p.n, 64, torch.Generator().manual_seed(0), cuda))
+        days = torch.arange(100, device=cuda) * 3
+
+        def launch(o, b):
+            return K5.building_policy_segment(p, w, days[o:o + b], 288,
+                                              seed=11, env_offset=o)
+    full = launch(0, 100)
+    for o, b in ((0, 37), (37, 63), (99, 1)):
+        part = launch(o, b)
+        for x, y in zip(part, full):
+            assert torch.equal(x, y[:, o:o + b]), (o, b)
+
+
+@pytest.mark.parametrize("m,k,n", [(24576, 146, 256), (24576, 256, 256),
+                                   (24576, 256, 55)])
+def test_bf16_gemm_float64_gate(cuda, m, k, n):
+    """The PPO learner's bf16 products (obs x trunk1, h1 x trunk2, h2 x
+    heads at the EV trainer's minibatch rows) as bf16 GEMMs with float32
+    output, and the float32 route of the same bf16 values, each within
+    64 * 2^-24 * sum_k |a_k b_k| of the float64 product; the backward's
+    float32 products equal the float32 route's to float32 rounding."""
+    from sustaingym_tpu_torch.parallel.ppo import bf16_matmul
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    w = torch.randn((n, k), generator=g, device=cuda).bfloat16()
+    ref = a.double() @ w.double().t()
+    bound = 64 * 2.0 ** -24 * (a.double().abs() @ w.double().abs().t())
+    for out in (bf16_matmul(a, w), a.float() @ w.float().t()):
+        assert out.dtype == torch.float32
+        assert bool(((out.double() - ref).abs() <= bound).all())
+    a1, w1 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    a2, w2 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    cot = torch.randn((m, n), generator=g, device=cuda)
+    (bf16_matmul(a1, w1) * cot).sum().backward()
+    (a2.float() @ w2.float().t() * cot).sum().backward()
+    assert a1.grad.dtype == w1.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(a1.grad.float(), a2.grad.float(),
+                               rtol=2 ** -7, atol=1e-5)
+    torch.testing.assert_close(w1.grad.float(), w2.grad.float(),
+                               rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("algo", ["ppo", "sac"])
+def test_phase_gated_rollout_captured_matches_eager(cuda, algo):
+    """EV generic PPO (projection on) and SAC EV (off), rollout 64: five
+    train steps cross the episode end at step 288 (the reset graph's
+    first replay in the fifth), captured against eager: bit-equal
+    parameters, metrics, env states and generator; the guard reads 0."""
+    from sustaingym_tpu_torch import parallel as P
+    env, p = make("evcharging", device=cuda, project_action=algo == "ppo")
+    if algo == "ppo":
+        cfg = P.PPOConfig(num_envs=64, rollout_len=64, hidden=32,
+                          minibatches=4, epochs=1)
+        factory = P.make_train_step
+    else:
+        cfg = P.SACConfig(num_envs=64, rollout_len=64, hidden=32, updates=2)
+        factory = P.make_sac_train_step
+    runs = []
+    for capture in (None, False):
+        init_state, step = factory(env, p, cfg, capture=capture)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        carry = init_state(gen)
+        for _ in range(5):
+            carry, metrics = step(carry, gen)
+        step.check(carry)
+        assert int(carry["reset_guard"]) == 0
+        assert int(carry["env_phase"]) == 5 * 64 % 288
+        runs.append(({k: t.detach().clone() for k, t in
+                      chip_smoke.carry_tensors(carry).items()},
+                     {k: float(v) for k, v in metrics.items()},
+                     gen.get_state()))
+    (tc, mc, gc), (te, me, ge) = runs
+    assert mc == me
+    assert [k for k in tc if not torch.equal(tc[k], te[k])] == []
+    assert torch.equal(gc, ge)
+
+
+def test_two_gloo_ranks_on_the_card(cuda):
+    """Two gloo ranks share the card (dp = 2, the EV fused trainer at 256
+    global envs, lr = 0): each launches ev_policy_segment on its 128
+    envs, their parameters stay bit-equal, and their metrics equal one
+    rank's on the same global batch to the reassociation of the sums."""
+    from sustaingym_tpu_torch.bench_scaling import rank_run, run_ranks
+    cfg = {"num_envs": 256, "rollout_len": None, "hidden": 64,
+           "minibatches": 4, "epochs": 1, "obs_bf16": True, "lr": 0.0}
+    one = rank_run("evcharging", "ppo", cfg, 1, 1, 0, "cuda", {})
+    two = run_ranks(2, "evcharging", "ppo", cfg, steps=1, device="cuda")
+    assert one["path"] == two[0]["path"] == "fused"
+    assert two[0]["params"] == two[1]["params"] == one["params"]
+    for r in two:
+        assert r["launches"]["ev_policy_segment"] == 2
+        for a, b in zip(one["metrics"], r["metrics"]):
+            for key in a:
+                assert b[key] == pytest.approx(a[key], rel=1e-3,
+                                               abs=1e-5), key

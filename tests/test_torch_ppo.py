@@ -475,6 +475,7 @@ def test_generic_gae_bootstraps_from_the_last_obs():
     gen = torch.Generator().manual_seed(0)
     carry = init_state(gen)
     carry["env_states"].t.fill_(280)
+    carry["env_phase"].fill_(280)     # the reset schedule's clock too
     out = train_step.rollout(carry["policy"], gen, carry)
     done = out["done"].numpy()
     assert done[7].all() and done.sum() == done.shape[1]

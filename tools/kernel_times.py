@@ -36,8 +36,9 @@ checks wait on the host between launches (~0.1 ms).
 
 Outputs, on inputs that are the same in every run (seeded on the card):
 ``ev_segment`` of the two timed calls, ``ev_policy_segment`` and
-``building_policy_segment`` on prescribed noise at the timed shapes, and
-the warm and cold PDHG solves. ``--save`` writes them to FILE (the EV
+``building_policy_segment`` on prescribed noise at the timed shapes and
+with their in-kernel draws (the SHA-256 of both outputs: the draws'
+Philox counters), and the warm and cold PDHG solves. ``--save`` writes them to FILE (the EV
 policy kernel's 0.9 GB learner block as its SHA-256); each ``--compare``
 loads another run's FILE and prints, per output, bit-equal or max |d|.
 The building output also gets ``chip_smoke.policy_drift`` against its
@@ -60,6 +61,16 @@ import tempfile
 TRAIN_ENVS, SIM_ENVS, STEPS, HIDDEN, MKT_BATCH = 8192, 32768, 288, 256, 4096
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+
+def _digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import torch
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
 
 def _load(name: str, path: str):
     """This repository's module at ``path``, whichever checkout is
@@ -165,6 +176,8 @@ def main() -> int:
             outs["ev_policy_segment out"] = out.cpu()
             outs["ev_policy_segment learner block"] = hashlib.sha256(
                 lrn.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            out, lrn = K.ev_policy_segment(p, w, days, STEPS, seed=3)
+            outs["ev_policy_segment in-kernel draws"] = _digest(out, lrn)
             del noise, lrn
 
     tables = tempfile.mkdtemp(prefix="building_tables_")
@@ -191,6 +204,8 @@ def main() -> int:
           f"{cs.policy_drift(p.n, kernel, plain)} [{root}]", flush=True)
     outs["building_policy_segment out"] = kernel[0].cpu()
     outs["building_policy_segment learner block"] = kernel[1].cpu()
+    outs["building_policy_segment in-kernel draws"] = _digest(
+        *K5.building_policy_segment(p, w, epochs, STEPS, seed=69))
     del noise, kernel, plain
 
     env, p = make("electricitymarket", device=dev)
