@@ -44,7 +44,8 @@ Slice 1, PPO on EVChargingEnv with the action projection on:
    projection on;
 6. trainer: two PPO train steps at 8192 envs x 288 steps, H = 256, bf16
    obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check; then
-   the kernels' device time (``torch.profiler``), the whole
+   the kernels' device time (CUDA events around the kernel's C
+   entry point, ``device_ms``), the whole
    simulation-tier call and the plain versions (CUDA events), and
    ``ev_segment``'s CTAs resident per SM and waves. Before the
    main path, ``ev_policy_segment`` at 8192 x 288 is also timed with the
@@ -255,6 +256,39 @@ Slice 9, the PPO update's bf16 GEMMs, the reset schedule and ranks:
     the exact-ratio invariant on each rank); each rank's wall time and peak memory
     (``distribution_slice``).
 
+Slice 10, the host side: the debug checks, the examples and ``--profile``
+(every launch count set to 0 before phases 41 and 43 and read after each;
+their launches join the kernels' line):
+
+41. ``utils.debug.validate_batch_rollout`` over one whole episode of each
+    env of ``DEBUG_RUNS`` at the bench's widths (EV, building on the
+    synthetic tables and cogen at 8192 envs, datacenter and market at
+    4096, MA EV 512 x 54 agents, MA cogen 4096, MA building 1024), with
+    ``check_bounds`` as ``tests/test_torch_debug.py`` settles it (the
+    building's and MA building's bounds run first and must fail with the
+    JAX env's message); the checked run against the same rollout
+    unchecked from the same generator state, seconds printed and reward
+    sums bit-equal, in turns (checked, unchecked, unchecked, checked),
+    and the kernel launches; then the NaN env at 8192
+    envs: ``validate_batch_rollout`` raises "non-finite reward", and a
+    checked step loop captured as a CUDA graph raises it after its
+    replay, its outputs bit-equal to the eager loop's;
+42. ``examples.validate_envs.main(["--batch", "4096", ...])`` over the
+    five envs (the building on the synthetic tables), printing its stats
+    lines, and ``examples.train_multiagent_cogen.main([...])`` for two
+    iterations at 4096 x 96 into a temporary directory;
+43. ``examples.train_ppo.main([..., "--iterations", "4", "--profile"])``
+    at the bench's EV fused trainer configuration (8192 x 288, H = 256,
+    bf16 obs, 96 minibatches) into a temporary directory, in a child
+    process (``chip_smoke.py --profile-child DIR``, which sets the
+    launch counts to 0, runs it and prints them: a fresh process, as a
+    user's ``--profile`` run is, whose trace no earlier trace of this long
+    process can thin out): its trace
+    parsed, its annotations spanning iterations 1-3, its kernel events
+    holding ``ev_policy_segment``; the device-busy share over the traced
+    iterations and the five kernels with the most device time printed;
+    ``plot_utils.read_train_log`` reads back 4 rows.
+
 ``python3 chip_smoke.py --profile`` adds, for each trainer captured and
 the same trainer eager (``capture=False``, the before): its phases
 (rollout, re-scoring + GAE, minibatch updates) on the host clock with
@@ -281,7 +315,8 @@ twice: it replaces both TPU gathers), its launches in its slice's
 main-path run (phases 5-6, 10, 12, 14 and 17; the slice gather's in 10, 12
 and 17; ``ev_segment_admm``, the ADMM branch of ``ev_segment``, in phase
 18's simulation tier; ``pdhg_solve_paired`` in 14 and in the market
-trainers' captured steps of 29, 30 and 32), its largest difference from
+trainers' captured steps of 29, 30 and 32; and each kernel's launches in
+phases 41 and 43), its largest difference from
 the plain version (``pdhg_solve_paired``'s also over phase 35),
 its time, the plain version's and the library call's, and its bound (the
 least time the card could take: the larger of its bytes over the memory
@@ -318,9 +353,9 @@ COGEN_STEPS, COGEN_CHECK = 96, 4096
 DC_STEPS, DC_CHECK = 672, 4096
 MKT_STEPS = 288
 BLD_CHECK = 4096
-# device_ms' traces of one measurement, the first that holds at least half
-# of the launches counting
-TRACES = 3
+# device_ms' spin before each timed launch, ~1 ms at the H100's clock: it
+# keeps the card busy while the host enqueues the start event and the launch
+SPIN_CYCLES = 2_000_000
 # NVIDIA H100 SXM peaks (data sheet, dense, 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -361,43 +396,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time per launch of the CUDA kernel whose name holds
-    ``kernel``, launched once per call of ``fn``, from ``torch.profiler``
-    over ``reps`` calls after one warm-up call: the kernel alone, without
-    the host time of its wrapper's checks. The trace can lose launches (it
-    did on an H100, late in a process that had traced before); a launch
-    it records carries its whole device time,
-    so the mean is over the launches the trace holds, which must be at
-    least half of them. A trace that lost more is thrown away and the
-    launches traced again, up to ``TRACES`` traces; each loss is
-    printed."""
+def device_ms(fn, launch: str, reps: int) -> float:
+    """Mean device time per call of the C entry point ``launch`` (the
+    ``*_launch`` function of a bound kernel library), called once per call
+    of ``fn``, over ``reps`` calls after one warm-up call: CUDA events
+    recorded on the stream just before and just after the entry point, so
+    the wrapper's range checks, which wait on the host, stay outside. A
+    spin kernel queued before the start event keeps the card busy while
+    the host enqueues the launch, so no host time falls inside the span.
+    (The profiler's trace, used here before, lost most launches of one
+    kernel in all of its retries late in this long process.)"""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from sustaingym_tpu_torch.ops.cuda import wrap
     fn()
     torch.cuda.synchronize()
-    for _ in range(TRACES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            # the trace drops device events outside its window on the
-            # host's clock, to which the device's is aligned only roughly,
-            # and later in a long process the two drift apart: keep the
-            # window open well before and after the launches
-            time.sleep(0.2)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.2)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and kernel in e.key]
-        count = sum(e.count for e in events)
-        if count != reps:
-            print(f"device_ms: the trace holds {count} of {reps} launches "
-                  f"of {kernel}", flush=True)
-        if 2 * count >= reps:
-            return sum(_dev_us(e) for e in events) / count / 1e3
-    fail(f"the profiler lost most launches of {kernel} in {TRACES} traces")
+    libs = [lib for lib in wrap._BOUND.values() if launch in vars(lib)]
+    if len(libs) != 1:
+        fail(f"device_ms: no bound library declares {launch}")
+    lib, real = libs[0], getattr(libs[0], launch)
+    spans = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        err = real(*args)
+        end.record()
+        spans.append((start, end))
+        return err
+
+    setattr(lib, launch, timed)
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        setattr(lib, launch, real)
+    torch.cuda.synchronize()
+    if len(spans) != reps:
+        fail(f"device_ms: {len(spans)} calls of {launch} in {reps} calls")
+    return sum(s.elapsed_time(e) for s, e in spans) / reps
 
 
 def _dev_us(e) -> float:
@@ -896,7 +934,7 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
     del ko, ro, ev_p, ev_env
     starts = days * rows
     gather_ms = device_ms(lambda: KA.episode_slice_gather(flat, starts, rows),
-                          "slice_gather_kernel", 20)
+                          "episode_slice_gather_launch", 20)
     gather_call_ms = cuda_ms(lambda: KA.episode_slice_gather(flat, starts,
                                                              rows), 20)
     gather_plain_ms = cuda_ms(lambda: KA.episode_slice_gather_ref(
@@ -952,7 +990,7 @@ def cogen_slice(tag: str, want_profile: bool) -> list:
     finish_trainer("cogen", env, p, cfg, 34, tag, want_profile)
 
     seg_ms = device_ms(lambda: KB.cogen_segment(p, days, prev, T, seed=35),
-                       "cogen_segment_kernel", 10)
+                       "cogen_segment_launch", 10)
     seg_call_ms = cuda_ms(lambda: KB.cogen_segment(p, days, prev, T,
                                                    seed=35), 10)
     seg_plain_ms = cuda_ms(lambda: KB.cogen_segment_ref(p, days, prev, T,
@@ -1058,7 +1096,7 @@ def dc_slice(tag: str, want_profile: bool) -> tuple[list, int]:
     finish_trainer("datacenter", env, p, cfg, 44, tag, want_profile)
 
     seg_ms = device_ms(lambda: K8.dc_segment(p, months, T, seed=45),
-                       "dc_segment_kernel", 10)
+                       "dc_segment_launch", 10)
     seg_call_ms = cuda_ms(lambda: K8.dc_segment(p, months, T, seed=45), 10)
     seg_plain_ms = cuda_ms(lambda: K8.dc_segment_ref(p, months, T, seed=45),
                            1)
@@ -1855,9 +1893,9 @@ def ev_lockstep_slice(tag: str, want_profile: bool) -> dict:
     del roll
 
     admm_ms = device_ms(lambda: K.ev_segment(p, days, T, seed=21),
-                        "ev_segment_kernel", 3)
+                        "ev_segment_launch", 3)
     dual_ms = device_ms(lambda: K.ev_segment(p_dual, days, T, seed=21),
-                        "ev_segment_kernel", 3)
+                        "ev_segment_launch", 3)
     run = torch.zeros((), dtype=torch.long, device=dev)
     K.ev_segment(p, days, T, seed=21, matvecs=run)
     c_matvecs = int(run)
@@ -2643,6 +2681,352 @@ def distribution_slice(tag: str):
     free_cuda()
 
 
+# ---- slice 10: the debug checks, the examples, --profile ----------------
+
+# phase 41: (label, env, make kwargs, batch, check_bounds) at the bench's
+# widths. check_bounds as tests/test_torch_debug.py settles it: the
+# building's obs leave its declared bounds within an episode in both
+# packages (phase 41 shows the port fails there too, then runs it
+# without); the MA EV and MA cogen views declare the base env's Dict space
+# over a flat obs array, which neither package's bounds walk reads
+DEBUG_RUNS = (
+    ("EV", "evcharging", {}, 8192, True),
+    ("building", "building", {}, 8192, False),
+    ("cogen", "cogen", {}, 8192, True),
+    ("datacenter", "datacenter", {}, 4096, True),
+    ("market", "electricitymarket", {}, 4096, True),
+    ("MA EV", "evcharging-multiagent",
+     {"project_action": False, "periods_delay": 0}, 512, False),
+    ("MA cogen", "cogen-multiagent", {}, 4096, False),
+    ("MA building", "building-multiagent", {}, 1024, False),
+)
+BOUNDS_FAIL = "obs outside declared observation-space bounds"
+NAN_BATCH, NAN_STEPS = 8192, 8
+
+
+def launch_counts() -> dict:
+    from sustaingym_tpu_torch.core.graph import counted_wrappers
+    return {w.__name__: w.launches for w in counted_wrappers()}
+
+
+def zero_launches():
+    from sustaingym_tpu_torch.core.graph import counted_wrappers
+    for w in counted_wrappers():
+        w.launches = 0
+
+
+class NaNEnv:
+    """A functional env of ``batch`` envs whose reward turns NaN after
+    step 3 (the JAX package's test env, tests/test_debug_distributed.py)."""
+
+    name = "nan-test"
+
+    def reset(self, params, generator, batch):
+        import torch
+        from sustaingym_tpu_torch.core import TimeStep
+        dev = generator.device
+        flag = torch.zeros(batch, dtype=torch.bool, device=dev)
+        return (torch.zeros(batch, dtype=torch.int32, device=dev),
+                TimeStep(obs=torch.zeros((batch, 2), device=dev),
+                         reward=torch.zeros(batch, device=dev),
+                         terminated=flag, truncated=flag.clone(), info={}))
+
+    def step(self, params, state, action, generator=None):
+        import torch
+        from sustaingym_tpu_torch.core import TimeStep
+        t = state + 1
+        flag = torch.zeros_like(t, dtype=torch.bool)
+        return t, TimeStep(
+            obs=torch.zeros((t.shape[0], 2), device=t.device),
+            reward=torch.where(t > 3, torch.nan, 1.0), terminated=flag,
+            truncated=flag.clone(), info={"load": action.sum(-1)})
+
+    def observation_space(self, params):
+        from sustaingym_tpu_torch.core import Box
+        return Box(-1.0, 1.0, (2,))
+
+    def action_space(self, params):
+        from sustaingym_tpu_torch.core import Box
+        return Box(-1.0, 1.0, (1,))
+
+    def episode_steps(self, params):
+        return None
+
+
+def debug_slice(tag: str) -> dict:
+    """Phase 41 (module docstring): ``validate_batch_rollout`` over one
+    episode of each env of ``DEBUG_RUNS``, checked against unchecked from
+    the same generator state; the NaN env eager and captured. Returns the
+    kernel launches of its env runs."""
+    import shutil
+    import tempfile
+
+    import torch
+    from sustaingym_tpu_torch.bench import make_env
+    from sustaingym_tpu_torch.core.graph import Graphs, tree_leaves
+    from sustaingym_tpu_torch.utils import debug
+
+    dev = torch.device("cuda")
+    tables = tempfile.mkdtemp(prefix="chip_smoke_debug_tables_")
+    total = {}
+    try:
+        for seed, (label, name, kw, batch, bounds) in enumerate(DEBUG_RUNS,
+                                                                 41):
+            env, p = make_env(name, dev, tables, **kw)
+            steps = env.episode_steps(p)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            debug.validate_batch_rollout(env, p, gen, batch, 2, bounds)
+            if name.startswith("building"):
+                gen.manual_seed(seed)
+                try:
+                    debug.validate_batch_rollout(env, p, gen, batch, steps,
+                                                 True)
+                    fail(f"{label}: the bounds check passed, where the JAX "
+                         f"env fails it")
+                except debug.CheckError as e:
+                    if str(e) != BOUNDS_FAIL:
+                        fail(f"{label}: {e}")
+                print(f"{label} {batch}x{steps}: check_bounds raises "
+                      f"{BOUNDS_FAIL!r}, as the JAX env does; timed "
+                      f"without bounds {tag}", flush=True)
+            zero_launches()
+            runs = {True: [], False: []}
+            # in turns (checked, unchecked, unchecked, checked): the eager
+            # loops are host-bound, and their times drift within a call
+            for armed in (True, False, False, True):
+                gen.manual_seed(seed)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = debug.validate_batch_rollout(env, p, gen, batch, steps,
+                                                   bounds, armed=armed)
+                torch.cuda.synchronize()
+                runs[armed].append((time.perf_counter() - t0, out))
+            launches = {k: v for k, v in launch_counts().items() if v}
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            sums = [out for side in runs.values() for _, out in side]
+            if not all(torch.equal(x.view(torch.int32), sums[0].view(
+                    torch.int32)) for x in sums):
+                fail(f"{label}: reward sums checked and unchecked "
+                     f"{[float(x) for x in sums]}")
+            tc = [t for t, _ in runs[True]]
+            tu = [t for t, _ in runs[False]]
+            print(f"{label} {batch}x{steps} check_bounds={bounds}: checked "
+                  f"{tc[0]:.3f} / {tc[1]:.3f} s, unchecked {tu[0]:.3f} / "
+                  f"{tu[1]:.3f} s (best {min(tc) / min(tu) - 1:+.1%}); "
+                  f"reward sums bit-equal {float(sums[0])!r}; kernel "
+                  f"launches (four runs) {launches} {tag}", flush=True)
+            del env, p
+            free_cuda()
+    finally:
+        shutil.rmtree(tables)
+
+    # the NaN env: the eager rollout, then a checked step loop captured
+    env, batch = NaNEnv(), NAN_BATCH
+    gen = torch.Generator(device=dev).manual_seed(0)
+    try:
+        debug.validate_batch_rollout(env, None, gen, batch, NAN_STEPS)
+        fail("NaN env: validate_batch_rollout did not raise")
+    except debug.CheckError as e:
+        if str(e) != "non-finite reward":
+            fail(f"NaN env: {e}")
+    step = debug.checked_step(env)
+    policy_space = env.action_space(None)
+
+    def loop(state, ts0):
+        # the reset's table lacks the step's info entry: merge renumbers
+        err, rewards = debug.check_timestep(ts0), []
+        for _ in range(NAN_STEPS):
+            action = policy_space.sample_batch(gen, batch)
+            (state, ts), e = step(None, state, action)
+            err = err.merge(e)
+            rewards.append(ts.reward)
+        return state, torch.stack(rewards), err
+
+    state0, ts0 = env.reset(None, gen, batch)
+    gen_state = gen.get_state()
+    eager = loop(state0.clone(), ts0)
+    gen.set_state(gen_state)
+    graphs = Graphs(dev)
+    captured = graphs("nan-loop", loop, state0, ts0, generators=(gen,))
+    same = all(torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+               for a, b in zip(tree_leaves(eager), tree_leaves(captured)))
+    if not same or captured[2].messages != eager[2].messages:
+        fail("NaN env: the captured checked loop differs from the eager one")
+    for how, err in (("eager", eager[2]), ("captured", captured[2])):
+        try:
+            err.throw()
+            fail(f"NaN env: the {how} checked loop did not raise")
+        except debug.CheckError as e:
+            if str(e) != "non-finite reward":
+                fail(f"NaN env {how}: {e}")
+    print(f"NaN env {batch} envs x {NAN_STEPS} steps: validate_batch_rollout "
+          f"raises 'non-finite reward'; the checked step loop captured "
+          f"({graphs.captures} graph) raises it after its replay, as the "
+          f"eager loop does, its outputs bit-equal to the eager loop's "
+          f"{tag}", flush=True)
+    del graphs, captured, eager
+    free_cuda()
+    return total
+
+
+def examples_slice(tag: str):
+    """Phase 42 (module docstring): the validate_envs and
+    train_multiagent_cogen examples on the card."""
+    import shutil
+    import tempfile
+
+    from sustaingym_tpu_torch.envs.evcharging import plot_utils
+    from sustaingym_tpu_torch.examples import (train_multiagent_cogen,
+                                               validate_envs)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        t0 = time.perf_counter()
+        stats = validate_envs.main(["--batch", "4096", "--building-tables",
+                                    os.path.join(tmp, "tables")])
+        if sorted(s["env"] for s in stats) != sorted(
+                validate_envs.EPISODE_LEN):
+            fail(f"validate_envs: {stats}")
+        print(f"validate_envs at 4096 envs: {time.perf_counter() - t0:.3f} "
+              f"s {tag}", flush=True)
+        log = os.path.join(tmp, "cogen_ma")
+        t0 = time.perf_counter()
+        train_multiagent_cogen.main([
+            "--num-envs", "4096", "--rollout-len", "96", "--minibatches",
+            "24", "--iterations", "2", "--save-every", "2", "--log-dir",
+            log])
+        df = plot_utils.read_train_log(log)
+        if len(df) != 2 or not np.isfinite(df["mean_reward"]).all():
+            fail(f"train_multiagent_cogen: {df}")
+        print(f"train_multiagent_cogen 4096 x 96, two iterations: "
+              f"{time.perf_counter() - t0:.3f} s, mean_reward "
+              f"{list(df['mean_reward'])} {tag}", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    free_cuda()
+
+
+def trace_busy(events, window) -> float:
+    """The share of ``window`` (start, end in us) in which the trace's
+    device events (kernels, copies, memsets) ran: their union over it."""
+    spans = sorted((max(e["ts"], window[0]),
+                    min(e["ts"] + e.get("dur", 0), window[1]))
+                   for e in events)
+    busy, end = 0.0, window[0]
+    for a, b in spans:
+        if b <= a:
+            continue
+        if a > end:
+            busy += b - a
+        elif b > end:
+            busy += b - end
+        end = max(end, b)
+    return busy / (window[1] - window[0])
+
+
+# the argument that makes chip_smoke.py phase 43's child process
+PROFILE_CHILD = "--profile-child"
+
+
+def profile_argv(log_dir: str) -> list:
+    """``examples.train_ppo``'s arguments in phase 43: the bench's EV fused
+    trainer, four iterations, ``--profile``."""
+    from sustaingym_tpu_torch.bench import HIDDEN, TRAINERS
+    cfg = TRAINERS["EV"][3]
+    return ["--env", "evcharging", "--num-envs", str(cfg["num_envs"]),
+            "--rollout-len", str(STEPS), "--minibatches",
+            str(cfg["minibatches"]), "--obs-bf16", "--hidden", str(HIDDEN),
+            "--epochs", "4", "--iterations", "4", "--save-every", "4",
+            "--profile", "--log-dir", log_dir]
+
+
+def profile_child(log_dir: str) -> int:
+    """Phase 43's child process: every launch count set to 0, the
+    ``--profile`` run into ``log_dir``, then one JSON line of its wall
+    seconds and the launches it counted."""
+    from sustaingym_tpu_torch.examples import train_ppo
+    zero_launches()
+    t0 = time.perf_counter()
+    train_ppo.main(profile_argv(log_dir))
+    wall = time.perf_counter() - t0
+    print(json.dumps({"wall": wall, "launches": launch_counts()}))
+    return 0
+
+
+def profile_slice(tag: str) -> dict:
+    """Phase 43 (module docstring): ``examples.train_ppo --profile`` at the
+    bench's EV fused trainer configuration, in a child process; the trace
+    read back. Returns the kernel launches of the run."""
+    import shutil
+    import tempfile
+
+    from sustaingym_tpu_torch.bench import HIDDEN, TRAINERS
+    from sustaingym_tpu_torch.envs.evcharging import plot_utils
+
+    cfg = TRAINERS["EV"][3]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    free_cuda()
+    try:
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), PROFILE_CHILD, tmp],
+            capture_output=True, text=True, timeout=600)
+        lines = child.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"  --profile run: {line}", flush=True)
+        if child.returncode or not lines:
+            fail(f"--profile run exited {child.returncode}: "
+                 f"{child.stderr[-3000:]}")
+        result = json.loads(lines[-1])
+        wall = result["wall"]
+        launches = {k: v for k, v in result["launches"].items() if v}
+        if not launches.get("ev_policy_segment"):
+            fail(f"--profile run: no ev_policy_segment launch {launches}")
+        path = os.path.join(tmp, "profile", "trace_rank0.json")
+        t0 = time.perf_counter()
+        with open(path) as f:
+            trace = json.load(f)
+        size = os.path.getsize(path)
+        events = trace["traceEvents"] if isinstance(trace, dict) else trace
+        iters = [e for e in events if e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith("iteration ")]
+        device = [e for e in events if e.get("ph") == "X" and e.get("cat")
+                  in ("kernel", "gpu_memcpy", "gpu_memset")]
+        kernels = [e for e in device if e["cat"] == "kernel"]
+        if sorted(e["name"] for e in iters) != ["iteration 1", "iteration 2",
+                                                "iteration 3"]:
+            fail(f"--profile trace: iterations {[e['name'] for e in iters]}")
+        if not any("ev_policy_segment" in e["name"] for e in kernels):
+            fail("--profile trace: no ev_policy_segment kernel")
+        window = (min(e["ts"] for e in iters),
+                  max(e["ts"] + e["dur"] for e in iters))
+        busy = trace_busy(device, window)
+        by_name = {}
+        for e in kernels:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        df = plot_utils.read_train_log(tmp)
+        if len(df) != 4 or not np.isfinite(df["mean_reward"]).all():
+            fail(f"--profile run: train_results.csv {df}")
+        print(f"--profile: EV fused trainer {cfg['num_envs']} x {STEPS}, "
+              f"H = {HIDDEN}, bf16 obs, {cfg['minibatches']} minibatches, "
+              f"4 iterations in {wall:.3f} s; trace of iterations 1-3 "
+              f"{size} bytes, {len(kernels)} kernel events, read in "
+              f"{time.perf_counter() - t0:.3f} s; window "
+              f"{(window[1] - window[0]) / 1e3:.3f} ms, device busy "
+              f"{busy:.4f}; kernel launches {launches}; read_train_log "
+              f"{len(df)} rows {tag}", flush=True)
+        for name, us in top:
+            print(f"--profile top kernel: {us / 1e3:.3f} ms "
+                  f"({us / (window[1] - window[0]):.4f} of the window) "
+                  f"{name[:160]} {tag}", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2659,6 +3043,8 @@ def main() -> int:
     # plain versions are the oracle: full-f32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == [PROFILE_CHILD]:
+        return profile_child(sys.argv[2])
 
     # ---- 1. card --------------------------------------------------------
     card = card_line()
@@ -2737,11 +3123,11 @@ def main() -> int:
     err["ev_policy_segment"] = max(err["ev_policy_segment"], e)
     del noise
     pol_ms = device_ms(lambda: K.ev_policy_segment(p, w, days, STEPS, seed=3),
-                       "ev_policy_segment_kernel", 3)
+                       "ev_policy_segment_launch", 3)
     _, p_off = make("evcharging", project_action=False, device=dev)
     pol_off_ms = device_ms(lambda: K.ev_policy_segment(p_off, w, days, STEPS,
                                                        seed=3),
-                           "ev_policy_segment_kernel", 3)
+                           "ev_policy_segment_launch", 3)
     pol_call_ms = cuda_ms(lambda: K.ev_policy_segment(p, w, days, STEPS,
                                                       seed=3), 3)
     pol_plain_ms = cuda_ms(lambda: K.ev_policy_segment_ref(
@@ -2816,7 +3202,7 @@ def main() -> int:
                                                generator=sim_gen), 3)
     days = torch.randint(p.n_days, (sim_batch,), generator=gen, device=dev)
     seg_ms = device_ms(lambda: K.ev_segment(p, days, STEPS, seed=12),
-                       "ev_segment_kernel", 3)
+                       "ev_segment_launch", 3)
     # the mat-vecs with C the kernel ran on these inputs (it stops an env
     # step's projection at its fixed point and skips C' y where y is 0)
     matvecs = torch.zeros((), dtype=torch.long, device=dev)
@@ -2892,6 +3278,14 @@ def main() -> int:
     fused_update_splits(tag)
     reset_schedule_slice(tag)
     distribution_slice(tag)
+    debug_launches = debug_slice(tag)
+    examples_slice(tag)
+    for path_launches in (debug_launches, profile_slice(tag)):
+        for k in kernels:
+            # the slice gather's one wrapper serves both TPU gathers' rows
+            name = ("episode_slice_gather" if k["name"] == "hbm_slice_gather"
+                    else k["name"])
+            k["launches"] += path_launches.get(name, 0)
     profile_trainers(tag)
     profile_off_policy(tag)
     print(card_line())

@@ -101,9 +101,12 @@ def make_params(site: str = "caltech", date_period="Summer 2021",
     tables (host NumPy) and places every tensor on ``device`` (the card
     unless the caller asks for the CPU).
 
-    ``trace="real"``: the packaged ACN sessions (RealTraceGenerator
-    analogue; the packed days are read as they are, as the JAX package's
-    cached pack is, so ``requested_energy_cap`` does not apply to them).
+    ``trace="real"``: the ACN sessions of the site's stations
+    (RealTraceGenerator analogue, ``data/ev_etl.build_trace_pack``),
+    requested energy capped at ``requested_energy_cap``: a cap up to the
+    shipped packs' 100 kWh is applied to the packed days, a larger one
+    builds them from the raw sessions. The JAX package's cached pack
+    ignores the cap; the port does not copy that.
     ``trace="gmm"``: a bank of ``gmm_days`` days sampled from the packaged
     ``gmm_components``-component mixture (GMMsTraceGenerator analogue,
     ``data/ev_gmm.py``), requested energy capped at
@@ -124,7 +127,8 @@ def make_params(site: str = "caltech", date_period="Summer 2021",
         n_bank = traces["ev_data"].shape[0]
         moer = np.tile(moer, (-(-n_bank // moer.shape[0]), 1, 1))[:n_bank]
     elif trace == "real":
-        traces = build_trace_pack(site, date_period)
+        traces = build_trace_pack(site, date_period, spec.station_ids,
+                                  requested_energy_cap=requested_energy_cap)
     else:
         raise ValueError(f"unknown trace {trace!r}")
     phase = np.exp(1j * np.deg2rad(spec.phase_angles))

@@ -56,7 +56,11 @@ card), appends the mean return (of a multi-agent view: the agents'
 rewards summed) and the mean of every float info field to
 ``<log-dir>/eval_results.csv``, and saves a new best to
 ``<log-dir>/best_model/step_<i>.pt``; a resumed run reads its best from
-the CSV, whose header must match. Runs on the card
+the CSV, whose header must match. ``--profile`` traces iterations 2-4 of
+the run (clamped into it; "skipped" with fewer than 2) with
+``torch.profiler`` into ``<log-dir>/profile/trace_rank<r>.json``, one
+Chrome trace a rank, each iteration a ``record_function`` span named
+``iteration <i>``. Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; asking
 for ``cuda`` without a CUDA device is an error. On the card each train
 step replays CUDA graphs captured at the first one (``parallel/ppo.py``),
@@ -286,6 +290,33 @@ def make_evaluator(env, env_params, train_step, episodes: int, seed: int,
     return evaluate
 
 
+def start_profile(device):
+    """A started ``torch.profiler`` of the CPU and, on the card, CUDA
+    activities."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, log_dir: str, rank: int) -> str:
+    """Stops ``prof`` once the card is idle and writes its Chrome trace to
+    ``<log_dir>/profile/trace_rank<rank>.json``; returns the path."""
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    prof.stop()
+    out = os.path.join(log_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"trace_rank{rank}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--env", default="evcharging",
@@ -348,6 +379,13 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--mp", type=int, default=1,
                         help="tensor-parallel width within the mesh: the "
                              "PPO MLP's hidden split over mp ranks")
+    parser.add_argument("--profile", action="store_true",
+                        help="trace iterations 2-4 (after the first train "
+                             "step, which captures the CUDA graphs) with "
+                             "torch.profiler, CPU and CUDA activities, into "
+                             "<log-dir>/profile/trace_rank<r>.json (a "
+                             "Chrome trace a rank); view with "
+                             "chrome://tracing or Perfetto")
     args = parser.parse_args(argv)
 
     import torch
@@ -478,15 +516,35 @@ def main(argv: list[str] | None = None) -> None:
         return (open(path, "a", newline="") if rank0
                 else contextlib.nullcontext())
 
+    # trace iterations 2-4 (replays of the graphs the first one captured),
+    # the span clamped into this run, so the trace closes before the
+    # final checkpoint
+    span = (start_iter + 1, min(start_iter + 3,
+                                start_iter + args.iterations - 1))
+    profiling = args.profile and span[0] <= span[1]
+    if args.profile and not profiling and rank0:
+        print("profiler: skipped (needs --iterations >= 2)")
+    prof = None
+
     with opened(csv_path) as f, \
             (opened(eval_csv) if evaluate
              else contextlib.nullcontext()) as eval_f:
         writer = None
         for i in range(start_iter, start_iter + args.iterations):
+            if profiling and i == span[0]:
+                prof = start_profile(device)
             t0 = time.perf_counter()
-            carry, metrics = train_step(carry, gen)
-            row = {k: float(v) for k, v in metrics.items()}  # synchronises
+            with (torch.profiler.record_function(f"iteration {i}")
+                  if prof is not None else contextlib.nullcontext()):
+                carry, metrics = train_step(carry, gen)
+                row = {k: float(v) for k, v in metrics.items()}  # syncs
             dt = time.perf_counter() - t0
+            if prof is not None and i == span[1]:
+                path = stop_profile(prof, args.log_dir,
+                                    0 if mesh is None else mesh.rank)
+                prof = None
+                print(f"profiler trace of iterations {span[0]}-{span[1]} "
+                      f"in {path}", flush=True)
             row.update(iteration=i, seconds=dt,
                        env_steps_per_s=steps_per_iter / dt)
             if rank0:
