@@ -151,7 +151,8 @@ Slice 5, EV's lockstep and generic training paths:
     from 0), the kernel timed against the dual branch at the same shape,
     its plain version, its mat-vecs as ``torch.matmul`` calls (a
     yardstick the port never calls), and its bound from the K mat-vecs
-    and the C mat-vecs it ran;
+    and the C mat-vecs it ran, with the kernel's envs a warp, CTAs and
+    warps resident per SM, registers and spills;
 19. GMM traces: ``ev_segment`` and ``ev_policy_segment`` vs their plain
     versions at 1024 x 288 on a 200-day caltech Summer 2021 bank
     (``trace="gmm"``), and the simulation tier at 32768 x 288 on it;
@@ -1853,6 +1854,7 @@ def ev_lockstep_slice(tag: str, want_profile: bool) -> dict:
     from sustaingym_tpu_torch.parallel import init_policy
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(18)
     sim_batch = SIM_TIERS["evcharging"]
     B, T = CHECK_BATCH, STEPS
@@ -1916,7 +1918,8 @@ def ev_lockstep_slice(tag: str, want_profile: bool) -> dict:
 
     library_ms = cuda_ms(admm_matmuls, 1)
     del x, y
-    ctas, warps = K.ev_segment_occupancy(m2, admm=True)
+    occ = K.ev_segment_occupancy(m2, admm=True)
+    per_cta = occ["warps"] * occ["envs_per_warp"]
     admm_bound = bound(nbytes(p.step_table, p.proj.K)
                        + sim_batch * (8 + 16 * T),
                        f32_ops=rows * iters * 2 * n * n
@@ -1928,8 +1931,13 @@ def ev_lockstep_slice(tag: str, want_profile: bool) -> dict:
           f"mat-vecs as {T * (3 * iters + 2)} torch.matmul {library_ms:.3f} "
           f"ms; bound {admm_bound[0]:.4f} ms ({admm_bound[1]}; K mat-vecs "
           f"{rows * iters}, C mat-vecs run {c_matvecs} = "
-          f"{c_matvecs / rows:.4f} an env step); {ctas} CTAs of {warps} "
-          f"warps resident per SM; simulation tier mean reward "
+          f"{c_matvecs / rows:.4f} an env step); {occ['envs_per_warp']} envs "
+          f"a warp, {occ['ctas']} CTAs of {occ['warps']} warps resident per SM "
+          f"= {occ['ctas'] * occ['warps']} warps, {occ['ctas'] * per_cta} envs; "
+          f"{-(-sim_batch // per_cta)} CTAs = "
+          f"{sim_batch / (occ['ctas'] * per_cta * sms):.3f} waves on {sms} "
+          f"SMs; {occ['registers']} registers, {occ['local_bytes']} bytes of "
+          f"local memory (spills) a thread; simulation tier mean reward "
           f"{admm_reward:.6f}, launches {admm_launches} {tag}", flush=True)
 
     # ---- 19. GMM: a 200-day caltech Summer 2021 bank -------------------
@@ -3212,7 +3220,8 @@ def main() -> int:
                                                     seed=12), 1)
     steps = sim_batch * STEPS
     m2, iters = int(p.proj.C.shape[0]), int(p.proj.iters)
-    seg_ctas, seg_warps = K.ev_segment_occupancy(m2)
+    occ = K.ev_segment_occupancy(m2)
+    seg_ctas, seg_warps = occ["ctas"], occ["warps"]
     seg_grid = -(-sim_batch // seg_warps)
     print(f"simulation tier {sim_batch}x{STEPS} projection on: kernel "
           f"{seg_ms:.3f} ms (device) = {steps / seg_ms * 1e3:.0f} "

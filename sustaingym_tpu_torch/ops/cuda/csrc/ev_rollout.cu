@@ -57,12 +57,25 @@
 //    (bf16 tiles), two 512-thread CTAs (32 warps) per SM. 8192 envs are
 //    512 CTAs, 1.94 waves of 264 on 132 SMs (the first kernel ran one CTA
 //    per SM: 3.9 waves of 16 warps).
-//  * ADMM (simulation kernel, template argument kAdmm): K' is copied once a
-//    CTA into shared memory (16 KB, stride 64: lane s reads K[s, j] at
-//    consecutive words), the warp's rhs goes through a 64-float scratch and
-//    comes back as broadcasts, so K rhs costs n shared loads and 2n FMAs a
-//    lane; C' y and C x are RegCone's, as for FISTA. rho and alpha are
-//    kernel arguments. No early stop: every iteration runs.
+//  * ADMM (its own simulation kernel, ev_admm_segment_kernel): 30
+//    iterations of C' y, K rhs (n x n) and C x, no early stop. It is bound
+//    by shared memory, whose loads cost about by the bytes they bring the
+//    lanes, a broadcast not much less (tools/smem_rates.py on the H100, in
+//    loads of one word a lane: a float4 broadcast 2.2, a float4 a lane 4,
+//    a shuffle 1).
+//    One env a warp read K's two words and rhs[j] into every lane for
+//    every j, 3n loads feeding 2n FMAs a lane. So a warp steps four envs
+//    with the one-env lane map (lane l: stations l and l+32, cone row l of
+//    each), and each load serves four envs: K sits in shared memory in
+//    pairs of columns (one float4 a lane: K[s0, j], K[s1, j], K[s0, j+1],
+//    K[s1, j+1]), the rhs and y go through the warp's scratch env-minor
+//    (one float4 broadcast: four envs' rhs[j]), C x's partials are rotated
+//    per lane so its reduce-scatter needs no selects, and C' y reads C's
+//    columns from a CTA copy, which keeps the kernel at 168 registers: 3
+//    CTAs of 4 warps a SM, 48 envs. Every sum keeps the one-env kernel's
+//    operands and order, and its roundings are written out (fmaf), so each
+//    env's outputs are the one-env kernel's bit for bit. rho and alpha are
+//    kernel arguments.
 //  * Random draws: counter-based Philox4x32-10 (philox.cuh) keyed by the
 //    caller's seed and counted by (lane, step, env, stream), so the draws do
 //    not depend on launch geometry. The policy kernel counts the global env
@@ -385,71 +398,6 @@ struct FistaProj {
   }
 };
 
-// env_step's projector: over-relaxed ADMM (ops/qp.py::_project_admm) on the
-// splitting x = z0 (box), C x = zc (cones), with K = inv((1+rho) I + rho
-// C'C). The lane holds its two stations' (x, z0, u0) and its cone row's
-// (zc, uc), zero outside the stations and the cones.
-struct AdmmProj {
-  const float* kt;  // shared [kMaxStations][kMaxStations]: kt[j * 64 + s] = K[s, j]
-  float* rs;        // the warp's scratch: rhs[0:64]
-  float rho, alpha, beta;  // beta = 1 - alpha, rounded in float32
-  float rad;        // the lane's cone radius (0 outside the cones)
-
-  // x = K rhs for the lane's two stations (zero past n: kt is zero there)
-  __device__ __forceinline__ void k_rhs(float r0, float r1, const Lane& L,
-                                        int n, float& x0, float& x1) const {
-    __syncwarp();
-    rs[L.s0] = r0;
-    rs[L.s1] = r1;
-    __syncwarp();
-    x0 = 0.0f;
-    x1 = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      const float rj = rs[j];
-      x0 = fmaf(kt[j * kMaxStations + L.s0], rj, x0);
-      x1 = fmaf(kt[j * kMaxStations + L.s1], rj, x1);
-    }
-  }
-
-  // Returns the mat-vecs with C that it ran (the K mat-vecs are `iters`).
-  // Every cone call is made by all lanes (they shuffle); lanes outside the
-  // cones then take 0.
-  template <class Cone>
-  __device__ __forceinline__ int operator()(const Operators& op, const Cone& cone,
-                                            const Lane& L, float a0, float a1,
-                                            float ub0, float ub1, float& x0,
-                                            float& x1) const {
-    x0 = fminf(fmaxf(a0, 0.0f), ub0);
-    x1 = fminf(fmaxf(a1, 0.0f), ub1);
-    float z00 = x0, z01 = x1, u00 = 0.0f, u01 = 0.0f;
-    const float c0 = cone.c_x(x0, x1, L);
-    float zc = L.crow ? c0 : 0.0f, uc = 0.0f;
-    int matvecs = 1;
-    for (int it = 0; it < op.iters; ++it) {
-      float d0, d1;
-      matvecs += cone.ct_y(zc - uc, L, d0, d1) + 1;  // and C x below
-      k_rhs(a0 + rho * (z00 - u00) + rho * d0, a1 + rho * (z01 - u01) + rho * d1,
-            L, op.n, x0, x1);
-      const float c = cone.c_x(x0, x1, L);
-      const float cx = L.crow ? c : 0.0f;
-      const float xh0 = alpha * x0 + beta * z00;
-      const float xh1 = alpha * x1 + beta * z01;
-      const float cxh = alpha * cx + beta * zc;
-      z00 = fminf(fmaxf(xh0 + u00, 0.0f), ub0);
-      z01 = fminf(fmaxf(xh1 + u01, 0.0f), ub1);
-      const float v = cxh + uc;
-      const float nrm = sqrtf(pair_norm_sq(v, L.lane) + 1e-12f);
-      zc = L.crow ? v * fminf(1.0f, rad / nrm) : 0.0f;
-      u00 = u00 + xh0 - z00;
-      u01 = u01 + xh1 - z01;
-      uc = uc + cxh - zc;
-    }
-    x0 = fminf(fmaxf(x0, 0.0f), ub0);
-    x1 = fminf(fmaxf(x1, 0.0f), ub1);
-    return matvecs;
-  }
-};
-
 // One env step after the action is known: projection (by `proj`),
 // quantization, events, battery, reward. Writes (reward, profit, carbon,
 // excess) to out4 from lane 0. `row` is table[day, t]: plug_dep | plug_est
@@ -526,7 +474,8 @@ struct AdmmArgs {
   float rho, alpha;
 };
 
-template <int MP, bool kAdmm>
+// The dual-FISTA simulation kernel, one warp an env (`adm` unused).
+template <int MP>
 __global__ void __launch_bounds__(kSimWarps * 32, sim_blocks(MP))
 ev_segment_kernel(Operators op, AdmmArgs adm, const float* __restrict__ table,
                   int table_w, int rows_per_day, const int64_t* __restrict__ days,
@@ -534,23 +483,12 @@ ev_segment_kernel(Operators op, AdmmArgs adm, const float* __restrict__ table,
                   float* __restrict__ out, float* __restrict__ acts_out,
                   unsigned long long* __restrict__ matvecs_out) {
   __shared__ float4 scratch[kSimWarps][MP / 4];
-  __shared__ float kt[kAdmm ? kMaxStations * kMaxStations : 1];
-  __shared__ float rs[kAdmm ? kSimWarps * kMaxStations : 1];
-  if constexpr (kAdmm) {
-    for (int i = threadIdx.x; i < kMaxStations * kMaxStations; i += blockDim.x) {
-      const int s = i / kMaxStations, j = i % kMaxStations;
-      kt[j * kMaxStations + s] = (s < op.n && j < op.n) ? adm.K[s * op.n + j] : 0.0f;
-    }
-    __syncthreads();
-  }
   const int warp = threadIdx.x >> 5;
   const int e = blockIdx.x * kSimWarps + warp;
   if (e >= B) return;  // whole warps only: no block-wide sync follows
   const Lane L = make_lane(op);
   RegCone<MP> cone;
   cone.load(op, L, scratch[warp]);
-  const AdmmProj admm{kt, kAdmm ? rs + warp * kMaxStations : rs, adm.rho, adm.alpha,
-                      1.0f - adm.alpha, L.crow ? op.radii[L.lane >> 1] : 0.0f};
   const uint2 key = philox_key(seed);
   const float* day_rows = table + (size_t)days[e] * rows_per_day * table_w;
   Stations st{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
@@ -573,10 +511,376 @@ ev_segment_kernel(Operators op, AdmmArgs adm, const float* __restrict__ table,
     }
     const float* row = day_rows + (size_t)t * table_w;
     float* out4 = out + ((size_t)t * B + e) * 4;
-    if constexpr (kAdmm)
-      matvecs += env_step(op, admm, cone, L, st, a0, a1, row, t, out4);
-    else
-      matvecs += env_step(op, FistaProj<true>{}, cone, L, st, a0, a1, row, t, out4);
+    matvecs += env_step(op, FistaProj<true>{}, cone, L, st, a0, a1, row, t, out4);
+  }
+  if (matvecs_out != nullptr && L.lane == 0) atomicAdd(matvecs_out, matvecs);
+}
+
+// ---- the ADMM simulation kernel: four envs a warp ------------------------
+//
+// Over-relaxed ADMM (ops/qp.py::_project_admm) on the splitting x = z0
+// (box), C x = zc (cones), with K = inv((1+rho) I + rho C'C). A warp steps
+// kAdmmEnvs envs together: lane l holds stations (l, l+32) and cone row l
+// of each, as the dual kernel's single env, so every expression below is
+// the one-env ADMM's, repeated over e in unrolled loops, in its order of
+// operations and with the roundings it compiled to (written out with fmaf).
+// What the envs share is each load of an operator: a word of K feeds four
+// envs' FMAs, and C's columns are held once. See the file comment for why.
+
+constexpr int kAdmmEnvs = 4;    // envs a warp: one float4 of rhs or y
+constexpr int kAdmmWarps = 4;   // warps a CTA
+constexpr int kAdmmBlocks = 3;  // CTAs a SM (<= 168 registers, no spills)
+constexpr int kKChunk = 3;      // K rhs's pairs of columns a loop step
+// K's pairs of columns and rs's rows, with one zero pair (two rows) past
+// the 64 stations for the last chunk of K rhs
+constexpr int kKtPairs = kMaxStations / 2 + 1;
+constexpr int kRsRows = kMaxStations + 2;
+
+// One halving step of reduce_scatter on partials held rotated: position i
+// of block W holds row i ^ (lane & (W-1)), so at every step a lane keeps
+// v[0:O] and sends v[O:2 O], and its partner's v[O + j] is the row of its
+// own v[j]. The sums are reduce_scatter's (own + partner's, the same tree)
+// without its selects.
+template <int O, int W>
+__device__ __forceinline__ void halve_rot(float (&v)[W]) {
+  if constexpr (O >= 1) {
+#pragma unroll
+    for (int j = 0; j < O; ++j) v[j] = v[j] + __shfl_xor_sync(kFull, v[O + j], O);
+    halve_rot<O / 2>(v);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ float reduce_scatter_rot(float (&v)[W]) {
+  halve_rot<W / 2>(v);
+  float s = v[0];
+#pragma unroll
+  for (int b = 0; b < 5; ++b)
+    if ((1 << b) >= W) s += __shfl_xor_sync(kFull, s, 1 << b);
+  return s;
+}
+
+// The ADMM kernel's cone operator for the warp's four envs. The lane holds
+// its two columns of C rotated (r0, r1: block row i ^ (lane & (W-1)) at
+// position i, blocks of 16 rows and a last one of 8) for C x, whose
+// reduce-scatter then needs no selects. C' y reads the columns in row order
+// from the CTA's copy cs (registers for them would cost a CTA a SM) and y
+// env-minor from the warp's scratch (ys[k] = y[k] of the four envs), and
+// sums k = 0 .. MP-1 as RegCone::ct_y does.
+template <int MP>
+struct AdmmCone {
+  float r0[MP], r1[MP];  // C[row, s0], C[row, s1], rotated within each block
+  float4* ys;
+  const float2* cs;      // shared [MP][32]: (C[k, l], C[k, l+32])
+
+  __device__ __forceinline__ void load(const Operators& op, const Lane& L,
+                                       float4* scratch, const float2* cpairs) {
+    ys = scratch;
+    cs = cpairs;
+#pragma unroll
+    for (int k = 0; k < MP; ++k) {
+      const int base = k & ~15, w = MP - base >= 16 ? 16 : 8;
+      const int row = base + ((k - base) ^ (L.lane & (w - 1)));
+      r0[k] = (row < op.m2 && L.v0) ? op.C[row * op.n + L.s0] : 0.0f;
+      r1[k] = (row < op.m2 && L.v1) ? op.C[row * op.n + L.s1] : 0.0f;
+    }
+  }
+
+  // C' y for each env's two stations of the lane; y[e] is the lane's
+  // cone-row value of env e (0 outside the cones). ran[e] is 0 where y[e]
+  // is 0 in every lane: there the one-env kernel runs no mat-vec and leaves
+  // the sums +0, which is also what these FMAs leave (C is finite).
+  __device__ __forceinline__ void ct_y(const float (&y)[kAdmmEnvs], const Lane& L,
+                                       float (&d0)[kAdmmEnvs], float (&d1)[kAdmmEnvs],
+                                       int (&ran)[kAdmmEnvs]) const {
+#pragma unroll
+    for (int e = 0; e < kAdmmEnvs; ++e) ran[e] = __all_sync(kFull, y[e] == 0.0f) ? 0 : 1;
+    __syncwarp();
+    if (L.lane < MP) ys[L.lane] = make_float4(y[0], y[1], y[2], y[3]);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < kAdmmEnvs; ++e) {
+      d0[e] = 0.0f;
+      d1[e] = 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < MP; ++k) {
+      const float2 c = cs[k * 32 + L.lane];
+      const float4 y4 = ys[k];
+      const float yk[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int e = 0; e < kAdmmEnvs; ++e) {
+        d0[e] = fmaf(c.x, yk[e], d0[e]);
+        d1[e] = fmaf(c.y, yk[e], d1[e]);
+      }
+    }
+  }
+
+  // (C x)[lane] of one env from the lane's two station values: RegCone::c_x's
+  // partials and sums
+  __device__ __forceinline__ float c_x(float x0, float x1, const Lane& L) const {
+    float part[MP];
+#pragma unroll
+    for (int k = 0; k < MP; ++k) part[k] = fmaf(r1[k], x1, r0[k] * x0);
+    float r = 0.0f;
+#pragma unroll
+    for (int base = 0; base + 16 <= MP; base += 16) {
+      float v[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) v[k] = part[base + k];
+      const float s = reduce_scatter_rot<16>(v);
+      if (base == 0 || L.lane >= base) r = s;
+    }
+    if constexpr (MP % 16 == 8) {
+      constexpr int base = MP - 8;
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = part[base + k];
+      const float s = reduce_scatter_rot<8>(v);
+      if (base == 0 || L.lane >= base) r = s;
+    }
+    return r;
+  }
+};
+
+// The projection of a warp's four envs. K is copied once a CTA into shared
+// memory in pairs of columns: kt[jp * 32 + l] = (K[l, 2 jp], K[l+32, 2 jp],
+// K[l, 2 jp+1], K[l+32, 2 jp+1]), zero past n, so one float4 a lane brings
+// two columns of K for the lane's two stations and serves four envs. The
+// envs' rhs go through the warp's rs env-minor (rs[j] = rhs[j] of the four
+// envs): one float4 broadcast a column.
+struct AdmmOp {
+  const float4* kt;
+  float4* rs;
+  float rho, alpha, beta;  // beta = 1 - alpha, rounded in float32
+  float rad;               // the lane's cone radius (0 outside the cones)
+
+  // x = K rhs for each env's two stations of the lane: fmaf(K[s, j], rhs[j],
+  // x) over j = 0 .. n-1 from 0, as the one-env kernel sums. Terms past n
+  // (an odd n, a last chunk) are fmaf(0, 0, x), which leave x as it is (x
+  // is never -0).
+  __device__ __forceinline__ void k_rhs(const float (&q0)[kAdmmEnvs],
+                                        const float (&q1)[kAdmmEnvs], const Lane& L,
+                                        int n, float (&x0)[kAdmmEnvs],
+                                        float (&x1)[kAdmmEnvs]) const {
+    __syncwarp();
+    rs[L.s0] = make_float4(q0[0], q0[1], q0[2], q0[3]);
+    rs[L.s1] = make_float4(q1[0], q1[1], q1[2], q1[3]);
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < kAdmmEnvs; ++e) {
+      x0[e] = 0.0f;
+      x1[e] = 0.0f;
+    }
+    const int chunks = ((n + 1) / 2 + kKChunk - 1) / kKChunk;
+    for (int c = 0; c < chunks; ++c) {
+#pragma unroll
+      for (int p = 0; p < kKChunk; ++p) {
+        const int jp = kKChunk * c + p;
+        const float4 k = kt[jp * 32 + L.lane];
+        const float4 ra = rs[2 * jp], rb = rs[2 * jp + 1];
+        const float va[4] = {ra.x, ra.y, ra.z, ra.w};
+        const float vb[4] = {rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+        for (int e = 0; e < kAdmmEnvs; ++e) {
+          x0[e] = fmaf(k.x, va[e], x0[e]);
+          x1[e] = fmaf(k.y, va[e], x1[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < kAdmmEnvs; ++e) {
+          x0[e] = fmaf(k.z, vb[e], x0[e]);
+          x1[e] = fmaf(k.w, vb[e], x1[e]);
+        }
+      }
+    }
+  }
+
+  // a, ub: the lane's two stations of each env; x gets the projected
+  // actions and matvecs the mat-vecs with C run (the K mat-vecs are
+  // `iters`). Every cone call is made by all lanes (they shuffle); lanes
+  // outside the cones then take 0.
+  template <int MP>
+  __device__ __forceinline__ void project(
+      const Operators& op, const AdmmCone<MP>& cone, const Lane& L,
+      const float (&a0)[kAdmmEnvs], const float (&a1)[kAdmmEnvs],
+      const float (&ub0)[kAdmmEnvs], const float (&ub1)[kAdmmEnvs],
+      float (&x0)[kAdmmEnvs], float (&x1)[kAdmmEnvs],
+      int (&matvecs)[kAdmmEnvs]) const {
+    constexpr int E = kAdmmEnvs;
+    float z00[E], z01[E], u00[E], u01[E], zc[E], uc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      x0[e] = fminf(fmaxf(a0[e], 0.0f), ub0[e]);
+      x1[e] = fminf(fmaxf(a1[e], 0.0f), ub1[e]);
+      z00[e] = x0[e];
+      z01[e] = x1[e];
+      u00[e] = 0.0f;
+      u01[e] = 0.0f;
+      const float c0 = cone.c_x(x0[e], x1[e], L);
+      zc[e] = L.crow ? c0 : 0.0f;
+      uc[e] = 0.0f;
+      matvecs[e] = 1;
+    }
+    for (int it = 0; it < op.iters; ++it) {
+      float y[E], d0[E], d1[E], q0[E], q1[E];
+      int ran[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) y[e] = zc[e] - uc[e];
+      cone.ct_y(y, L, d0, d1, ran);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        matvecs[e] += ran[e] + 1;  // and C x below
+        // a + rho (z - u) + rho d, rounded as the one-env kernel does
+        q0[e] = fmaf(rho, d0[e], fmaf(rho, z00[e] - u00[e], a0[e]));
+        q1[e] = fmaf(rho, d1[e], fmaf(rho, z01[e] - u01[e], a1[e]));
+      }
+      k_rhs(q0, q1, L, op.n, x0, x1);
+      // in phases over the envs, so that their chains of shuffles, square
+      // roots and divisions overlap
+      float xh0[E], xh1[E], cxh[E], v[E], nsq[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float c = cone.c_x(x0[e], x1[e], L);
+        cxh[e] = L.crow ? c : 0.0f;  // C x, then the relaxed one below
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        // the one-env kernel's roundings: fused with beta's product
+        xh0[e] = fmaf(beta, z00[e], alpha * x0[e]);
+        xh1[e] = fmaf(beta, z01[e], alpha * x1[e]);
+        cxh[e] = fmaf(beta, zc[e], alpha * cxh[e]);
+        z00[e] = fminf(fmaxf(xh0[e] + u00[e], 0.0f), ub0[e]);
+        z01[e] = fminf(fmaxf(xh1[e] + u01[e], 0.0f), ub1[e]);
+        v[e] = cxh[e] + uc[e];
+        nsq[e] = pair_norm_sq(v[e], L.lane);
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float nrm = sqrtf(nsq[e] + 1e-12f);
+        zc[e] = L.crow ? v[e] * fminf(1.0f, rad / nrm) : 0.0f;
+        u00[e] = u00[e] + xh0[e] - z00[e];
+        u01[e] = u01[e] + xh1[e] - z01[e];
+        uc[e] = uc[e] + cxh[e] - zc[e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      x0[e] = fminf(fmaxf(x0[e], 0.0f), ub0[e]);
+      x1[e] = fminf(fmaxf(x1[e], 0.0f), ub1[e]);
+    }
+  }
+};
+
+// env_step's projector in the ADMM kernel: the env's projection, already
+// run for the whole warp by AdmmOp::project, and its mat-vecs.
+struct Projected {
+  float x0, x1;
+  int matvecs;
+
+  template <class Cone>
+  __device__ __forceinline__ int operator()(const Operators&, const Cone&,
+                                            const Lane&, float, float, float,
+                                            float, float& p0, float& p1) const {
+    p0 = x0;
+    p1 = x1;
+    return matvecs;
+  }
+};
+
+template <int MP>
+__global__ void __launch_bounds__(kAdmmWarps * 32, kAdmmBlocks)
+ev_admm_segment_kernel(Operators op, AdmmArgs adm, const float* __restrict__ table,
+                       int table_w, int rows_per_day,
+                       const int64_t* __restrict__ days, int B, int T,
+                       const float* __restrict__ acts, uint64_t seed,
+                       float* __restrict__ out, float* __restrict__ acts_out,
+                       unsigned long long* __restrict__ matvecs_out) {
+  constexpr int E = kAdmmEnvs;
+  __shared__ float4 kt[kKtPairs * 32];
+  __shared__ float2 cpairs[MP * 32];
+  __shared__ float4 rs[kAdmmWarps][kRsRows];
+  __shared__ float4 ys[kAdmmWarps][MP];
+  {
+    float* ktf = reinterpret_cast<float*>(kt);
+    for (int i = threadIdx.x; i < kKtPairs * 32 * 4; i += blockDim.x) {
+      const int c = i & 3, l = (i >> 2) & 31, jp = i >> 7;
+      const int s = l + 32 * (c & 1), j = 2 * jp + (c >> 1);
+      ktf[i] = (s < op.n && j < op.n) ? adm.K[s * op.n + j] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < MP * 32; i += blockDim.x) {
+      const int k = i >> 5, l = i & 31;
+      const bool row = k < op.m2;
+      cpairs[i] = make_float2(row && l < op.n ? op.C[k * op.n + l] : 0.0f,
+                              row && l + 32 < op.n ? op.C[k * op.n + l + 32] : 0.0f);
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int e0 = (blockIdx.x * kAdmmWarps + warp) * E;
+  if (e0 >= B) return;  // whole warps only: no block-wide sync follows
+  const Lane L = make_lane(op);
+  if (L.lane < 2)  // rs's zero rows past the stations
+    rs[warp][kMaxStations + L.lane] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  AdmmCone<MP> cone;
+  cone.load(op, L, ys[warp], cpairs);
+  const AdmmOp admm{kt, rs[warp], adm.rho, adm.alpha, 1.0f - adm.alpha,
+                    L.crow ? op.radii[L.lane >> 1] : 0.0f};
+  const uint2 key = philox_key(seed);
+  // an env past B (the last warp's) runs on zeros and writes nothing
+  bool live[E];
+  int day[E];
+  Stations st[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    live[i] = e0 + i < B;
+    day[i] = (int)days[live[i] ? e0 + i : e0];
+    st[i] = Stations{false, false, 0, 0, 0, 0, 0.0f, 0.0f};
+  }
+  unsigned long long matvecs = 0;
+  const float kub = (float)kAPersToKwh;
+  for (int t = 0; t < T; ++t) {
+    float a0[E], a1[E], ub0[E], ub1[E], x0[E], x1[E];
+    int mv[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int e = e0 + i;
+      if (!live[i]) {
+        a0[i] = 0.0f;
+        a1[i] = 0.0f;
+      } else if (acts != nullptr) {
+        const float* at = acts + ((size_t)t * B + e) * op.n;
+        a0[i] = L.v0 ? at[L.s0] : 0.0f;
+        a1[i] = L.v1 ? at[L.s1] : 0.0f;
+      } else {
+        const uint4 r = philox4x32_10(make_uint4(L.lane, t, e, 0u), key);
+        a0[i] = uniform01(r.x);
+        a1[i] = uniform01(r.y);
+      }
+      if (acts_out != nullptr && live[i]) {
+        float* ao = acts_out + ((size_t)t * B + e) * op.n;
+        if (L.v0) ao[L.s0] = fminf(fmaxf(a0[i], 0.0f), 1.0f);
+        if (L.v1) ao[L.s1] = fminf(fmaxf(a1[i], 0.0f), 1.0f);
+      }
+      // env_step's clamp and upper bound, ahead of the joint projection
+      a0[i] = L.v0 ? fminf(fmaxf(a0[i], 0.0f), 1.0f) : 0.0f;
+      a1[i] = L.v1 ? fminf(fmaxf(a1[i], 0.0f), 1.0f) : 0.0f;
+      const float u0 = fminf(1.0f, (st[i].pl0 ? st[i].dem0 : 0.0f) / kub / 32.0f);
+      const float u1 = fminf(1.0f, (st[i].pl1 ? st[i].dem1 : 0.0f) / kub / 32.0f);
+      ub0[i] = L.v0 ? u0 : 0.0f;
+      ub1[i] = L.v1 ? u1 : 0.0f;
+      x0[i] = 0.0f;
+      x1[i] = 0.0f;
+      mv[i] = 0;
+    }
+    if (op.project) admm.project(op, cone, L, a0, a1, ub0, ub1, x0, x1, mv);
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if (!live[i]) continue;
+      const float* row = table + ((size_t)day[i] * rows_per_day + t) * table_w;
+      float* out4 = out + ((size_t)t * B + e0 + i) * 4;
+      matvecs += env_step(op, Projected{x0[i], x1[i], mv[i]}, cone, L, st[i], a0[i],
+                          a1[i], row, t, out4);
+    }
   }
   if (matvecs_out != nullptr && L.lane == 0) atomicAdd(matvecs_out, matvecs);
 }
@@ -670,21 +974,22 @@ size_t policy_smem_bytes(int D, int H, int n) {
 using SimKernel = void (*)(Operators, AdmmArgs, const float*, int, int,
                            const int64_t*, int, int, const float*, uint64_t,
                            float*, float*, unsigned long long*);
-template <bool kAdmm>
-SimKernel sim_kernel_of(int m2) {
+// The simulation kernel's instance for m2 <= 32 cone rows (rounded up to 8)
+// and the projection operator: ev_segment_kernel (dual FISTA, one env a
+// warp) or ev_admm_segment_kernel (ADMM, kAdmmEnvs envs a warp).
+SimKernel sim_kernel(int m2, bool admm) {
   switch ((m2 + 7) / 8) {
     case 0:
-    case 1: return ev_segment_kernel<8, kAdmm>;
-    case 2: return ev_segment_kernel<16, kAdmm>;
-    case 3: return ev_segment_kernel<24, kAdmm>;
-    default: return ev_segment_kernel<32, kAdmm>;
+    case 1: return admm ? ev_admm_segment_kernel<8> : ev_segment_kernel<8>;
+    case 2: return admm ? ev_admm_segment_kernel<16> : ev_segment_kernel<16>;
+    case 3: return admm ? ev_admm_segment_kernel<24> : ev_segment_kernel<24>;
+    default: return admm ? ev_admm_segment_kernel<32> : ev_segment_kernel<32>;
   }
 }
-// ev_segment_kernel's instance for m2 <= 32 cone rows (rounded up to 8)
-// and the projection operator
-SimKernel sim_kernel(int m2, bool admm) {
-  return admm ? sim_kernel_of<true>(m2) : sim_kernel_of<false>(m2);
-}
+
+// The simulation kernel's warps a CTA and envs a warp.
+int sim_warps(bool admm) { return admm ? kAdmmWarps : kSimWarps; }
+int sim_envs(bool admm) { return admm ? kAdmmEnvs : 1; }
 
 }  // namespace
 
@@ -703,20 +1008,31 @@ extern "C" int ev_segment_launch(
       (K == nullptr && step == nullptr))
     return (int)cudaErrorInvalidValue;
   Operators op{C, radii, step, mags, minp, n, m2, iters, restart, project};
-  const int grid = (B + kSimWarps - 1) / kSimWarps;
-  sim_kernel(m2, K != nullptr)<<<grid, kSimWarps * 32, 0, (cudaStream_t)stream>>>(
+  const bool admm = K != nullptr;
+  const int per_cta = sim_warps(admm) * sim_envs(admm);
+  const int grid = (B + per_cta - 1) / per_cta;
+  sim_kernel(m2, admm)<<<grid, sim_warps(admm) * 32, 0, (cudaStream_t)stream>>>(
       op, AdmmArgs{K, rho, alpha}, table, table_w, rows_per_day, days, B, T,
       acts, seed, out, acts_out, matvecs_out);
   return (int)cudaGetLastError();
 }
 
-// CTAs of ev_segment_kernel (kSimWarps warps each) resident per SM for m2
-// cone rows and the operator (admm != 0: ADMM), and the warps per CTA.
-extern "C" int ev_segment_ctas_per_sm(int m2, int admm, int* ctas, int* warps) {
+// The simulation kernel's instance for m2 cone rows and the operator (admm
+// != 0: ADMM): CTAs resident per SM, warps a CTA, envs a warp, registers a
+// thread and local memory a thread in bytes (spills).
+extern "C" int ev_segment_ctas_per_sm(int m2, int admm, int* ctas, int* warps,
+                                      int* envs, int* regs, int* local_bytes) {
   if (m2 > kMaxConeRows) return (int)cudaErrorInvalidValue;
-  *warps = kSimWarps;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, sim_kernel(m2, admm != 0), kSimWarps * 32, 0);
+  const SimKernel kernel = sim_kernel(m2, admm != 0);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *warps = sim_warps(admm != 0);
+  *envs = sim_envs(admm != 0);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel,
+                                                            *warps * 32, 0);
 }
 
 extern "C" int ev_policy_segment_launch(

@@ -242,7 +242,7 @@ _SIGNATURES = {
         P, P, P, P, P, P, P, I, I, P, I, I, P, I, I, P, I, I, P, U64, I, P,
         P, P],
     "ev_policy_segment_ctas_per_sm": [I, I, I, PI],
-    "ev_segment_ctas_per_sm": [I, I, PI, PI],
+    "ev_segment_ctas_per_sm": [I, I, PI, PI, PI, PI, PI],
 }
 
 
@@ -394,8 +394,13 @@ def ev_policy_occupancy(D: int, H: int, n: int) -> int:
     return ctas_per_sm(_lib().ev_policy_segment_ctas_per_sm, D, H, n)[0]
 
 
-def ev_segment_occupancy(m2: int, admm: bool = False) -> tuple[int, int]:
-    """(CTAs resident per SM, warps per CTA) of ``ev_segment``'s kernel
-    instance for ``m2`` cone rows and the operator (``admm``), on the
-    current card."""
-    return ctas_per_sm(_lib().ev_segment_ctas_per_sm, m2, int(admm))
+def ev_segment_occupancy(m2: int, admm: bool = False) -> dict:
+    """``ev_segment``'s kernel instance for ``m2`` cone rows and the
+    operator (``admm``) on the current card: CTAs resident per SM
+    (``ctas``), warps a CTA (``warps``), envs a warp (``envs_per_warp``:
+    the ADMM kernel steps several envs a warp), registers a thread
+    (``registers``) and local memory a thread in bytes (``local_bytes``,
+    the compiler's spills)."""
+    keys = ("ctas", "warps", "envs_per_warp", "registers", "local_bytes")
+    return dict(zip(keys, ctas_per_sm(_lib().ev_segment_ctas_per_sm, m2,
+                                      int(admm))))

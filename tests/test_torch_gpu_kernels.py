@@ -89,7 +89,7 @@ def test_ev_segment_kernel_matches_plain(cuda, site, project, batch):
 
 @pytest.mark.parametrize("site,batch", [("caltech", 64), ("jpl", 37)])
 def test_ev_segment_admm_kernel_matches_plain(cuda, site, batch):
-    """The ADMM branch (30 iterations, K' in shared memory) against its
+    """The ADMM kernel (30 iterations, four envs a warp) against its
     plain version with the JAX ADMM kernel test's bounds, on prescribed
     actions, in RNG mode and on near-full rates; it runs every iteration:
     C x first, C' y (unless y is 0) and C x in each, the reward's C p."""
@@ -117,6 +117,64 @@ def test_ev_segment_admm_kernel_matches_plain(cuda, site, batch):
     torch.testing.assert_close(ko[:12], ro[:12], rtol=2e-4, atol=2e-5)
     roll = env.fused_rollout(p, batch, T, days=days, actions=a)
     torch.testing.assert_close(roll.reward, ko[..., 0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("site", ["caltech", "jpl"])
+@pytest.mark.parametrize("batch", [1, "E8+3", 37])
+def test_ev_segment_admm_kernel_ragged_batches(cuda, site, batch):
+    """The ADMM kernel steps several envs a warp (E, from its occupancy
+    query): batches that fill no CTA of it, at both sites' instances
+    (caltech 16 cone rows, jpl 24), against the plain version with the
+    bounds above, on prescribed actions and in RNG mode, with the mat-vec
+    count inside its bounds."""
+    _, p = make("evcharging", site=site, proj_method="admm", device=cuda)
+    occ = K.ev_segment_occupancy(int(p.proj.C.shape[0]), admm=True)
+    per_cta = occ["warps"] * occ["envs_per_warp"]
+    if batch == "E8+3":
+        batch = occ["envs_per_warp"] * 8 + 3
+    assert batch % per_cta != 0
+    g = torch.Generator(device=cuda).manual_seed(2)
+    days = torch.randint(p.n_days, (batch,), generator=g, device=cuda)
+    T, iters = 288, int(p.proj.iters)
+    acts = torch.rand((T, batch, p.n_stations), generator=g, device=cuda)
+    run = torch.zeros((), dtype=torch.long, device=cuda)
+    ko, _ = K.ev_segment(p, days, T, actions=acts, matvecs=run)
+    ro, _ = K.ev_segment_ref(p, days, T, actions=acts)
+    torch.testing.assert_close(ko[:12], ro[:12], rtol=2e-4, atol=2e-5)
+    d = (ko[..., 0] - ro[..., 0]).abs().cpu().numpy()
+    assert np.quantile(d, 0.99) < 1e-4 and d.mean() < 1e-4
+    assert batch * T * (iters + 2) <= int(run) <= batch * T * (2 * iters + 2)
+    ko, a = K.ev_segment(p, days, T, seed=6, record_actions=True)
+    ro, _ = K.ev_segment_ref(p, days, T, actions=a)
+    torch.testing.assert_close(ko[:12], ro[:12], rtol=2e-4, atol=2e-5)
+    assert bool(torch.isfinite(ko).all())
+
+
+@pytest.mark.parametrize("site", ["caltech", "jpl"])
+def test_ev_segment_admm_launch_geometry(cuda, site):
+    """Each env's rows do not depend on the envs launched beside it: a
+    launch of the first k of B envs gives env e's rows of the launch of all
+    B bit for bit, with in-kernel draws (counted by env) and on prescribed
+    actions, and the mat-vecs add up env by env."""
+    _, p = make("evcharging", site=site, proj_method="admm", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, T = 100, 288
+    days = torch.randint(p.n_days, (B,), generator=g, device=cuda)
+    acts = torch.rand((T, B, p.n_stations), generator=g, device=cuda)
+    full, full_a = K.ev_segment(p, days, T, seed=9, record_actions=True)
+    full_p, _ = K.ev_segment(p, days, T, actions=acts)
+    for k in (1, 5, 17, 64):
+        part, part_a = K.ev_segment(p, days[:k], T, seed=9, record_actions=True)
+        assert torch.equal(part, full[:, :k]) and torch.equal(part_a, full_a[:, :k])
+        part, _ = K.ev_segment(p, days[:k], T, actions=acts[:, :k].contiguous())
+        assert torch.equal(part, full_p[:, :k])
+    runs = []
+    for lo, hi in ((0, 37), (37, B), (0, B)):
+        run = torch.zeros((), dtype=torch.long, device=cuda)
+        K.ev_segment(p, days[lo:hi], T, actions=acts[:, lo:hi].contiguous(),
+                     matvecs=run)
+        runs.append(int(run))
+    assert runs[0] + runs[1] == runs[2]
 
 
 @pytest.mark.parametrize("site,project", [("caltech", True), ("jpl", False)])

@@ -18,7 +18,9 @@ paths' shapes:
   iterations and the rest of the kernel, apart); then on prescribed
   near-full rates 0.8 + 0.2 U[0, 1), which bind the cones in most steps;
   each with the mat-vecs with C the kernel ran per env step where it
-  counts them (the full loop runs 32);
+  counts them (the full loop runs 32); then the same three lines with the
+  ADMM projection (``proj_method="admm"``, 30 iterations, every one run:
+  62 mat-vecs with C an env step, fewer where C' y's y is 0);
 - ``ev_policy_segment`` at 8192 x 288, H = 256, caltech, with the action
   projection on and off;
 - ``building_policy_segment`` at 8192 x 288, H = 256, on the 6-zone office
@@ -35,7 +37,8 @@ Each call (the EV and PDHG ones) goes through its wrapper, whose range
 checks wait on the host between launches (~0.1 ms).
 
 Outputs, on inputs that are the same in every run (seeded on the card):
-``ev_segment`` of the two timed calls, ``ev_policy_segment`` and
+``ev_segment`` of the two timed calls with each operator,
+``ev_policy_segment`` and
 ``building_policy_segment`` on prescribed noise at the timed shapes and
 with their in-kernel draws (the SHA-256 of both outputs: the draws'
 Philox counters), and the warm and cold PDHG solves. ``--save`` writes them to FILE (the EV
@@ -134,29 +137,34 @@ def main() -> int:
 
     _, p = make("evcharging", device=dev)
     days = torch.randint(p.n_days, (SIM_ENVS,), generator=gen, device=dev)
-    times["ev_segment"] = cs.cuda_ms(
-        lambda: K.ev_segment(p, days, STEPS, seed=12), 3)
-    outs["ev_segment"] = K.ev_segment(p, days, STEPS, seed=12)[0].cpu()
-    counts = "matvecs" in inspect.signature(K.ev_segment).parameters
-
-    def matvecs_per_step(**kw):
-        if counts:
-            run = torch.zeros((), dtype=torch.long, device=dev)
-            K.ev_segment(p, days, STEPS, matvecs=run, **kw)
-            return int(run) / (SIM_ENVS * STEPS)
-
-    times["ev_segment mat-vecs per env step"] = matvecs_per_step(seed=12)
-    p0 = replace(p, proj=replace(p.proj, iters=0))
-    times["ev_segment 0 FISTA iterations"] = cs.cuda_ms(
-        lambda: K.ev_segment(p0, days, STEPS, seed=12), 3)
     acts = 0.8 + 0.2 * torch.rand((STEPS, SIM_ENVS, p.n_stations),
                                   generator=gen, device=dev)
-    times["ev_segment cone-binding actions"] = cs.cuda_ms(
-        lambda: K.ev_segment(p, days, STEPS, actions=acts), 3)
-    times["ev_segment cone-binding mat-vecs per env step"] = \
-        matvecs_per_step(actions=acts)
-    outs["ev_segment cone-binding"] = K.ev_segment(
-        p, days, STEPS, actions=acts)[0].cpu()
+    counts = "matvecs" in inspect.signature(K.ev_segment).parameters
+
+    def matvecs_per_step(params, **kw):
+        if counts:
+            run = torch.zeros((), dtype=torch.long, device=dev)
+            K.ev_segment(params, days, STEPS, matvecs=run, **kw)
+            return int(run) / (SIM_ENVS * STEPS)
+
+    for method, label, it_name in (("dual", "ev_segment", "FISTA"),
+                                   ("admm", "ev_segment ADMM", "ADMM")):
+        _, p = make("evcharging", proj_method=method, device=dev)
+        p0 = replace(p, proj=replace(p.proj, iters=0))
+        times[label] = cs.cuda_ms(
+            lambda: K.ev_segment(p, days, STEPS, seed=12), 3)
+        outs[label] = K.ev_segment(p, days, STEPS, seed=12)[0].cpu()
+        times[f"{label} mat-vecs per env step"] = matvecs_per_step(p, seed=12)
+        times[f"{label} 0 {it_name} iterations"] = cs.cuda_ms(
+            lambda: K.ev_segment(p0, days, STEPS, seed=12), 3)
+        times[f"{label} 0 {it_name} iterations mat-vecs per env step"] = \
+            matvecs_per_step(p0, seed=12)
+        times[f"{label} cone-binding actions"] = cs.cuda_ms(
+            lambda: K.ev_segment(p, days, STEPS, actions=acts), 3)
+        times[f"{label} cone-binding mat-vecs per env step"] = \
+            matvecs_per_step(p, actions=acts)
+        outs[f"{label} cone-binding"] = K.ev_segment(
+            p, days, STEPS, actions=acts)[0].cpu()
     del acts
 
     for proj in (True, False):
