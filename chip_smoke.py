@@ -289,6 +289,16 @@ their launches join the kernels' line):
     holding ``ev_policy_segment``; the device-busy share over the traced
     iterations and the five kernels with the most device time printed;
     ``plot_utils.read_train_log`` reads back 4 rows.
+44. the GMM fit of ``data/ev_gmm.py`` (``fit_gmm``'s EM): 5832 sessions
+    drawn from the committed jpl Summer 2019 mixture (``sample_gmm``,
+    random_state 0) and kept inside the feature domain (5821 rows); the
+    host's k-means labels at k = 30, seed 42 (``kmeans_labels``); the EM
+    (``em_fit``) from them on the card, on the CPU, and on the card again:
+    the same iterations and convergence, the lower bound within 1e-8,
+    weights, means and covariances within 1e-6 (``GMM_GATE``); printed:
+    the lower bound, iterations, the card's (first and second call) and
+    the CPU's seconds, and the generating mixture's mean log-likelihood
+    on the same points (not gated: a fit at another seed reads below it).
 
 ``python3 chip_smoke.py --profile`` adds, for each trainer captured and
 the same trainer eager (``capture=False``, the before): its phases
@@ -360,6 +370,11 @@ SPIN_CYCLES = 2_000_000
 # NVIDIA H100 SXM peaks (data sheet, dense, 700 W): HBM bytes/s, float32
 # FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# phase 44: the fit's data (site, period, sample_gmm's random_state), its
+# components and seed, and the card's fit against the CPU's: weights,
+# means and covariances (max |d|), lower bound (|d|)
+GMM_DRAW, GMM_FIT, GMM_GATE = ("jpl", "Summer 2019", 0), (30, 42), (1e-6,
+                                                                    1e-8)
 
 
 def fail(msg: str):
@@ -3035,6 +3050,50 @@ def profile_slice(tag: str) -> dict:
     return launches
 
 
+def gmm_fit_slice(tag: str):
+    """Phase 44 (module docstring): ``fit_gmm``'s EM on the card against
+    the same EM on the CPU, both from the host's k-means labels."""
+    from sustaingym_tpu_torch.data import ev_gmm
+
+    site, period, draw_seed = GMM_DRAW
+    k, seed = GMM_FIT
+    d = ev_gmm.load_gmm(site, period)
+    s = ev_gmm.sample_gmm(d["weights"], d["means"], d["covariances"],
+                          int(d["count"].sum()), draw_seed)
+    X = s[((s[:, :3] >= 0) & (s[:, :3] < 1)).all(1) & (s[:, 3] >= 0)]
+    t0 = time.perf_counter()
+    labels = ev_gmm.kmeans_labels(X, k, np.random.RandomState(seed))
+    kmeans_s = time.perf_counter() - t0
+    fits, secs = {}, []
+    for device in ("cuda", "cpu", "cuda"):
+        t0 = time.perf_counter()
+        fits[device] = ev_gmm.em_fit(X, labels, n_components=k,
+                                     device=device)
+        secs.append(time.perf_counter() - t0)
+    card, cpu = fits["cuda"], fits["cpu"]
+    diffs = {key: float(np.abs(card[key] - cpu[key]).max())
+             for key in ("weights", "means", "covariances")}
+    lb_diff = abs(card["lower_bound"] - cpu["lower_bound"])
+    generator = ev_gmm.mean_log_likelihood(X, d["weights"], d["means"],
+                                           d["covariances"])
+    print(f"GMM fit {len(X)} x 4 ({site} {period} draw), k = {k}, seed "
+          f"{seed}: lower bound card {card['lower_bound']:.8f} CPU "
+          f"{cpu['lower_bound']:.8f} (|d| {lb_diff:.3e}), iterations "
+          f"{card['n_iter']} / {cpu['n_iter']}, converged "
+          f"{card['converged']} / {cpu['converged']}, max |d| {diffs}; "
+          f"k-means on the host {kmeans_s:.4f} s; EM card {secs[0]:.4f} s "
+          f"(first call), {secs[2]:.4f} s (second), CPU {secs[1]:.4f} s; "
+          f"the generating mixture's mean log-likelihood {generator:.6f} "
+          f"{tag}", flush=True)
+    if (card["n_iter"] != cpu["n_iter"]
+            or card["converged"] != cpu["converged"]
+            or not lb_diff < GMM_GATE[1]
+            or not max(diffs.values()) < GMM_GATE[0]
+            or not np.isfinite(card["covariances"]).all()):
+        fail(f"GMM fit: the card's EM disagrees with the CPU's (gate "
+             f"{GMM_GATE})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3295,6 +3354,7 @@ def main() -> int:
             name = ("episode_slice_gather" if k["name"] == "hbm_slice_gather"
                     else k["name"])
             k["launches"] += path_launches.get(name, 0)
+    gmm_fit_slice(tag)
     profile_trainers(tag)
     profile_off_policy(tag)
     print(card_line())
