@@ -320,6 +320,13 @@ the same batch and state), and the whole-batch reset's share of the SAC
 EV and DQN MA EV rollouts (``env.reset`` of the batch, captured alone,
 ``rollout_len`` times).
 
+At its end the script checks the JAX package's tree: every file under
+``sustaingym_tpu/`` (but ``__pycache__``) has the path, size and
+``mtime_ns`` it had when ``main`` began, and none is new. It prints the
+count of files checked and the port's pack directory with what it holds
+(``data/paths.py``: the port writes its packs there and only reads the
+JAX package's), and exits 1 naming each file new, changed or gone.
+
 Every phase raises on failure (exit code 1). The line before the last is
 a JSON object with, for each TPU kernel's counterpart (the slice gather
 twice: it replaces both TPU gathers), its launches in its slice's
@@ -395,6 +402,43 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def tree_state(root: str) -> dict:
+    """Every file under ``root`` but ``__pycache__``: its path relative to
+    ``root`` -> (size, mtime_ns)."""
+    out = {}
+    for d, subdirs, files in os.walk(root):
+        subdirs[:] = [s for s in subdirs if s != "__pycache__"]
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.relpath(os.path.join(d, f), root)] = (
+                st.st_size, st.st_mtime_ns)
+    return out
+
+
+def check_jax_tree(root: str, before: dict) -> int:
+    """Compares the JAX package's tree with ``before`` and prints what the
+    port's pack directory holds; 1, naming each file, where a file under
+    ``root`` is new, changed or gone, else 0."""
+    from sustaingym_tpu_torch.data import paths
+    after = tree_state(root)
+    moved = sorted(f for f in before.keys() | after.keys()
+                   if before.get(f) != after.get(f))
+    held = (sorted(os.path.relpath(os.path.join(d, f), paths.PACKED_DIR)
+                   for d, _, files in os.walk(paths.PACKED_DIR)
+                   for f in files)
+            if os.path.isdir(paths.PACKED_DIR) else None)
+    print(f"tree check: {len(after)} files under sustaingym_tpu/ checked, "
+          f"{len(moved)} new, changed or gone; the port's pack directory "
+          f"{paths.PACKED_DIR} "
+          f"{'is absent' if held is None else f'holds {held}'}", flush=True)
+    for f in moved:
+        state = ("new" if f not in before else "gone" if f not in after
+                 else "changed")
+        print(f"tree check: sustaingym_tpu/{f} {state}, (size, mtime_ns) "
+              f"{before.get(f)} -> {after.get(f)}", flush=True)
+    return 1 if moved else 0
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -3099,6 +3143,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    jax_tree = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "sustaingym_tpu")
+    jax_files = tree_state(jax_tree)
     want_profile = "--profile" in sys.argv[1:]
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sustaingym_tpu_torch import make
@@ -3357,6 +3404,8 @@ def main() -> int:
     gmm_fit_slice(tag)
     profile_trainers(tag)
     profile_off_policy(tag)
+    if check_jax_tree(jax_tree, jax_files):
+        return 1
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

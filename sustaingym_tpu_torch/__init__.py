@@ -7,8 +7,11 @@ episode kernels and the whole-solve PDHG kernel of the market's SCED
 clearing.
 
 The JAX package ``sustaingym_tpu`` is the reference; this package imports
-neither it nor JAX. The packed data files are read from
-``sustaingym_tpu/data/packed/`` by path (see ``data/paths.py``).
+neither it nor JAX. Packed data files are read from the port's own pack
+directory ``sustaingym_tpu_torch/data/packed/`` (``SUSTAINGYM_PACKED``
+overrides it; the port's ETL writes there), else from the JAX package's
+committed ``sustaingym_tpu/data/packed/`` by path, which the port only
+reads (see ``data/paths.py``).
 
 Every entry point builds its tensors on the card (``device="cuda"``) unless
 the caller asks for the CPU; without a card that default is an error.

@@ -7,9 +7,10 @@ load_ambients.py:18-132``): merge ERCOT Houston-hub day-ahead prices
 wind (IEC class-2 power curve scaled by ``renewables_magnitude`` and
 subtracted from target power), then split into per-day 96-row (15-min)
 frames. Columns: TAMB, PAMB, RHAMB, Target_Power, Target_Steam,
-Energy_Price, Gas_Price. Packs ship for renewables magnitudes 0.0 and
-100.0; any other magnitude is built from the raw inputs (``RAW_FILES``
-under the raw-data root, ``data/paths.py``).
+Energy_Price, Gas_Price. The JAX package commits the packs of renewables
+magnitudes 0.0 and 100.0; any other magnitude is built from the raw inputs
+(``RAW_FILES`` under the raw-data root) and cached in the port's pack
+directory (``data/paths.py``).
 
 Data caveat, as in the JAX package: the reference snapshot lacks
 ``operating_data.xlsx``, so the plant operating table (timestamps, ambient
@@ -28,7 +29,7 @@ import os
 import numpy as np
 
 from ..utils.xlsx import read_workbook
-from .paths import packed_path, raw_inputs, raw_path
+from .paths import find_pack, pack_out_path, raw_inputs, raw_path
 
 __all__ = ["AMBIENT_COLS", "RAW_FILES", "build_ambients_pack",
            "load_energy_prices", "load_gas_prices",
@@ -181,15 +182,16 @@ def synthesize_operating_data(seed: int = 2021) -> tuple[list[dt.datetime], np.n
 def build_ambients_pack(renewables_magnitude: float = 0.0,
                         cache: bool = True) -> np.ndarray:
     """Returns the (n_days, 96, 7) float32 ambient-conditions pack, columns
-    in AMBIENT_COLS order: the packed one (0.0 and 100.0 ship) when
-    ``cache`` and it exists, else built from the raw inputs (``RAW_FILES``
-    under the raw-data root; without a root this raises and names them)
-    and, with ``cache``, written under ``PACKED_DIR``."""
+    in AMBIENT_COLS order: the packed one (the JAX package commits 0.0
+    and 100.0) when ``cache`` and ``find_pack`` finds it, else built from
+    the raw inputs (``RAW_FILES`` under the raw-data root; without a root
+    this raises and names them) and, with ``cache``, written to the
+    port's pack directory."""
     renewables_magnitude = float(renewables_magnitude)
     name = f"cogen_ambients_wind={renewables_magnitude}.npz"
-    cache_file = packed_path(name)
-    if cache and os.path.exists(cache_file):
-        return np.load(cache_file)["ambients"]
+    cached = find_pack(name) if cache else None
+    if cached:
+        return np.load(cached)["ambients"]
     raw_inputs(name, *RAW_FILES)
 
     times, op = synthesize_operating_data()
@@ -222,5 +224,5 @@ def build_ambients_pack(renewables_magnitude: float = 0.0,
     ambients = np.asarray(days, dtype=np.float32)
 
     if cache:
-        np.savez_compressed(cache_file, ambients=ambients)
+        np.savez_compressed(pack_out_path(name), ambients=ambients)
     return ambients

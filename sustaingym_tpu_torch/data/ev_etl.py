@@ -2,11 +2,12 @@
 the port of ``sustaingym_tpu.data.ev_etl`` (NumPy and pandas; no JAX).
 
 A whole date range is compiled once into dense arrays, cached as ``.npz``
-under ``PACKED_DIR`` (``data/paths.py``); an episode reset is an index
-gather. A pack that is not cached is built from the raw inputs under the
-raw-data root (``moer/{ba}_{YYYY-MM}.csv.gz``, ``evcharging/acn_data/
-{site}/{start} {end}.csv.gz``); without a raw-data root it raises and
-names them. On the same raw inputs every pack is the JAX package's bit
+in the port's pack directory (``data/paths.py``); an episode reset is an
+index gather. A pack is read from the port's pack directory, else from the
+JAX package's committed packs; one found in neither is built from the raw
+inputs under the raw-data root (``moer/{ba}_{YYYY-MM}.csv.gz``,
+``evcharging/acn_data/{site}/{start} {end}.csv.gz``); without a raw-data
+root it raises and names them. On the same raw inputs every pack is the JAX package's bit
 for bit.
 
 - MOER pack: (n_days, 289, 37) float32 — historical + 36-step forecasts
@@ -34,7 +35,7 @@ from zoneinfo import ZoneInfo
 import numpy as np
 import pandas as pd
 
-from .paths import packed_path, raw_inputs, raw_path
+from .paths import find_pack, pack_out_path, raw_inputs, raw_path
 
 LA = ZoneInfo("America/Los_Angeles")
 UTC = dt.timezone.utc
@@ -106,12 +107,13 @@ def build_moer_pack(date_period, ba: str = MOER_BA, cache: bool = True
                     ) -> np.ndarray:
     """(n_days, 289, 37) float32 MOER pack of balancing authority ``ba``
     for all days in the range: the cached pack, else built from the
-    monthly raw CSVs (``moer_files``) and, with ``cache``, written."""
+    monthly raw CSVs (``moer_files``) and, with ``cache``, written to
+    the port's pack directory."""
     start, end = _parse_range(date_period)
     name = f"moer_{ba}_{start}_{end}.npz"
-    cache_file = packed_path(name)
-    if cache and os.path.exists(cache_file):
-        return np.load(cache_file)["moer"]
+    cached = find_pack(name) if cache else None
+    if cached:
+        return np.load(cached)["moer"]
 
     # load all months overlapping [start, end + 1 day]
     frames = []
@@ -135,7 +137,7 @@ def build_moer_pack(date_period, ba: str = MOER_BA, cache: bool = True
         rows = values[lo:hi]
         out[i, :len(rows)] = rows[:n_rows]
     if cache:
-        np.savez_compressed(cache_file, moer=out)
+        np.savez_compressed(pack_out_path(name), moer=out)
     return out
 
 
@@ -199,15 +201,17 @@ def build_trace_pack(site: str, date_period, station_ids: tuple[str, ...],
     With ``cache``: the pack cached at this cap, else the pack cached at
     ``PACK_CAP`` with the cap applied when the cap is at most
     ``PACK_CAP``, else built from the raw sessions and written under
-    :func:`trace_pack_name`.
+    :func:`trace_pack_name` to the port's pack directory. Each cached pack
+    is looked for by ``find_pack``.
     """
     cap = float(requested_energy_cap)
     name = trace_pack_name(site, date_period, use_unclaimed, cap)
-    cache_file = packed_path(name)
-    if cache and os.path.exists(cache_file):
-        return _load_trace(cache_file)
-    wide = packed_path(trace_pack_name(site, date_period, use_unclaimed))
-    if cache and cap <= PACK_CAP and os.path.exists(wide):
+    cached = find_pack(name) if cache else None
+    if cached:
+        return _load_trace(cached)
+    wide = (find_pack(trace_pack_name(site, date_period, use_unclaimed))
+            if cache and cap <= PACK_CAP else None)
+    if wide:
         pack = _load_trace(wide)
         pack["ev_data"][..., 3] = np.minimum(pack["ev_data"][..., 3],
                                              np.float32(cap))
@@ -257,5 +261,5 @@ def build_trace_pack(site: str, date_period, station_ids: tuple[str, ...],
 
     pack = {"ev_data": ev_data, "ev_station": ev_station, "ev_mask": ev_mask}
     if cache:
-        np.savez_compressed(cache_file, **pack)
+        np.savez_compressed(pack_out_path(name), **pack)
     return pack

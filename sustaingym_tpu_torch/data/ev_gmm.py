@@ -7,15 +7,16 @@ oversampling, empirical per-day session counts and usage-weighted station
 assignment, run once on the host into a bank of sampled days in the dense
 trace-pack layout of ``data/ev_etl.py``. The sampler replays sklearn's
 ``GaussianMixture.sample`` call sequence with plain NumPy, so the banks are
-bit-equal to the JAX package's. A bank committed under
-``sustaingym_tpu/data/packed/`` (``evgmm_<site>_<start>_<end>_<n>_<days>_
-<seed>.npz``) is read as it is; any other bank is sampled at every call (a
-few ms a day) and written nowhere.
+bit-equal to the JAX package's. A bank that ``paths.find_pack`` finds
+(``evgmm_<site>_<start>_<end>_<n>_<days>_<seed>.npz``: the JAX package
+commits some under ``sustaingym_tpu/data/packed/``) is read as it is; any
+other bank is sampled at every call (a few ms a day) and written nowhere.
 
-Mixtures (:func:`load_gmm`) come from the committed
-``sustaingym_tpu/data/gmm/<site>/<start>_<end>_<n>.npz`` exports by path,
-else from ``<PACKED_DIR>/gmm/``, else from a fresh :func:`export_gmm_npz`
-of the reference's pickle, read by an unpickler that maps sklearn's
+Mixtures (:func:`load_gmm`) come from the JAX package's committed
+``sustaingym_tpu/data/gmm/<site>/<start>_<end>_<n>.npz`` exports
+(``GMM_NPZ_DIR``, read only), else from ``gmm/`` in the port's pack
+directory, else from a fresh :func:`export_gmm_npz` of the reference's
+pickle into that directory, read by an unpickler that maps sklearn's
 classes to a plain stub.
 
 Fitting (:func:`fit_gmm`, ``python -m sustaingym_tpu_torch.data.ev_gmm``)
@@ -54,8 +55,8 @@ MINS_IN_DAY = 1440
 REQ_ENERGY_SCALE = 100.0
 ARRCOL, DEPCOL, ESTCOL, EREQCOL = 0, 1, 2, 3
 
-GMM_NPZ_DIR = os.path.join(paths._REPO_ROOT, "sustaingym_tpu", "data",
-                           "gmm")
+# the JAX package's committed exports, which the port only reads
+GMM_NPZ_DIR = os.path.join(paths._JAX_TREE, "data", "gmm")
 
 _NPZ_KEYS = ("weights", "means", "covariances", "count", "station_usage")
 _PACK_KEYS = ("ev_data", "ev_station", "ev_mask")
@@ -80,27 +81,27 @@ def load_gmm(site: str, date_period, n_components: int = 30) -> dict:
     covariances (K, 4, 4), count (n_days,), station_usage (n_stations,).
 
     Read from the first of: the committed export under ``GMM_NPZ_DIR``;
-    an export under ``<PACKED_DIR>/gmm``; a fresh :func:`export_gmm_npz`
-    of the reference's pickle under the raw-data root (written to the
-    second place)."""
+    an export under ``gmm/`` that ``paths.find_pack`` finds; a fresh
+    :func:`export_gmm_npz` of the reference's pickle under the raw-data
+    root (written to ``gmm/`` in the port's pack directory)."""
     name, pkl = _gmm_name(site, date_period, n_components)
     committed = os.path.join(GMM_NPZ_DIR, name)
-    exported = os.path.join(paths.PACKED_DIR, "gmm", name)
     try:
         pkl = paths.raw_path(pkl)
     except FileNotFoundError:
         pkl = os.path.join("$SUSTAINGYM_RAW", pkl)
     if os.path.exists(committed):
         path = committed
-    elif os.path.exists(exported):
+    elif exported := paths.find_pack("gmm", name):
         path = exported
     elif os.path.exists(pkl):
         path = export_gmm_npz(site, date_period, n_components)
     else:
         raise FileNotFoundError(
             f"GMM {site} {date_period} n={n_components} not found: no "
-            f"committed export {committed}, no export {exported}, no "
-            f"reference pickle {pkl} to export")
+            f"committed export {committed}, no export "
+            f"{' or '.join(paths.pack_places('gmm', name))}, no reference "
+            f"pickle {pkl} to export")
     with np.load(path) as d:
         return {k: d[k] for k in _NPZ_KEYS}
 
@@ -177,12 +178,11 @@ class _GmmUnpickler(pickle.Unpickler):
             f"refusing {module}.{name} in a GMM pickle")
 
 
-def export_gmm_npz(site: str, date_period, n_components: int = 30,
-                   out_dir: str | None = None) -> str:
+def export_gmm_npz(site: str, date_period, n_components: int = 30) -> str:
     """Exports the reference's pickle ``evcharging/gmms/<site>/<start>
     <end> <n>.pkl`` under the raw-data root to
-    ``<out_dir>/<site>/<start>_<end>_<n>.npz`` (``out_dir`` defaults to
-    ``<PACKED_DIR>/gmm``), with the JAX export's arrays and dtypes. The
+    ``gmm/<site>/<start>_<end>_<n>.npz`` in the port's pack directory
+    (``paths.pack_out_path``), with the JAX export's arrays and dtypes. The
     pickle (``{"gmm", "count", "station_usage"}``, the reference's
     save_gmm_model) is read by :class:`_GmmUnpickler`. Returns the path
     written."""
@@ -193,9 +193,7 @@ def export_gmm_npz(site: str, date_period, n_components: int = 30,
     if gmm.covariance_type != "full":
         raise ValueError(f"{pkl}: covariance_type "
                          f"{gmm.covariance_type!r}, not 'full'")
-    out = os.path.join(out_dir or os.path.join(paths.PACKED_DIR, "gmm"),
-                       name)
-    os.makedirs(os.path.dirname(out), exist_ok=True)
+    out = paths.pack_out_path("gmm", name)
     np.savez_compressed(
         out,
         weights=np.asarray(gmm.weights_, dtype=np.float64),
@@ -277,14 +275,13 @@ def build_gmm_trace_pack(site: str, date_period, n_days: int = 200,
                          seed: int = 0) -> dict[str, np.ndarray]:
     """A bank of ``n_days`` sampled days in the trace-pack layout
     (``ev_data`` (n_days, 128, 4) float32, ``ev_station`` int32,
-    ``ev_mask`` bool). Day k depends only on (seed, k). A bank the JAX
-    package committed is read as it is; any other is sampled by
-    :func:`sample_bank`."""
+    ``ev_mask`` bool). Day k depends only on (seed, k). A bank that
+    ``paths.find_pack`` finds (the JAX package commits some) is read as it
+    is; any other is sampled by :func:`sample_bank`."""
     start, end = _parse_range(date_period)
-    path = os.path.join(
-        paths.PACKED_DIR,
+    path = paths.find_pack(
         f"evgmm_{site}_{start}_{end}_{n_components}_{n_days}_{seed}.npz")
-    if os.path.exists(path):
+    if path:
         with np.load(path) as d:
             return {k: d[k] for k in _PACK_KEYS}
     return sample_bank(site, date_period, n_days, n_components,

@@ -1,12 +1,23 @@
 """Data path resolution: the packed ``.npz`` artifacts and the raw tables.
 
-The port reads the dense ``.npz`` packs that the JAX package ships under
-``sustaingym_tpu/data/packed/``. They are data, so they are located by
-file path and never through an import of ``sustaingym_tpu`` (which would
-import JAX). ``SUSTAINGYM_PACKED`` overrides the directory, as it does for
-the JAX package. A pack that is absent is built by the port's ETL
-(``data/ev_etl.py``, ``data/cogen_etl.py``) from the raw inputs and
-written there, under the JAX package's file name.
+Packs live in two directories, each with one job:
+
+- The port's pack directory, ``PACKED_DIR``: ``sustaingym_tpu_torch/data/
+  packed/``, or ``SUSTAINGYM_PACKED`` where that is set (as it is for the
+  JAX package). The port's ETL (``data/ev_etl.py``, ``data/cogen_etl.py``)
+  writes a pack it builds here, under the JAX package's file name, and
+  ``data/ev_gmm.export_gmm_npz`` writes its exports under ``gmm/`` here.
+  The directory is created by the first write, never by a read; git
+  ignores it.
+- The packs the JAX package commits, ``COMMITTED_DIR``
+  (``sustaingym_tpu/data/packed/``). The port only reads them, located by
+  file path and never through an import of ``sustaingym_tpu`` (which
+  would import JAX).
+
+:func:`find_pack` looks in ``PACKED_DIR`` first, then in
+``COMMITTED_DIR``. :func:`pack_out_path` gives where a pack is written: in
+``PACKED_DIR`` always, and never under ``sustaingym_tpu/``, so that the
+reference never reads what the port built.
 
 The raw SustainGym tables (ASHRAE HTM building tables, TMY3 EPW weather,
 MOER monthly CSVs, ACN session CSVs, ERCOT and Henry Hub price files, NREL
@@ -23,23 +34,49 @@ import os
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+_JAX_TREE = os.path.join(_REPO_ROOT, "sustaingym_tpu")
 
 PACKED_DIR = os.environ.get(
-    "SUSTAINGYM_PACKED",
-    os.path.join(_REPO_ROOT, "sustaingym_tpu", "data", "packed"))
+    "SUSTAINGYM_PACKED", os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "packed"))
+COMMITTED_DIR = os.path.join(_JAX_TREE, "data", "packed")
 
 _DEFAULT_RAW_CANDIDATES = (
     os.environ.get("SUSTAINGYM_RAW", ""),
-    os.path.join(_REPO_ROOT, "sustaingym_tpu", "data", "raw"),
+    os.path.join(_JAX_TREE, "data", "raw"),
 )
 
 
-def packed_path(*parts: str) -> str:
-    """Path of a pack under ``PACKED_DIR``, which it creates: where the
-    ETL looks for a cached pack and writes a new one (the JAX package's
-    ``packed_path``)."""
-    os.makedirs(PACKED_DIR, exist_ok=True)
-    return os.path.join(PACKED_DIR, *parts)
+def pack_places(*parts: str) -> list[str]:
+    """Every path :func:`find_pack` tries for the pack ``parts``, in
+    order."""
+    return [os.path.join(d, *parts) for d in (PACKED_DIR, COMMITTED_DIR)]
+
+
+def find_pack(*parts: str) -> str | None:
+    """Path of the pack ``parts`` (a file name, or a subdirectory and a
+    file name): in ``PACKED_DIR``, else in ``COMMITTED_DIR``; None where
+    neither holds it. Creates nothing."""
+    for path in pack_places(*parts):
+        if os.path.exists(path):
+            return path
+    return None
+
+
+def pack_out_path(*parts: str) -> str:
+    """Path to write the pack ``parts`` to, in ``PACKED_DIR``, whose
+    directories it creates. Raises ValueError where that path resolves to
+    anywhere under ``sustaingym_tpu/``, the reference's tree."""
+    path = os.path.join(PACKED_DIR, *parts)
+    jax_tree = os.path.realpath(_JAX_TREE)
+    real = os.path.realpath(path)
+    if os.path.commonpath((real, jax_tree)) == jax_tree:
+        raise ValueError(
+            f"refusing to write the pack {path}: it lies under the JAX "
+            f"package's tree {jax_tree}, which the port only reads. Point "
+            f"SUSTAINGYM_PACKED elsewhere.")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
 
 
 def raw_root() -> str:
@@ -59,14 +96,16 @@ def raw_path(*parts: str) -> str:
 def raw_inputs(pack: str, *files: str) -> list[str]:
     """The paths of the raw ``files`` (relative to the raw-data root) that
     the ETL reads to build ``pack``. Without a raw-data root it raises
-    FileNotFoundError naming the pack and every one of those files."""
+    FileNotFoundError naming every place the pack was looked for and
+    every one of those files."""
     try:
         root = raw_root()
     except FileNotFoundError:
         raise FileNotFoundError(
-            f"packed data file {os.path.join(PACKED_DIR, pack)} not found, "
-            f"and the raw ETL inputs that build it are absent: "
-            f"{', '.join(files)}. Set SUSTAINGYM_RAW to a directory with "
-            f"the reference data layout (building/, moer/, cogen/, "
-            f"evcharging/) holding them.") from None
+            f"packed data file {pack} not found in "
+            f"{' or '.join(pack_places(pack))}, and the raw ETL inputs "
+            f"that build it are absent: {', '.join(files)}. Set "
+            f"SUSTAINGYM_RAW to a directory with the reference data layout "
+            f"(building/, moer/, cogen/, evcharging/) holding them.") \
+            from None
     return [os.path.join(root, f) for f in files]

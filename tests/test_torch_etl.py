@@ -11,7 +11,8 @@ The tree is written here, in the reference layout, from a numpy seed:
   written with ``zipfile`` as SpreadsheetML (shared and inline strings,
   two sheets, a 23-hour day), the Henry Hub CSV with gaps.
 Every pack and workbook must be bit-equal between the packages. Both
-packages' pack directories and raw roots point into ``tmp_path``.
+packages' pack directories, the port's committed-pack directory and both
+raw roots point into ``tmp_path``.
 """
 import datetime as dt
 import gzip
@@ -174,11 +175,14 @@ def raw(tmp_path_factory):
 
 @pytest.fixture
 def dirs(raw, tmp_path, monkeypatch):
-    """Both packages' pack directories under tmp_path (one each), both
-    raw roots at the synthetic tree."""
+    """Both packages' pack directories under tmp_path (one each), the
+    port's committed packs at an absent directory there (so that the port
+    builds every pack the JAX package builds), both raw roots at the
+    synthetic tree."""
     for paths, sub in ((jpaths, "jax"), (tpaths, "port")):
         monkeypatch.setattr(paths, "PACKED_DIR", str(tmp_path / sub))
         monkeypatch.setattr(paths, "_DEFAULT_RAW_CANDIDATES", ("", raw))
+    monkeypatch.setattr(tpaths, "COMMITTED_DIR", str(tmp_path / "committed"))
     return tmp_path
 
 
@@ -247,7 +251,7 @@ def test_ambients_pack_bit_equal(dirs, wind):
 
 
 def test_ambients_pack_reads_the_shipped_pack():
-    shipped = np.load(os.path.join(tpaths.PACKED_DIR,
+    shipped = np.load(os.path.join(tpaths.COMMITTED_DIR,
                                    "cogen_ambients_wind=100.0.npz"))
     _equal(tcogen.build_ambients_pack(100.0), shipped["ambients"])
 
@@ -304,9 +308,12 @@ def test_missing_raw_root_names_the_files(tmp_path, monkeypatch):
         tev.build_trace_pack("caltech", PERIOD, STATIONS)
     with pytest.raises(FileNotFoundError, match="DAMLZHBSPP_2022.xlsx"):
         tcogen.build_ambients_pack(37.5)
-    # a cap over the shipped packs' 100 on the shipped tree: the raw
-    # sessions are named
-    monkeypatch.setattr(tpaths, "PACKED_DIR", jpaths.PACKED_DIR)
-    with pytest.raises(FileNotFoundError, match="raw ETL inputs"):
+    # the shipped tree, found by the committed fallback: a cap over the
+    # shipped packs' 100 names the raw sessions and both places looked in
+    shipped = tev.build_trace_pack("caltech", "Summer 2021", STATIONS)
+    assert shipped["ev_mask"].any()
+    with pytest.raises(FileNotFoundError, match="raw ETL inputs") as err:
         tev.build_trace_pack("caltech", "Summer 2021", STATIONS,
                              requested_energy_cap=150.0)
+    for place in (tmp_path, tpaths.COMMITTED_DIR):
+        assert str(place) in str(err.value)

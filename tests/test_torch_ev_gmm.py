@@ -11,7 +11,7 @@ import torch
 from sustaingym_tpu.data import ev_gmm as jgmm
 from sustaingym_tpu.envs import evcharging as jev
 from sustaingym_tpu_torch.data import ev_gmm as tgmm
-from sustaingym_tpu_torch.data.paths import PACKED_DIR
+from sustaingym_tpu_torch.data import paths as tpaths
 from sustaingym_tpu_torch.envs import evcharging as tev
 from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
 
@@ -37,8 +37,8 @@ def test_sample_gmm_bit_equal(site):
 def test_sampled_banks_equal_the_committed_packs(days):
     """Sampling the banks the JAX package committed reproduces them bit for
     bit; build_gmm_trace_pack reads them as they are."""
-    path = os.path.join(PACKED_DIR, f"evgmm_caltech_2021-05-01_2021-08-31_"
-                                    f"30_{days}_0.npz")
+    path = os.path.join(tpaths.COMMITTED_DIR,
+                        f"evgmm_caltech_2021-05-01_2021-08-31_30_{days}_0.npz")
     with np.load(path) as d:
         committed = {k: d[k] for k in KEYS}
     sampled = tgmm.sample_bank("caltech", PERIOD, days)
@@ -48,11 +48,19 @@ def test_sampled_banks_equal_the_committed_packs(days):
         np.testing.assert_array_equal(read[k], committed[k])
 
 
+def _listings():
+    """The files of the port's pack directory (None while it is absent)
+    and of the committed one."""
+    return {d: set(os.listdir(d)) if os.path.isdir(d) else None
+            for d in (tpaths.PACKED_DIR, tpaths.COMMITTED_DIR)}
+
+
 @pytest.mark.parametrize("site", ["caltech", "jpl"])
 def test_uncommitted_bank_matches_jax(site):
     """A 12-day bank (committed by neither package) equals the JAX
-    package's, which is asked not to cache it into its data directory."""
-    before = set(os.listdir(PACKED_DIR))
+    package's, which is asked not to cache it into its data directory;
+    the port writes it nowhere."""
+    before = _listings()
     want = jgmm.build_gmm_trace_pack(site, PERIOD, n_days=12, cache=False,
                                      requested_energy_cap=40.0)
     got = tgmm.build_gmm_trace_pack(site, PERIOD, n_days=12,
@@ -60,7 +68,7 @@ def test_uncommitted_bank_matches_jax(site):
     for k in KEYS:
         np.testing.assert_array_equal(got[k], want[k])
     assert got["ev_mask"].sum() > 0 and got["ev_data"][..., 3].max() <= 40.0
-    assert set(os.listdir(PACKED_DIR)) == before
+    assert _listings() == before
 
 
 def test_make_params_gmm_matches_jax():

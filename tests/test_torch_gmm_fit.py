@@ -6,8 +6,9 @@ The raw sessions are the synthetic tree of ``tests/test_torch_etl.py``
 outside caltech's network). The other data set is a draw of 5832 sessions
 from the committed jpl Summer 2019 export, kept inside the feature domain
 (5821 rows). Both packages' raw roots, pack directories and GMM export
-directories point into ``tmp_path``; the committed exports are hashed
-before and after the module.
+directories, and the port's committed-pack directory, point into
+``tmp_path``; the committed exports are hashed before and after the
+module.
 """
 import glob
 import hashlib
@@ -71,6 +72,8 @@ def _point(monkeypatch, raw, tmp_path):
     for paths, sub in ((jpaths, "jax"), (tpaths, "port")):
         monkeypatch.setattr(paths, "PACKED_DIR", str(tmp_path / sub))
         monkeypatch.setattr(paths, "_DEFAULT_RAW_CANDIDATES", ("", raw))
+    monkeypatch.setattr(tpaths, "COMMITTED_DIR",
+                        str(tmp_path / "port_committed"))
     monkeypatch.setattr(jgmm, "GMM_NPZ_DIR", str(tmp_path / "jax_gmm"))
     monkeypatch.setattr(tgmm, "GMM_NPZ_DIR", str(tmp_path / "port_gmm"))
 
@@ -271,15 +274,16 @@ def _equal_npz(a, b):
 
 
 @pytest.mark.parametrize("protocol", [2, 5])
-def test_export_equals_the_jax_export(protocol, pkl_dirs):
+def test_export_equals_the_jax_export(protocol, pkl_dirs, monkeypatch):
     _write_pickle(str(pkl_dirs / "raw"), protocol)
     want = jgmm.export_gmm_npz("caltech", PERIOD)
     got = tgmm.export_gmm_npz("caltech", PERIOD)
     assert want == str(pkl_dirs / "jax_gmm" / NPZ)
     assert got == str(pkl_dirs / "port" / "gmm" / NPZ)
     _equal_npz(got, want)
-    out = tgmm.export_gmm_npz("caltech", PERIOD, out_dir=str(pkl_dirs / "o"))
-    assert out == str(pkl_dirs / "o" / NPZ)
+    monkeypatch.setattr(tpaths, "PACKED_DIR", str(pkl_dirs / "o"))
+    out = tgmm.export_gmm_npz("caltech", PERIOD)
+    assert out == str(pkl_dirs / "o" / "gmm" / NPZ)
     _equal_npz(out, want)
 
 
@@ -289,16 +293,16 @@ def test_export_runs_without_sklearn(pkl_dirs):
     out = str(pkl_dirs / "nosk")
     code = ("import sys; sys.modules['sklearn'] = None; "
             "from sustaingym_tpu_torch.data import ev_gmm; "
-            f"print(ev_gmm.export_gmm_npz('caltech', {PERIOD!r}, "
-            f"out_dir={out!r})); "
+            f"print(ev_gmm.export_gmm_npz('caltech', {PERIOD!r})); "
             "assert sys.modules['sklearn'] is None; "
             "assert not [m for m in sys.modules if m.startswith('sklearn.')]")
-    env = {**os.environ, "SUSTAINGYM_RAW": str(pkl_dirs / "raw")}
+    env = {**os.environ, "SUSTAINGYM_RAW": str(pkl_dirs / "raw"),
+           "SUSTAINGYM_PACKED": out}
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
-    assert run.stdout.strip() == os.path.join(out, NPZ)
-    _equal_npz(os.path.join(out, NPZ), want)
+    assert run.stdout.strip() == os.path.join(out, "gmm", NPZ)
+    _equal_npz(os.path.join(out, "gmm", NPZ), want)
 
 
 class _Evil:
@@ -386,13 +390,15 @@ def test_export_reads_a_series_of_each_index_kind(kind, protocol, pkl_dirs):
 
 
 def test_load_gmm_fallback_order(pkl_dirs):
-    """The committed export, then <PACKED_DIR>/gmm, then a fresh export of
-    the pickle; else an error naming the three."""
+    """The committed export, then gmm/ in the port's pack directory (then
+    in the committed packs), then a fresh export of the pickle; else an
+    error naming every place."""
     committed = pkl_dirs / "port_gmm" / NPZ
     exported = pkl_dirs / "port" / "gmm" / NPZ
     with pytest.raises(FileNotFoundError) as err:
         tgmm.load_gmm("caltech", PERIOD)
-    for place in (committed, exported, pkl_dirs / "raw" / PKL):
+    for place in (committed, exported, pkl_dirs / "port_committed" / "gmm"
+                  / NPZ, pkl_dirs / "raw" / PKL):
         assert str(place) in str(err.value)
 
     _write_pickle(str(pkl_dirs / "raw"), pickle.DEFAULT_PROTOCOL)
@@ -412,6 +418,8 @@ def test_load_gmm_fallback_order(pkl_dirs):
 def test_load_gmm_error_without_a_raw_root(tmp_path, monkeypatch):
     monkeypatch.setattr(tgmm, "GMM_NPZ_DIR", str(tmp_path / "port_gmm"))
     monkeypatch.setattr(tpaths, "PACKED_DIR", str(tmp_path / "port"))
+    monkeypatch.setattr(tpaths, "COMMITTED_DIR",
+                        str(tmp_path / "port_committed"))
     monkeypatch.setattr(tpaths, "_DEFAULT_RAW_CANDIDATES", ("",))
     with pytest.raises(FileNotFoundError, match="SUSTAINGYM_RAW"):
         tgmm.load_gmm("caltech", PERIOD)
