@@ -589,7 +589,8 @@ def free_cuda():
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
                 "cudaMemsetAsync")
-PHASES = ("rollout", "score", "update")
+# the program's spans of the train step's phases (core/trace.py)
+PHASES = ("ppo.rollout", "ppo.score", "ppo.update")
 
 # (label, env, params, cfg, seed) of each trainer that ``--profile``
 # profiles at the end of the run, after every kernel's device time is
@@ -615,14 +616,19 @@ def phase_launches(prof) -> dict:
 
 def profile_train_step(label: str, train_step, carry, generator, cfg,
                        tag: str) -> float:
-    """Phase times of the train step (host clock, synchronised between
-    phases), then one traced step (``torch.profiler``, the phases in
-    ``record_function`` ranges): the host's launch calls in each phase,
-    the graphs' warm-up and capture time, and the device's busy time.
-    Returns the rollout's ms (the second iteration's)."""
+    """Two whole train steps under the program's trace recording
+    (``core/trace.py``): the step's wall time (host clock, synchronised
+    around it) and each phase's device time (its span's CUDA events); the
+    graphs' warm-up and capture time; then one traced step
+    (``torch.profiler`` and the recording: the phases are the program's
+    ``ppo.*`` ranges): the host's launch calls in each phase and the
+    device's busy time. Returns the rollout's device ms (the second
+    step's)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from sustaingym_tpu_torch.core import trace
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -631,38 +637,29 @@ def profile_train_step(label: str, train_step, carry, generator, cfg,
         torch.cuda.synchronize()
         return result, (time.perf_counter() - t0) * 1e3
 
-    policy, opt = carry["policy"], carry["opt"]
     updates = cfg.epochs * cfg.minibatches
     for i in range(2):
-        out, roll_ms = timed(lambda: train_step.rollout(policy, generator,
-                                                        carry))
-        flat, score_ms = timed(lambda: train_step.score(policy, out))
-        _, upd_ms = timed(lambda: train_step.update(policy, opt, flat,
-                                                    generator))
-        _, step_ms = timed(lambda: train_step(carry, generator))
+        with trace.recording() as rec:
+            _, step_ms = timed(lambda: train_step(carry, generator))
+        ms = {s["name"]: s["device_ms"] for s in rec.snapshot()["spans"]
+              if s["name"] in PHASES}
+        roll_ms, score_ms, upd_ms = (ms[p] for p in PHASES)
         print(f"profile {label} {i}: train step {step_ms:.1f} ms; rollout "
               f"{roll_ms:.1f} ms, re-scoring + GAE {score_ms:.1f} ms, "
               f"{updates} minibatch updates {upd_ms:.1f} ms = "
-              f"{upd_ms / updates:.3f} ms each {tag}", flush=True)
+              f"{upd_ms / updates:.3f} ms each (device) {tag}", flush=True)
     graphs = train_step.graphs
     if graphs is not None:
         print(f"profile {label}: {graphs.captures} graphs, warm-up "
               f"{graphs.warmup_s:.3f} s, capture + instantiate "
               f"{graphs.capture_s:.3f} s {tag}", flush=True)
 
-    def phases():
-        with record_function("rollout"):
-            out = train_step.rollout(policy, generator, carry)
-        with record_function("score"):
-            flat = train_step.score(policy, out)
-        with record_function("update"):
-            train_step.update(policy, opt, flat, generator)
-
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, traced_ms = timed(phases)
+                             ProfilerActivity.CUDA]) as prof, \
+            trace.recording():
+        _, traced_ms = timed(lambda: train_step(carry, generator))
     calls = phase_launches(prof)
-    per_mb = sum(calls.get("update", {}).values()) / updates
+    per_mb = sum(calls.get("ppo.update", {}).values()) / updates
     print(f"profile {label}: host launch calls per phase {calls}; update: "
           f"{per_mb:.3f} per minibatch {tag}", flush=True)
 
@@ -678,7 +675,7 @@ def profile_train_step(label: str, train_step, carry, generator, cfg,
         print(f"profile {label}: the trace holds no device time (not "
               f"measured) {tag}")
         return roll_ms
-    print(f"profile {label}: traced phases {traced_ms:.1f} ms wall, device "
+    print(f"profile {label}: traced step {traced_ms:.1f} ms wall, device "
           f"busy {busy_ms:.1f} ms = {busy_ms / step_ms:.1%} of the untraced "
           f"step {step_ms:.1f} ms {tag}")
     for e in events[:10]:

@@ -18,6 +18,7 @@ from typing import Any, Callable, Generic, TypeVar
 
 import torch
 
+from . import trace
 from .spaces import Space
 from .struct import dataclass, replace, tree_map, tree_select
 
@@ -190,6 +191,7 @@ class ScheduleGuard:
     def _read(self, pending) -> None:
         host, event = pending
         if event is not None:
+            trace.count("host_syncs.schedule_guard")
             event.synchronize()
         if int(host):
             name = getattr(self.env, "name", type(self.env).__name__)
@@ -256,5 +258,6 @@ def kernel_seed(generator: torch.Generator | None) -> int:
     ``generator``."""
     if generator is None:
         raise ValueError("in-kernel draws need a torch.Generator")
+    trace.count("host_syncs.kernel_seed")
     return int(torch.randint(2 ** 62, (1,), generator=generator,
                              device=generator.device))

@@ -32,6 +32,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from . import trace
+
 __all__ = ["Graphs", "count_launches", "counted_wrappers", "device_const",
            "device_index", "tree_leaves"]
 
@@ -133,13 +135,21 @@ class Graphs:
     :func:`count_launches` the launches it holds; the capture itself adds
     nothing. ``warmup_s`` sums the host seconds of the warm-ups,
     ``capture_s`` those of the captures and instantiations; ``captures``
-    counts the graphs captured. On the CPU every call is ``fn(*inputs)``.
+    counts the graphs captured; ``pool_bytes``, read after each capture,
+    is the memory the graphs hold on the card: the segments of their pool
+    (as the allocator reports them) and the static input buffers of the
+    captures alive. Under a
+    :func:`core.trace.recording` each call's input copies and replays are
+    a ``graphs.replay`` span tagged with the slot, and its replays add to
+    the counter ``graphs.replays.<slot>``. On the CPU every call is
+    ``fn(*inputs)``.
     """
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.captures = 0
         self.warmup_s = self.capture_s = 0.0
+        self.pool_bytes = 0
         self._pool = None
         self._captured: dict[Any, tuple[Any, _Captured]] = {}
 
@@ -155,9 +165,8 @@ class Graphs:
             return out
         slot = key if slot is None else slot
         held = self._captured.pop(slot, None)
-        if held is not None and held[0] == key:
-            entry = held[1]
-        else:
+        fresh = held is None or held[0] != key
+        if fresh:
             del held
             if not self._captured:
                 # no graph holds the pool now: it is released, and a
@@ -165,15 +174,33 @@ class Graphs:
                 self._pool = None
             entry = self._capture(fn, inputs, tuple(generators),
                                   tuple(state))
+        else:
+            entry = held[1]
         self._captured[slot] = (key, entry)
-        for dst, src in zip(tree_leaves(entry.inputs), tree_leaves(inputs)):
-            if dst.data_ptr() != src.data_ptr():
-                dst.copy_(src)
-        for _ in range(repeat):
-            entry.graph.replay()
+        if fresh:
+            self.pool_bytes = self._held_bytes()
+        with trace.span("graphs.replay", tag=slot):
+            for dst, src in zip(tree_leaves(entry.inputs),
+                                tree_leaves(inputs)):
+                if dst.data_ptr() != src.data_ptr():
+                    dst.copy_(src)
+            for _ in range(repeat):
+                entry.graph.replay()
+        trace.count("graphs.replays", repeat, key=slot)
         for wrapper, n in entry.launches:
             wrapper.launches += n * repeat
         return entry.outputs
+
+    def _held_bytes(self) -> int:
+        """The bytes of the pool's segments and of the live captures'
+        static inputs."""
+        pool = tuple(self._pool)
+        segments = sum(seg["total_size"]
+                       for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg.get("segment_pool_id", ())) == pool)
+        return segments + sum(x.numel() * x.element_size()
+                              for _, e in self._captured.values()
+                              for x in tree_leaves(e.inputs))
 
     def clear(self):
         """Drops every capture and the pool: the next call of each slot

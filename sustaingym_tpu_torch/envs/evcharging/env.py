@@ -18,7 +18,10 @@ through :meth:`EVChargingEnv.fused_rollout` (simulation tier) and
 :meth:`EVChargingEnv.fused_policy_unroll` (PPO rollouts);
 :meth:`EVChargingEnv.batch_unroll` steps a lockstep batch under any policy.
 Each takes the reset days explicitly, or draws them from a
-``torch.Generator``.
+``torch.Generator``. Under a ``core.trace`` recording each episode of the
+two fused calls is an ``ev.fused_rollout`` span, whose child
+``ev.prelaunch`` runs from the episode's entry (the first episode's holds
+the day draws) to its kernel's launch.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 
 from ...core import (Box, DictSpace, FunctionalEnv, TimeStep, dataclass,
                      draw_env_rows, env_offset, kernel_seed, resolve_device,
-                     tree_stack)
+                     trace, tree_stack)
 from ...core.rollout import episode_loop, join_episodes
 from ...ops import qp
 from .sites import SiteSpec, load_site
@@ -471,30 +474,34 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
 
         L = MAX_TIMESTEP
         episodes = -(-num_steps // L)
-        days = self._episode_days(params, batch, episodes, days, generator)
         parts = []
         for ep in range(episodes):
-            t0 = ep * L
-            seg = min(L, num_steps - t0)
-            if actions is None:
-                acts, seed = None, kernel_seed(generator)
-            else:
-                acts, seed = actions[t0:t0 + seg], 0
-            out, _ = ev_segment(params, days[ep], seg, actions=acts,
-                                seed=seed)
-            done = torch.zeros((seg, batch), dtype=torch.bool,
-                               device=params.device)
-            if seg == L:
-                done[-1] = True
-            parts.append(TimeStep(
-                obs={}, reward=out[..., 0], terminated=done,
-                truncated=torch.zeros_like(done),
-                info={"profit": out[..., 1], "carbon_cost": out[..., 2],
-                      "excess_charge": out[..., 3],
-                      "max_profit": params.day_max_profit[days[ep]].expand(
-                          seg, batch),
-                      "num_evs": params.day_num_evs[days[ep]].expand(
-                          seg, batch)}))
+            with trace.span("ev.fused_rollout", params.device):
+                trace.begin("ev.prelaunch")     # ended by ev_segment
+                if ep == 0:
+                    days = self._episode_days(params, batch, episodes, days,
+                                              generator)
+                t0 = ep * L
+                seg = min(L, num_steps - t0)
+                if actions is None:
+                    acts, seed = None, kernel_seed(generator)
+                else:
+                    acts, seed = actions[t0:t0 + seg], 0
+                out, _ = ev_segment(params, days[ep], seg, actions=acts,
+                                    seed=seed)
+                done = torch.zeros((seg, batch), dtype=torch.bool,
+                                   device=params.device)
+                if seg == L:
+                    done[-1] = True
+                parts.append(TimeStep(
+                    obs={}, reward=out[..., 0], terminated=done,
+                    truncated=torch.zeros_like(done),
+                    info={"profit": out[..., 1], "carbon_cost": out[..., 2],
+                          "excess_charge": out[..., 3],
+                          "max_profit": params.day_max_profit[
+                              days[ep]].expand(seg, batch),
+                          "num_evs": params.day_num_evs[days[ep]].expand(
+                              seg, batch)}))
         if len(parts) == 1:
             return parts[0]
         return TimeStep(
@@ -539,19 +546,23 @@ class EVChargingEnv(FunctionalEnv[EVParams, EVState]):
         if num_steps % L != 0:
             raise ValueError(f"num_steps must be a multiple of {L}")
         episodes = num_steps // L
-        days = self._episode_days(params, batch, episodes, days, generator)
-        weights = pack_policy_weights(policy)
         outs, lrns = [], []
         for ep in range(episodes):
-            if noise is None:
-                nz, seed = None, kernel_seed(generator)
-            else:
-                nz, seed = noise[ep * L:(ep + 1) * L], 0
-            out, lrn = ev_policy_segment(params, weights, days[ep], L,
-                                         noise=nz, seed=seed,
-                                         env_offset=env_offset())
-            outs.append(out)
-            lrns.append(lrn)
+            with trace.span("ev.fused_rollout", params.device):
+                trace.begin("ev.prelaunch")     # ended by ev_policy_segment
+                if ep == 0:
+                    days = self._episode_days(params, batch, episodes, days,
+                                              generator)
+                    weights = pack_policy_weights(policy)
+                if noise is None:
+                    nz, seed = None, kernel_seed(generator)
+                else:
+                    nz, seed = noise[ep * L:(ep + 1) * L], 0
+                out, lrn = ev_policy_segment(params, weights, days[ep], L,
+                                             noise=nz, seed=seed,
+                                             env_offset=env_offset())
+                outs.append(out)
+                lrns.append(lrn)
         out = torch.cat(outs)
         done = torch.zeros((num_steps, batch), dtype=torch.bool,
                            device=params.device)

@@ -23,6 +23,9 @@ the oracle for the kernels; they compute the same step with the shared
 ``envs.evcharging.env.advance`` and cast to bf16 at the kernel's points.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute.
+Under a ``core.trace`` recording it closes its caller's ``ev.prelaunch``
+span where it launches, and the range check's two host reads of the reset
+days count as ``host_syncs.ev_days_min`` and ``host_syncs.ev_days_max``.
 
 Random draws: the kernels use a Philox4x32-10 stream keyed by ``seed``;
 the plain versions draw from a ``torch.Generator`` seeded with ``seed``.
@@ -34,7 +37,7 @@ import ctypes
 
 import torch
 
-from ...core import dataclass
+from ...core import dataclass, trace
 from ...core.graph import count_launches
 from ...envs.evcharging.env import EVParams, EVState, MAX_TIMESTEP, advance
 from ...ops.qp import SOCProjection
@@ -261,9 +264,13 @@ def _check_common(params: EVParams, days: torch.Tensor, T: int):
         raise ValueError(f"bad day table {tuple(table.shape)} for T={T}")
     check("step_table", table, torch.float32, table.shape, dev)
     check("days", days, torch.long, (days.shape[0],), dev)
-    if days.numel() and (int(days.min()) < 0
-                         or int(days.max()) >= table.shape[0]):
-        raise ValueError("reset days out of range")
+    if days.numel():
+        trace.count("host_syncs.ev_days_min")
+        if int(days.min()) < 0:
+            raise ValueError("reset days out of range")
+        trace.count("host_syncs.ev_days_max")
+        if int(days.max()) >= table.shape[0]:
+            raise ValueError("reset days out of range")
     check("C", proj.C, torch.float32, (m2, n), dev)
     if isinstance(proj, SOCProjection):
         check("K", proj.K, torch.float32, (n, n), dev)
@@ -312,6 +319,7 @@ def ev_segment(params: EVParams, days: torch.Tensor, T: int,
     and the reward's C p. ADMM runs every iteration, and a K mat-vec in
     each besides."""
     if not on_card(params.step_table, "the EV kernels"):
+        trace.end("ev.prelaunch")
         return ev_segment_ref(params, days, T, actions, seed, record_actions,
                               matvecs)
     dev, n, m2 = _check_common(params, days, T)
@@ -324,6 +332,7 @@ def ev_segment(params: EVParams, days: torch.Tensor, T: int,
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     acts_out = (torch.empty((T, B, n), dtype=torch.float32, device=dev)
                 if record_actions else None)
+    trace.end("ev.prelaunch")
     with torch.cuda.device(dev):
         err = _lib().ev_segment_launch(
             *_op_args(params, n, m2), *_admm_args(params),
@@ -354,6 +363,7 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
         raise ValueError("ev_policy_segment computes the dual-FISTA "
                          "projection only, not ADMM")
     if not on_card(params.step_table, "the EV kernels"):
+        trace.end("ev.prelaunch")
         return ev_policy_segment_ref(params, weights, days, T, noise, seed,
                                      env_offset)
     dev, n, m2 = _check_common(params, days, T)
@@ -372,6 +382,7 @@ def ev_policy_segment(params: EVParams, weights: PolicyWeights,
         raise ValueError(f"env_offset {env_offset} < 0")
     out = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
     lrn = torch.empty((T, B, D + n), dtype=torch.bfloat16, device=dev)
+    trace.end("ev.prelaunch")
     with torch.cuda.device(dev):
         err = _lib().ev_policy_segment_launch(
             *_op_args(params, n, m2), *policy_weight_args(weights), D, H,

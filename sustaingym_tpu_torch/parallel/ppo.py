@@ -85,6 +85,7 @@ from ..core import (Discrete, MultiDiscrete, ScheduleGuard, dataclass,
                     draw_env_rows, env_shard, flatdim, flatten,
                     phased_autoreset_step, reset_schedule, tree_assign_,
                     tree_map)
+from ..core import trace
 from ..core.graph import Graphs, device_const, tree_leaves
 from .mesh import Mesh, mp_all_reduce
 
@@ -982,7 +983,7 @@ def make_train_step(env, env_params, cfg: PPOConfig,
     @torch.no_grad()
     def rollout(policy: ActorCritic, generator: torch.Generator,
                 carry: dict | None = None) -> dict:
-        with shard():
+        with trace.span("ppo.rollout", device), shard():
             return unroll(policy, generator, carry)
 
     def score_body(policy, obs, u, reward, done, last_obs=None):
@@ -1021,13 +1022,15 @@ def make_train_step(env, env_params, cfg: PPOConfig,
 
     @torch.no_grad()
     def score(policy: ActorCritic, out: dict) -> dict:
-        args = (out["obs"], out["u"], out["reward"], out["done"]) + (
-            (out["last_obs"],) if "last_obs" in out else ())
-        if graphs is None or "score" not in captured:
-            return score_body(policy, *args)
-        key = ("score", id(policy)) + tuple(
-            (a.shape, a.dtype) for a in args)
-        return graphs(key, partial(score_body, policy), *args, slot="score")
+        with trace.span("ppo.score", device):
+            args = (out["obs"], out["u"], out["reward"], out["done"]) + (
+                (out["last_obs"],) if "last_obs" in out else ())
+            if graphs is None or "score" not in captured:
+                return score_body(policy, *args)
+            key = ("score", id(policy)) + tuple(
+                (a.shape, a.dtype) for a in args)
+            return graphs(key, partial(score_body, policy), *args,
+                          slot="score")
 
     def minibatch_body(policy, opt, flat, mb_idx, counter, sums):
         """One minibatch update: the rows ``mb_idx[counter]``, then
@@ -1076,6 +1079,10 @@ def make_train_step(env, env_params, cfg: PPOConfig,
 
     def update(policy: ActorCritic, opt, flat: dict,
                generator: torch.Generator) -> dict:
+        with trace.span("ppo.update", device):
+            return update_body(policy, opt, flat, generator)
+
+    def update_body(policy, opt, flat, generator):
         n = flat["logp"].shape[0] * dp      # the global batch's rows
         mb = n // cfg.minibatches
         dropped = n - mb * cfg.minibatches
@@ -1089,14 +1096,16 @@ def make_train_step(env, env_params, cfg: PPOConfig,
             warnings.warn(
                 f"PPO minibatching drops {dropped}/{n} samples per epoch "
                 f"(rollout_len*num_envs[*n_agents]={n} not divisible by "
-                f"minibatches={cfg.minibatches})", stacklevel=2)
-        # every epoch's permutation first, in the order the epochs use them
-        perms = [torch.randperm(n, generator=generator,
-                                device=generator.device).to(device)
-                 for _ in range(cfg.epochs)]
+                f"minibatches={cfg.minibatches})", stacklevel=3)
         count = cfg.epochs * cfg.minibatches
-        mb_idx = torch.stack([p[:cfg.minibatches * mb] for p in perms]
-                             ).reshape(count, mb)
+        with trace.span("ppo.update.perms"):
+            # every epoch's permutation first, in the order the epochs use
+            # them
+            perms = [torch.randperm(n, generator=generator,
+                                    device=generator.device).to(device)
+                     for _ in range(cfg.epochs)]
+            mb_idx = torch.stack([p[:cfg.minibatches * mb] for p in perms]
+                                 ).reshape(count, mb)
         sums = torch.zeros(len(METRICS), device=device)
         if multi:
             # this rank's rows of each global minibatch, in its order (all
@@ -1106,6 +1115,7 @@ def make_train_step(env, env_params, cfg: PPOConfig,
             own = (e >= offset) & (e < offset + B)
             local = (mb_idx // per_t * (B * row_agents)
                      + (e - offset) * row_agents + mb_idx % row_agents)
+            trace.count("host_syncs.dp_rows")
             for idx in torch.split(local[own], own.sum(1).tolist()):
                 dp_minibatch(policy, opt, flat, idx, mb, sums)
             return dict(zip(METRICS, sums))
@@ -1124,23 +1134,24 @@ def make_train_step(env, env_params, cfg: PPOConfig,
     guard = ScheduleGuard(env, ep_len) if path == "generic" else None
 
     def train_step(carry: dict, generator: torch.Generator):
-        policy, opt = carry["policy"], carry["opt"]
-        out = rollout(policy, generator, carry)
-        # read before the later phases' graphs run: a graph captured after
-        # them may hold its outputs in their scratch memory
-        metrics = {"mean_reward": out["reward"].mean(),
-                   "episode_done_frac": out["done"].float().mean()}
-        sums = update(policy, opt, score(policy, out), generator)
-        count = cfg.epochs * cfg.minibatches
-        metrics.update({key: v / count for key, v in sums.items()})
-        if multi:
-            # every rank reports the global metrics
-            keys = list(metrics)
-            local = torch.stack([metrics[k] for k in keys])
-            local[:2] = mesh.dp_sum_(local[:2].clone()) / dp
-            metrics = dict(zip(keys, local))
-        if guard is not None:
-            guard.push(carry["reset_guard"])
+        with trace.span("ppo.step", device):
+            policy, opt = carry["policy"], carry["opt"]
+            out = rollout(policy, generator, carry)
+            # read before the later phases' graphs run: a graph captured
+            # after them may hold its outputs in their scratch memory
+            metrics = {"mean_reward": out["reward"].mean(),
+                       "episode_done_frac": out["done"].float().mean()}
+            sums = update(policy, opt, score(policy, out), generator)
+            count = cfg.epochs * cfg.minibatches
+            metrics.update({key: v / count for key, v in sums.items()})
+            if multi:
+                # every rank reports the global metrics
+                keys = list(metrics)
+                local = torch.stack([metrics[k] for k in keys])
+                local[:2] = mesh.dp_sum_(local[:2].clone()) / dp
+                metrics = dict(zip(keys, local))
+            if guard is not None:
+                guard.push(carry["reset_guard"])
         return carry, metrics
 
     def check(carry: dict) -> None:

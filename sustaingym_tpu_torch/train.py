@@ -60,7 +60,13 @@ the CSV, whose header must match. ``--profile`` traces iterations 2-4 of
 the run (clamped into it; "skipped" with fewer than 2) with
 ``torch.profiler`` into ``<log-dir>/profile/trace_rank<r>.json``, one
 Chrome trace a rank, each iteration a ``record_function`` span named
-``iteration <i>``. Runs on the card
+``iteration <i>``, under a ``core.trace`` recording: the trace also holds
+the program's spans (``ppo.step``, ``ppo.rollout``, ``ppo.score``,
+``ppo.update``, ``graphs.replay``, ...), and the recording's snapshot
+(each span's host and device ms, self time, parent and step; the
+``graphs.replays.*`` and ``host_syncs.*`` counters; each kernel's
+launches) is written beside the trace as
+``<log-dir>/profile/spans_rank<r>.json``. Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; asking
 for ``cuda`` without a CUDA device is an error. On the card each train
 step replays CUDA graphs captured at the first one (``parallel/ppo.py``),
@@ -303,9 +309,11 @@ def start_profile(device):
     return prof
 
 
-def stop_profile(prof, log_dir: str, rank: int) -> str:
+def stop_profile(prof, rec, log_dir: str, rank: int) -> str:
     """Stops ``prof`` once the card is idle and writes its Chrome trace to
-    ``<log_dir>/profile/trace_rank<rank>.json``; returns the path."""
+    ``<log_dir>/profile/trace_rank<rank>.json`` and the snapshot of the
+    trace recording ``rec`` to ``spans_rank<rank>.json`` beside it;
+    returns the trace's path."""
     import torch
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -314,6 +322,8 @@ def stop_profile(prof, log_dir: str, rank: int) -> str:
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, f"trace_rank{rank}.json")
     prof.export_chrome_trace(path)
+    with open(os.path.join(out, f"spans_rank{rank}.json"), "w") as f:
+        json.dump(rec.snapshot(), f)
     return path
 
 
@@ -384,13 +394,16 @@ def main(argv: list[str] | None = None) -> None:
                              "step, which captures the CUDA graphs) with "
                              "torch.profiler, CPU and CUDA activities, into "
                              "<log-dir>/profile/trace_rank<r>.json (a "
-                             "Chrome trace a rank); view with "
-                             "chrome://tracing or Perfetto")
+                             "Chrome trace a rank, holding the program's "
+                             "spans); view with chrome://tracing or "
+                             "Perfetto; the spans' snapshot in "
+                             "spans_rank<r>.json beside it")
     args = parser.parse_args(argv)
 
     import torch
     import torch.distributed as dist
 
+    from sustaingym_tpu_torch.core import trace
     from sustaingym_tpu_torch.parallel import (init_distributed, make_mesh,
                                                spawn)
 
@@ -524,15 +537,17 @@ def main(argv: list[str] | None = None) -> None:
     profiling = args.profile and span[0] <= span[1]
     if args.profile and not profiling and rank0:
         print("profiler: skipped (needs --iterations >= 2)")
-    prof = None
+    prof = rec = None
+    spans = contextlib.ExitStack()
 
-    with opened(csv_path) as f, \
+    with spans, opened(csv_path) as f, \
             (opened(eval_csv) if evaluate
              else contextlib.nullcontext()) as eval_f:
         writer = None
         for i in range(start_iter, start_iter + args.iterations):
             if profiling and i == span[0]:
                 prof = start_profile(device)
+                rec = spans.enter_context(trace.recording())
             t0 = time.perf_counter()
             with (torch.profiler.record_function(f"iteration {i}")
                   if prof is not None else contextlib.nullcontext()):
@@ -540,8 +555,9 @@ def main(argv: list[str] | None = None) -> None:
                 row = {k: float(v) for k, v in metrics.items()}  # syncs
             dt = time.perf_counter() - t0
             if prof is not None and i == span[1]:
-                path = stop_profile(prof, args.log_dir,
+                path = stop_profile(prof, rec, args.log_dir,
                                     0 if mesh is None else mesh.rank)
+                spans.close()
                 prof = None
                 print(f"profiler trace of iterations {span[0]}-{span[1]} "
                       f"in {path}", flush=True)
