@@ -39,13 +39,21 @@ Slice 1, PPO on EVChargingEnv with the action projection on:
    recorded actions, and ``ev_policy_segment`` at 8192 x 288, H = 256, on
    prescribed noise;
 4. in-kernel draws: U[0, 1) action mean (the 32768 x 288 run's draws),
-   N(0, 1) mean and variance;
+   N(0, 1) mean and variance; then ``ppo_gauss_loss``, the PPO loss
+   head's kernel, vs its plain version on the same card tensors at the
+   trainer's minibatch (24576 x 54, ``mu`` and ``value`` the strided
+   parts of one (24576, 55) head product, ratios across both sides of
+   the clip, both signs of the advantage): each output within
+   ``LOSS_GATE`` of its scale (``check_ppo_loss``);
 5. simulation tier: ``EVChargingEnv.fused_rollout`` at 32768 x 288,
    projection on;
 6. trainer: two PPO train steps at 8192 envs x 288 steps, H = 256, bf16
-   obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check; then
-   the kernels' device time (CUDA events around the kernel's C
-   entry point, ``device_ms``), the whole
+   obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check;
+   ``ppo_gauss_loss``'s launches over both must be one a minibatch plus
+   one warm-up for each trainer's captured update (2 x 384 + 1 and 4 + 1);
+   then the kernels' device time (CUDA events around the kernel's C
+   entry point, ``device_ms``; the loss head's at the check's inputs),
+   the whole
    simulation-tier call and the plain versions (CUDA events), and
    ``ev_segment``'s CTAs resident per SM and waves. Before the
    main path, ``ev_policy_segment`` at 8192 x 288 is also timed with the
@@ -167,9 +175,11 @@ Slice 5, EV's lockstep and generic training paths:
     "--iterations", "2", ...])`` into a temporary directory, then its
     ``eval_results.csv`` (two finite rows) and ``best_model``.
 
-Slice 6, the multi-agent views and their PPO paths (no kernel on this
-path: the views step through the PyTorch step functions; every launch
-count is set to 0 before phase 23 and printed after phase 27). Each
+Slice 6, the multi-agent views and their PPO paths (no env kernel on
+this path: the views step through the PyTorch step functions; the shared
+Gaussian policies of phases 24 and 26 run their loss head as
+``ppo_gauss_loss``; every launch count is set to 0 before phase 23 and
+printed after phase 27). Each
 trainer takes two captured train steps (agent-steps/s printed), its lr=0
 step and one step captured against eager under ``CAPTURE_GATE``; the
 MA-EV trainers take both at their own 512 envs (``check_captured`` at
@@ -331,8 +341,10 @@ Every phase raises on failure (exit code 1). The line before the last is
 a JSON object with, for each TPU kernel's counterpart (the slice gather
 twice: it replaces both TPU gathers), its launches in its slice's
 main-path run (phases 5-6, 10, 12, 14 and 17; the slice gather's in 10, 12
-and 17; ``ev_segment_admm``, the ADMM branch of ``ev_segment``, in phase
-18's simulation tier; ``pdhg_solve_paired`` in 14 and in the market
+and 17; ``ppo_gauss_loss``, the port's own kernel with no TPU
+counterpart, in phase 6; ``ev_segment_admm``, the ADMM branch of
+``ev_segment``, in phase 18's simulation tier; ``pdhg_solve_paired`` in 14
+and in the market
 trainers' captured steps of 29, 30 and 32; and each kernel's launches in
 phases 41 and 43), its largest difference from
 the plain version (``pdhg_solve_paired``'s also over phase 35),
@@ -367,6 +379,12 @@ GEMM_GATE = 64.0
 # dp = 2 against one rank at lr = 0: every metric within rel of one
 # rank's, |d| / max(|one rank|, floor) (the sums' order differs)
 DP_GATE = (1e-3, 1e-5)
+# the loss head's kernel against its plain version on the same float32
+# inputs: each output's largest |d| over its scale (a gradient's largest
+# entry; pg, vf and the loss the mean of the absolute per-row terms; ent
+# the sum of its absolute terms), as tests/test_torch_gpu_kernels.py holds
+# it against float64
+LOSS_GATE = 1e-5
 COGEN_STEPS, COGEN_CHECK = 96, 4096
 DC_STEPS, DC_CHECK = 672, 4096
 MKT_STEPS = 288
@@ -787,6 +805,79 @@ def profile_trainers(tag: str):
                       f"captured rollout {roll_ms:.1f} ms {tag}", flush=True)
             del init_state, step, carry
     free_cuda()
+
+
+def ppo_loss_inputs(rows: int, A: int, gen) -> tuple:
+    """The loss head's arguments at ``rows`` x ``A`` on the card, as the
+    fused EV update gives them: ``mu`` and ``value`` the two parts of one
+    (rows, A + 1) head product, ``u`` drawn from the policy, ``logp_old``
+    placing the ratios uniformly in [0.5, 1.7] (both sides of the clip at
+    0.2) but none within 0.01 of a bound, where the rounding of either
+    log-prob sum could take the other side of the clip; standard normal
+    advantages and returns; clip 0.2, vf_coef 0.5, ent_coef 0.01."""
+    import torch
+    from sustaingym_tpu_torch.parallel import ppo
+    dev = gen.device
+    head = torch.randn((rows, A + 1), generator=gen, device=dev)
+    log_std = -0.5 * torch.rand((A,), generator=gen, device=dev)
+    mu, value = head[:, :A], head[:, A]
+    u = mu + torch.exp(log_std) * torch.randn((rows, A), generator=gen,
+                                              device=dev)
+    ratio = 0.5 + 1.2 * torch.rand((rows,), generator=gen, device=dev)
+    for b in (0.8, 1.2):
+        ratio = torch.where((ratio - b).abs() < 0.01,
+                            torch.where(ratio < b, ratio - 0.01,
+                                        ratio + 0.01), ratio)
+    logp_old = ppo._gauss_logp(mu, log_std, u) - torch.log(ratio)
+    adv = torch.randn((rows,), generator=gen, device=dev)
+    ret = torch.randn((rows,), generator=gen, device=dev)
+    return (mu, log_std, value, u, logp_old, adv, ret, 0.2, 0.5, 0.01)
+
+
+def check_ppo_loss(args: tuple, tag: str) -> float:
+    """``ppo_gauss_loss`` against its plain version on the same card
+    tensors: each output's largest |d| over its scale (``LOSS_GATE``; the
+    scales from the per-row terms in float64), ``d_mu`` and ``d_value``
+    the parts of one gradient of the head product, two calls bit-equal.
+    Returns the largest |d| over the outputs."""
+    import math
+
+    import torch
+    from sustaingym_tpu_torch.ops.cuda import ppo_loss as KL
+    got = KL.ppo_gauss_loss(*args)
+    again = KL.ppo_gauss_loss(*args)
+    want = KL.ppo_gauss_loss_ref(*args)
+    mu, log_std, value, u, logp_old, adv, ret, eps, vf_coef, ent_coef = args
+    ls = log_std.double()
+    logp = torch.sum(-0.5 * ((u - mu).double() ** 2 / torch.exp(2 * ls)
+                             + 2 * ls + math.log(2 * math.pi)), -1)
+    ratio = torch.exp(logp - logp_old.double())
+    a = adv.double()
+    a = (a - a.mean()) / (a.std(correction=0) + 1e-8)
+    pg_s = float(torch.minimum(ratio * a, torch.clamp(
+        ratio, 1 - eps, 1 + eps) * a).abs().mean())
+    vf_s = float((0.5 * (value.double() - ret.double()) ** 2).mean())
+    ent_s = float((ls + 0.5 * math.log(2 * math.pi * math.e)).abs().sum())
+    scale = {"loss": pg_s + vf_coef * vf_s + ent_coef * ent_s, "pg": pg_s,
+             "vf": vf_s, "ent": ent_s}
+    names = ("loss", "pg", "vf", "ent", "d_mu", "d_value", "d_log_std")
+    gap, err = {}, 0.0
+    for name, g, w in zip(names, got, want):
+        diff = float((g.double() - w.double()).abs().max())
+        err = max(err, diff)
+        gap[name] = diff / scale.get(name, float(w.double().abs().max()))
+    whole = got[4]._base is not None and got[4]._base is got[5]._base
+    equal = all(torch.equal(x, y) for x, y in zip(got, again))
+    rows, A = mu.shape
+    shown = {k: float(f"{v:.3e}") for k, v in gap.items()}
+    print(f"ppo_gauss_loss vs plain {rows}x{A} (mu strides {mu.stride()}): "
+          f"|d| over scale {json.dumps(shown)}, max |d| {err:.3e}; "
+          f"the head product's gradient whole {whole}; two calls bit-equal "
+          f"{equal} (gate {LOSS_GATE}) {tag}", flush=True)
+    if max(gap.values()) > LOSS_GATE or not whole or not equal:
+        fail(f"ppo_gauss_loss differs from its plain version: {gap}, "
+             f"gradient whole {whole}, bit-equal {equal}")
+    return err
 
 
 def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
@@ -2117,8 +2208,9 @@ def ma_slice(tag: str, want_profile: bool):
     finally:
         shutil.rmtree(tables)
     launches = {w.__name__: w.launches for w in counted_wrappers()}
-    print(f"multi-agent slice: kernel launches {launches} (no kernel on "
-          f"this slice's path) {tag}", flush=True)
+    print(f"multi-agent slice: kernel launches {launches} (no env kernel "
+          f"on this slice's path; ppo_gauss_loss is the shared Gaussian "
+          f"policies' loss head) {tag}", flush=True)
     free_cuda()
 
 
@@ -3149,6 +3241,7 @@ def main() -> int:
     from sustaingym_tpu_torch.bench import HIDDEN, SIM_TIERS, TRAINERS
     from sustaingym_tpu_torch.ops.cuda import build
     from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
+    from sustaingym_tpu_torch.ops.cuda import ppo_loss as KL
     from sustaingym_tpu_torch.parallel import init_policy
 
     # plain versions are the oracle: full-f32 matmuls
@@ -3167,7 +3260,7 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("ev_rollout", "exog_gather", "cogen_rollout", "dc_rollout",
-               "lp_solve", "building_rollout")
+               "lp_solve", "building_rollout", "ppo_loss")
     build.load_libraries(sources, verbose=True)
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.3f} s {tag}", flush=True)
@@ -3285,9 +3378,16 @@ def main() -> int:
     if not (abs(z_mean) < 0.01 and abs(z_var - 1.0) < 0.01):
         fail("normal draws off")
 
+    # the PPO loss head at the EV trainer's minibatch rows
+    cfg, cfg0 = trainer_configs("EV")
+    loss_args = ppo_loss_inputs(cfg.num_envs * STEPS // cfg.minibatches, n,
+                                gen)
+    err["ppo_gauss_loss"] = check_ppo_loss(loss_args, tag)
+
     # ---- main path: counts from 0 -----------------------------------------
     K.ev_segment.launches = 0
     K.ev_policy_segment.launches = 0
+    KL.ppo_gauss_loss.launches = 0
 
     # ---- 5. simulation tier -----------------------------------------------
     sim_gen = torch.Generator(device=dev).manual_seed(11)
@@ -3299,13 +3399,23 @@ def main() -> int:
     del roll
 
     # ---- 6. trainer --------------------------------------------------------
-    cfg, cfg0 = trainer_configs("EV")
     run_trainer("EV", env, p, cfg, cfg0, 21, tag)
 
     launches = {"ev_segment": K.ev_segment.launches,
-                "ev_policy_segment": K.ev_policy_segment.launches}
+                "ev_policy_segment": K.ev_policy_segment.launches,
+                "ppo_gauss_loss": KL.ppo_gauss_loss.launches}
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
+    # one a minibatch (epochs x minibatches a step) and each trainer's one
+    # warm-up of its captured update: the two steps, then the lr=0 step
+    want_loss = (2 * cfg.epochs * cfg.minibatches + 1
+                 + cfg0.epochs * cfg0.minibatches + 1)
+    print(f"EV main path: ppo_gauss_loss launches {launches['ppo_gauss_loss']}"
+          f" over two train steps and the lr=0 step (required {want_loss}: "
+          f"{cfg.epochs * cfg.minibatches} a step) {tag}", flush=True)
+    if launches["ppo_gauss_loss"] != want_loss:
+        fail(f"ppo_gauss_loss launches {launches['ppo_gauss_loss']} on the "
+             f"EV main path, required {want_loss}")
     finish_trainer("EV", env, p, cfg, 21, tag, want_profile)
 
     # simulation-tier times, after the counts were read
@@ -3339,6 +3449,19 @@ def main() -> int:
     print(f"simulation tier {sim_batch}x{STEPS}: whole fused_rollout call "
           f"{sim_ms:.3f} ms (CUDA events) = {steps / sim_ms * 1e3:.0f} "
           f"env-steps/s {tag}", flush=True)
+
+    # the loss head at the check's inputs: mu and value read in place, u,
+    # logp_old, adv, ret and log_std read once, the gradient written once
+    loss_ms = device_ms(lambda: KL.ppo_gauss_loss(*loss_args),
+                        "ppo_gauss_loss_launch", 20)
+    loss_plain_ms = cuda_ms(lambda: KL.ppo_gauss_loss_ref(*loss_args), 3)
+    mu_l, ls_l, value_l, u_l, lp_l, adv_l, ret_l = loss_args[:7]
+    loss_bound = bound(2 * nbytes(mu_l, value_l)
+                       + nbytes(ls_l, u_l, lp_l, adv_l, ret_l))
+    print(f"ppo_gauss_loss {mu_l.shape[0]}x{mu_l.shape[1]}: kernel "
+          f"{loss_ms:.4f} ms (device, its three launches); plain "
+          f"{loss_plain_ms:.4f} ms; bound {loss_bound[0]:.4f} ms "
+          f"({loss_bound[1]}) {tag}", flush=True)
 
     # bounds at the main path's shapes (caltech, projection on)
     # mat-vecs with C, each 2 m2 n operations: ev_segment counts those it
@@ -3381,6 +3504,13 @@ def main() -> int:
         **kernels[2], "name": "hbm_slice_gather",
         "replaces": "sustaingym_tpu/ops/pallas/exog_gather.py:210"})
     kernels.append(ev_lockstep_slice(tag, want_profile))
+    kernels.append(
+        {"name": "ppo_gauss_loss", "route": "cuda",
+         "source": "sustaingym_tpu_torch/ops/cuda/csrc/ppo_loss.cu",
+         "replaces": None, "launches": launches["ppo_gauss_loss"],
+         "max_abs_err": err["ppo_gauss_loss"], "ms": loss_ms,
+         "plain_ms": loss_plain_ms, "bound_ms": loss_bound[0],
+         "bound_by": loss_bound[1], "library_ms": None})
     ma_slice(tag, want_profile)
     pdhg = next(k for k in kernels if k["name"] == "pdhg_solve_paired")
     pdhg["launches"] += off_policy_slice(tag, want_profile)

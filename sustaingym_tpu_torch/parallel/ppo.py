@@ -55,7 +55,9 @@ one of four ways, as in the JAX package:
   (n_agents, bins) logits, on the generic path.
 
 Either way, with lr=0 every ratio is exactly 1 (the exact-ratio invariant
-of the JAX package's tests).
+of the JAX package's tests); on a CUDA device the Gaussian heads that
+:func:`loss_fn` runs as one kernel pass sum the log-prob in another order
+than the scoring, so there the ratio is 1 up to float32 rounding.
 
 On a CUDA device a train step is the counterpart of the JAX package's one
 jitted program: the rollout's step loop (an episode's, or the generic
@@ -87,12 +89,14 @@ from ..core import (Discrete, MultiDiscrete, ScheduleGuard, dataclass,
                     tree_map)
 from ..core import trace
 from ..core.graph import Graphs, device_const, tree_leaves
+from ..ops.cuda.ppo_loss import fused_ppo_loss
 from .mesh import Mesh, mp_all_reduce
 
 __all__ = ["PPOConfig", "ActorCritic", "StackedActorCritic", "init_policy",
            "init_stacked_policy", "policy_apply", "policy_apply_bf16",
            "policy_apply_bf16_ref", "bf16_matmul",
-           "per_agent_apply", "default_act_transform", "gae", "loss_fn",
+           "per_agent_apply", "default_act_transform", "gae", "fused_head",
+           "loss_fn",
            "clip_by_global_norm", "make_train_step"]
 
 METRICS = ("pg_loss", "vf_loss", "entropy")
@@ -347,7 +351,9 @@ def policy_apply_bf16(policy: ActorCritic, obs: torch.Tensor
     for both the rollout's scoring and every update. On a CUDA device the
     three products (obs x trunk1, h1 x trunk2, h2 x [mu; value]) are bf16
     GEMMs with float32 output (:func:`bf16_matmul`), each weight cast to
-    bf16 once; elsewhere :func:`policy_apply_bf16_ref`."""
+    bf16 once, and ``mu`` and ``value`` are the two parts of the last
+    product plus its biases (views); elsewhere
+    :func:`policy_apply_bf16_ref`."""
     if obs.device.type != "cuda":
         return policy_apply_bf16_ref(policy, obs)
     bf = torch.bfloat16
@@ -358,11 +364,12 @@ def policy_apply_bf16(policy: ActorCritic, obs: torch.Tensor
     # both heads in one product: the hidden gradient is summed in float32
     # before its bf16 cast, as the plain version sums it
     heads = torch.cat([policy.mu.weight, policy.value.weight]).to(bf)
-    out = bf16_matmul(h.to(bf), heads)
+    out = bf16_matmul(h.to(bf), heads) + torch.cat([policy.mu.bias,
+                                                    policy.value.bias])
+    # mu and value stay views of the one product: the fused loss head
+    # (:func:`loss_fn`) reads them in place and returns its gradient whole
     act_dim = policy.mu.weight.shape[0]
-    mu = out[..., :act_dim] + policy.mu.bias
-    value = (out[..., act_dim:] + policy.value.bias)[..., 0]
-    return mu, policy.log_std, value
+    return out[..., :act_dim], policy.log_std, out[..., act_dim]
 
 
 def _gauss_logp(mu, log_std, a, mask=None):
@@ -480,6 +487,16 @@ class DpReduce:
         return dev / (torch.sqrt(var) + 1e-8)
 
 
+def fused_head(mu: torch.Tensor, cfg: PPOConfig, n_bins: int = 0,
+               mask=None, uma: bool = False,
+               red: DpReduce | None = None) -> bool:
+    """Whether :func:`loss_fn` runs its head as the fused kernel pass: a
+    Gaussian head (``n_bins`` 0) without mask, not the uniform-obs path, on
+    one rank, clipped PPO, with ``mu`` on a CUDA device."""
+    return (mu.device.type == "cuda" and not n_bins and mask is None
+            and not uma and red is None and cfg.algo == "ppo")
+
+
 def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig,
             apply=policy_apply_bf16, n_bins: int = 0, mask=None,
             uma: bool = False, red: DpReduce | None = None):
@@ -493,10 +510,21 @@ def loss_fn(policy: ActorCritic, batch: dict, cfg: PPOConfig,
     path's rows, ``u`` and ``logp`` (rows, n_agents) around one ``mu``,
     each row's advantage broadcast over its agents. ``red``: a dp rank's
     share of a global minibatch (:class:`DpReduce`); each returned term
-    is then this rank's part of the global one."""
+    is then this rank's part of the global one.
+
+    A Gaussian head without mask on one rank, clipped PPO, on a CUDA
+    device runs as one hand-written kernel pass, forward and gradient
+    together (``ops/cuda/ppo_loss.py``, :func:`fused_ppo_loss`, which
+    raises for head outputs it cannot take); every other head and any CPU
+    tensor runs the autograd chain below."""
     mean = torch.mean if red is None else red.mean
     param = (lambda x: x) if red is None else red.param_term
     mu, log_std, value = apply(policy, batch["obs"])
+    if fused_head(mu, cfg, n_bins, mask, uma, red):
+        loss, pg, vf, ent = fused_ppo_loss(
+            mu, log_std, value, batch["u"], batch["logp"], batch["adv"],
+            batch["ret"], cfg.clip_eps, cfg.vf_coef, cfg.ent_coef)
+        return loss, {"pg_loss": pg, "vf_loss": vf, "entropy": ent}
     ent_terms = log_std + 0.5 * math.log(2 * math.pi * math.e)
     if n_bins:
         logits = _logits(mu, n_bins)

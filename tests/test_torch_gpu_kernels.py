@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of sustaingym_tpu_torch.ops.cuda
 (ev_rollout with both projection operators, building_rollout,
-exog_gather, cogen_rollout, dc_rollout, lp_solve) against their plain
+exog_gather, cogen_rollout, dc_rollout, lp_solve, ppo_loss) against their plain
 PyTorch versions on the card, at a small size, and the captured trainers
 (the multi-agent ones too) and evaluation against their eager runs. Marked ``gpu``; each test skips
 when no CUDA device is present. On a card:
@@ -1264,3 +1264,93 @@ def test_two_gloo_ranks_on_the_card(cuda):
             for key in a:
                 assert b[key] == pytest.approx(a[key], rel=1e-3,
                                                abs=1e-5), key
+
+
+@pytest.mark.parametrize("ent_coef", [0.0, 0.01])
+@pytest.mark.parametrize("case", ["inside", "beyond", "at_bounds",
+                                  "const_adv"])
+@pytest.mark.parametrize("rows,act_dim,strided", [(24576, 54, True),
+                                                  (24576, 54, False),
+                                                  (1001, 7, True),
+                                                  (37, 1, True),
+                                                  (3001, 118, True),
+                                                  (64, 1024, True)])
+def test_ppo_loss_kernel_matches_plain_and_float64(cuda, rows, act_dim,
+                                                   strided, case, ent_coef):
+    """The fused PPO loss head (``ops/cuda/ppo_loss.py``) at the EV
+    trainer's minibatch (24576 x 54, ``mu`` a slice of the head product),
+    at ragged sizes, at widths beyond a warp's two columns a lane (118)
+    and at the kernel's widest (1024), against autograd through
+    ``loss_fn`` in float64 (its log(2 pi) as float32 rounds it, as the
+    kernel and the scoring take it) and, up to 64 wide, against the plain
+    version in float32: every output within 1e-5 of the float64
+    reference's scale (a gradient's largest entry; pg, vf and the loss
+    the mean of the absolute per-row terms). At the bounds each ratio is
+    the float32 bound itself, with the advantage's sign on the side where
+    the gradient is continuous (``tests/_ppo_loss_cases.py``)."""
+    from sustaingym_tpu_torch.ops.cuda import ppo_loss as KL
+    from tests._ppo_loss_cases import args_of, gaps, make_case, reference
+    c = make_case(case, rows, act_dim, ent_coef, strided,
+                  dtype=torch.float32, exact=False, seed=rows + act_dim)
+    want, scale = reference(c)
+    args = args_of(c, cuda)
+    assert args[0].is_contiguous() != strided
+    if case == "at_bounds":
+        # the card's expf puts every ratio on a float32 bound exactly
+        bounds = torch.tensor([0.8, 1.2], device=cuda)
+        assert bool(torch.isin(torch.exp(-args[4]), bounds).all())
+    before = KL.ppo_gauss_loss.launches
+    got = KL.ppo_gauss_loss(*args)
+    assert KL.ppo_gauss_loss.launches - before == 1
+    against = [gaps(got, want, scale)]
+    if act_dim <= 64:
+        # wider, the plain version's own float32 sum of the log-prob is
+        # 1e-5 to 7e-5 of the scale off float64 (the kernel's compensated
+        # sum is not), so the kernel answers to float64 alone
+        plain = KL.ppo_gauss_loss_ref(*args_of(c))
+        against.append(gaps(got, {k: v.double() for k, v in
+                                  zip(want, plain)}, scale))
+    for gap_of in against:
+        for name, gap in gap_of.items():
+            assert gap < 1e-5, (name, gap)
+
+
+def test_ppo_loss_kernel_is_bit_reproducible(cuda):
+    """Two calls on the same inputs give the same bits (no atomics: the
+    captured and eager train steps are compared bit for bit)."""
+    from sustaingym_tpu_torch.ops.cuda import ppo_loss as KL
+    from tests._ppo_loss_cases import args_of, make_case
+    c = make_case("beyond", 24576, 54, 0.01, True, dtype=torch.float32,
+                  exact=False)
+    args = args_of(c, cuda)
+    first = [x.clone() for x in KL.ppo_gauss_loss(*args)]
+    second = KL.ppo_gauss_loss(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("case", ["ev", "market_a2c", "ma_cogen"])
+def test_fused_loss_launches_per_train_step(cuda, tmp_path, case):
+    """Under a trace recording, one captured train step after the first
+    launches the fused loss head once a minibatch (epochs x minibatches)
+    for the fused EV trainer, and never for a categorical head (the
+    discrete market, A2C) or masked per-agent policies (MA cogen)."""
+    from sustaingym_tpu_torch.core import trace
+    from sustaingym_tpu_torch.parallel import PPOConfig, make_train_step
+    if case == "ma_cogen":
+        env, p, cfg = _ma_trainer(cuda, tmp_path, "cogen")
+    elif case == "ev":
+        env, p = make("evcharging", device=cuda)
+        cfg = PPOConfig(num_envs=64, hidden=64, minibatches=4, epochs=2,
+                        obs_bf16=True)
+    else:
+        env, p = make("electricitymarket", device=cuda, discrete=True)
+        cfg = PPOConfig(num_envs=64, hidden=64, minibatches=4, epochs=2,
+                        algo="a2c")
+    init_state, step = make_train_step(env, p, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    carry = init_state(gen)
+    carry, _ = step(carry, gen)
+    with trace.recording() as rec:
+        carry, _ = step(carry, gen)
+    launches = rec.snapshot()["launches"]["ppo_gauss_loss"]
+    assert launches == (cfg.epochs * cfg.minibatches if case == "ev" else 0)
