@@ -1,8 +1,9 @@
 """The readings that each limit of ``limits/<workload>.json`` is set from,
 on the card at the cell's own size, in one process:
 
-- the program's numbers on each of ``--seeds`` (set-up, a short window
-  where the driver samples its answers from one, the comparison);
+- the program's numbers on each of ``--seeds`` (set-up, a short window,
+  from which a driver that samples its answers draws them, the
+  comparison);
 - on ``--stand-in-seeds``, the same numbers with the reference standing
   in the program's place, computed at the control's lower precision (the
   configuration's ``controls``) and with each fault the cell can have
@@ -38,7 +39,7 @@ def main(argv=None) -> int:
                         help="which stand-ins to read on --stand-in-seeds: "
                         "'control' and the driver's faults (default all)")
     parser.add_argument("--seconds", type=float, default=2.0,
-                        help="window of a driver that samples its answers")
+                        help="seconds of the window before the comparison")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -61,8 +62,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         driver = drv_mod.Driver(config, mix, seed, dev)
         driver.setup(False)
-        if mix["driver"] == "sim_episodes":
-            driver.window(args.seconds)
+        driver.window(args.seconds)
         driver.release()
         gc.collect()
         torch.cuda.empty_cache()

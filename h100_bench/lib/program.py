@@ -1,19 +1,23 @@
 """The program's own spans and counters (``sustaingym_tpu_torch/core/
-trace.py``) over a pass appended to a traced run, for the per-layer
-metrics that read them.
+trace.py``) over a pass that each driver's traced run appends to its
+profiled window, for the per-layer metrics that read them.
 
-A metric's reader gets the run's ``ctx`` and no handle on the run's
-program, which the run has released before its readers. So the first
-reader that asks (:func:`of`) builds the cell's program again: a new
-driver of the cell's traffic mix, of the run's own class, configuration,
-mix, seed and device (read from the frame of the :func:`cell.run_cell`
-call that is reading its metrics), set up untraced. Its pass runs after
-the run's traced window, comparison and earlier readers, so nothing of
-theirs changes, and then:
+A traffic driver gives the pass what it needs of the driver:
 
-1. ``n`` units (``trace_steps`` whole train steps, ``trace_episodes``
-   episodes, each synchronised as the cell's window calls them) under
-   ``trace.recording()`` alone: the spans and counters;
+- ``unit()``: one unit of its work (a train step, an episode),
+  synchronised as its measured window calls it;
+- ``UNITS``: the traffic mix's key that counts the units of a pass
+  (``trace_steps``, ``trace_episodes``);
+- ``graphs``: the program's ``Graphs`` whose pool the pass reports, or
+  None where it has none;
+- ``mix`` and ``device``.
+
+Its ``traced()`` calls :func:`run` on itself once its own profiled
+window (and its timed launches, where it has them) is over, and returns
+the result under ``"program"``; ``cell.run_cell`` copies it into the
+``ctx`` that the readers get, where :func:`of` finds it. The pass:
+
+1. ``n`` units under ``trace.recording()`` alone: the spans and counters;
 2. one more unit under ``trace.recording()`` and ``torch.profiler`` (one:
    the profiler's trace of a train step holds ~170,000 kernels, and
    reading it back takes ~10 s): on a card, the device's idle time inside
@@ -22,83 +26,37 @@ theirs changes, and then:
    which the program's replay counters check that the trace lost no
    launch.
 
-The result is kept in ``ctx["program"]``: ``units``, ``light`` (pass 1's
-snapshot), ``profiled`` (pass 2's ``units``, ``snapshot``, ``idle_ms``
-{span name: [ms of each range]} or None off a card, ``graph_launches``)
-and ``pool_bytes`` (the trainer's ``Graphs.pool_bytes`` after the pass,
-None without one).
-It is None where ``ctx`` is not a run's or the program has no tracer (a
-checkout older than it): the readers then return None.
+The result: ``units``, ``light`` (pass 1's snapshot), ``profiled`` (pass
+2's ``units``, ``snapshot``, ``idle_ms`` {span name: [ms of each range]}
+or None off a card, ``graph_launches``) and ``pool_bytes`` (the driver's
+``graphs.pool_bytes`` after the pass, None without graphs). It is None
+where the program has no tracer (a checkout older than it): the readers
+then return None.
 """
 from __future__ import annotations
 
 import bisect
-import gc
-import sys
 
 from h100_bench.lib import devtime
 
-# each driver's unit of work, and the mix's count of units a pass
-UNITS = {"ppo_train": "trace_steps", "sim_episodes": "trace_episodes"}
 
-
-def of(ctx: dict) -> dict | None:
-    """The program's pass for this run (run once, kept in ``ctx``)."""
-    if "program" in ctx:
-        return ctx["program"]
-    ctx["program"] = None
-    run = _run_args() if {"config", "mix"} <= set(ctx) else None
-    if run is None or ctx["mix"]["driver"] not in UNITS:
-        return None
+def run(driver) -> dict | None:
+    """The program's pass on ``driver`` (see the module's docstring)."""
     try:
         from sustaingym_tpu_torch.core import trace
     except ImportError:
         return None
-    import torch
-    driver, seed, device = run
-    mix = ctx["mix"]
-    fresh = type(driver)(ctx["config"], mix, seed, device)
-    fresh.setup(False)
-    try:
-        # each unit synchronised, as the cell's window calls them
-        if mix["driver"] == "ppo_train":
-
-            def unit():
-                fresh.step(fresh.carry, fresh.gen)
-                _sync(fresh.device)
-            graphs = fresh.step.graphs
-        else:
-
-            def unit():
-                fresh.env.fused_rollout(fresh.params, mix["batch"],
-                                        mix["episode_steps"],
-                                        generator=fresh.gen)
-                _sync(fresh.device)
-            graphs = None
-        n = mix[UNITS[mix["driver"]]]
-        ctx["program"] = {
-            "units": n, "light": _light(trace, unit, n, fresh.device),
-            "profiled": _profiled(trace, unit, 1, fresh.device),
+    n = driver.mix[driver.UNITS]
+    light = _light(trace, driver.unit, n, driver.device)
+    profiled = _profiled(trace, driver.unit, 1, driver.device)
+    graphs = driver.graphs
+    return {"units": n, "light": light, "profiled": profiled,
             "pool_bytes": None if graphs is None else graphs.pool_bytes}
-    finally:
-        fresh.release()
-        gc.collect()
-        if torch.device(device).type == "cuda":
-            torch.cuda.empty_cache()
-    return ctx["program"]
 
 
-def _run_args():
-    """(driver, seed, device) of the ``cell.run_cell`` call up the stack,
-    or None."""
-    from h100_bench.lib import cell
-    f = sys._getframe(1)
-    while f is not None:
-        if f.f_code is cell.run_cell.__code__:
-            return f.f_locals["driver"], f.f_locals["seed"], \
-                f.f_locals["device"]
-        f = f.f_back
-    return None
+def of(ctx: dict) -> dict | None:
+    """The program's pass of the run whose readers' ``ctx`` this is."""
+    return ctx.get("program")
 
 
 def _sync(device) -> None:

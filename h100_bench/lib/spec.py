@@ -11,7 +11,9 @@ a new file and a new entry, never an edit:
 - ``metrics/<metric>.py``: the reader of one per-layer metric;
 - ``bounds/<metric>.json``: an end-to-end metric's bound and the sets'
   spreads it was set from (read by the tests);
-- ``reference/<name>.py``: a configuration's plain reference.
+- ``reference/<name>.py``: a configuration's plain reference;
+- ``small/<workload>.json``: the sizes the harness's CPU tests run a cell
+  at, and what its per-layer metrics read there.
 """
 from __future__ import annotations
 
@@ -56,6 +58,13 @@ def limits(name: str) -> dict:
     """{number: limit} of a workload's comparison."""
     return {k: v["limit"] for k, v in
             read_json(HERE, "limits", f"{_checked(name)}.json").items()}
+
+
+def small(name: str) -> dict:
+    """A workload's CPU sizes: ``small`` and ``tiny`` (traffic mix
+    overrides) and ``cpu_reads`` ({per-layer metric: its reading at the
+    tiny size, None for none})."""
+    return read_json(HERE, "small", f"{_checked(name)}.json")
 
 
 def module(kind: str, name: str):

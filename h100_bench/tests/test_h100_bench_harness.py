@@ -1,8 +1,9 @@
 """CPU tests of the benchmark harness (``h100_bench/``): discovery by name,
 the names' and units' characters, which cell reports which metric, the
 result line, the imports, and the comparison against the program's CPU
-path (the plain versions of its kernels) at a small size: sound runs pass,
-the lower-precision control and each planted fault fail.
+path (the plain versions of its kernels) at each cell's small size
+(``small/<cell>.json``): sound runs pass, the lower-precision control and
+each planted fault fail.
 
     python -m pytest h100_bench/tests -q              # here, on the CPU
     python -m pytest h100_bench/tests -q -m gpu       # on the card
@@ -29,16 +30,13 @@ from h100_bench.lib import cell, spec  # noqa: E402
 BENCH = spec.benchmark(ROOT)
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRICS = [m["name"] for m in BENCH["per_layer"]]
-# the small sizes the CPU runs each cell at
-SMALL = {"ev-ppo-train": dict(num_envs=16, minibatches=8, epochs=2,
-                              check_steps=2),
-         "ev-sim": dict(batch=16, check_episodes=1)}
 CPU = torch.device("cpu")
 
 
 def run_small(name, seed=11, faults=(), trace=False):
     return cell.run_cell(BENCH, name, seed, 0.2, trace, CPU,
-                         time.perf_counter(), overrides=SMALL[name],
+                         time.perf_counter(),
+                         overrides=spec.small(name)["small"],
                          faults=faults, log=lambda m: None)
 
 
@@ -52,7 +50,12 @@ def test_discovery_by_name(name):
     assert spec.module("reference", config["reference"]).Reference
     assert set(spec.limits(name))
     assert mix["driver"] in config["controls"]
-    assert name in SMALL
+    small = os.path.join(HERE, "small", f"{name}.json")
+    assert os.path.exists(small), (
+        f"cell {name} has no CPU sizes: add h100_bench/small/{name}.json "
+        "with 'small' and 'tiny' overrides of its traffic mix and its "
+        "'cpu_reads'")
+    assert {"small", "tiny", "cpu_reads"} <= set(spec.small(name))
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -80,7 +83,7 @@ def test_names_units_and_shape_of_benchmark_json():
         assert os.path.exists(os.path.join(ROOT, c["file"]))
         assert c["file"].startswith("h100_bench/")
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     assert "setup_s" in {m["name"] for m in BENCH["end_to_end"]}
     assert os.path.getsize(os.path.join(ROOT, "BENCHMARK.json")) < 65536
 
@@ -116,7 +119,7 @@ def test_a_run_loads_no_jax():
             "from h100_bench.lib import cell, spec\n"
             "line = cell.run_cell(spec.benchmark(%r), 'ev-sim', 3, 0.1, False,"
             " torch.device('cpu'), time.perf_counter(),"
-            " overrides=dict(batch=4, check_episodes=1), log=lambda m: None)\n"
+            " overrides=spec.small('ev-sim')['tiny'], log=lambda m: None)\n"
             "print(line['correct'], cell.forbidden_modules())\n"
             ) % (ROOT, ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -168,15 +171,17 @@ def test_reference_agrees_with_the_programs_cpu_path(name):
 def control_against_limits(name, device, sizes, seed=7):
     """(the program's numbers, the control's) at ``sizes``, the reference
     computed at the control's lower precision standing in the program's
-    place."""
+    place. Every driver runs as a run runs it: set-up, then a short
+    ``window`` (a driver that samples its answers from the window draws
+    them there; one that records them in set-up runs on past them), then
+    ``release`` and the comparison."""
     w = spec.workload(BENCH, name)
     config = spec.config(w["config"])
     mix = dict(spec.traffic(w["traffic"]), **sizes)
     driver = spec.module("traffic", mix["driver"]).Driver(config, mix, seed,
                                                           device)
     driver.setup(False)
-    if mix["driver"] == "sim_episodes":
-        driver.window(0.2)
+    driver.window(0.2)
     driver.release()
     numbers, _ = driver.check(spec.module("reference", config["reference"]))
     return numbers, driver.stand_in(prec=config["controls"][mix["driver"]])
@@ -187,8 +192,8 @@ def test_control_in_the_programs_place_is_not_correct():
     (the fp8 actor). The simulation tier's TF32 control shows only at the
     cell's own size (a quantised pilot that flips in a few of 65536 env
     episodes), so it is the card's test below."""
-    numbers, control = control_against_limits("ev-ppo-train", CPU,
-                                              SMALL["ev-ppo-train"])
+    numbers, control = control_against_limits(
+        "ev-ppo-train", CPU, spec.small("ev-ppo-train")["small"])
     limits = spec.limits("ev-ppo-train")
     assert all(v <= limits[k] for k, v in numbers.items()), numbers
     assert any(v > limits[k] for k, v in control.items()), control
@@ -267,37 +272,85 @@ def test_a_module_loaded_after_the_window_withholds_the_result(tmp_path):
                                "moves": "sim_env_steps_per_s",
                                "workloads": ["ev-sim"]})
     loaded, line = run_in_copy(tmp_path, bench, "ev-sim",
-                               dict(batch=4, check_episodes=1,
-                                    trace_episodes=2))
+                               spec.small("ev-sim")["tiny"])
     assert loaded == ["sustaingym_tpu"] and line is None
 
 
+# a new driver: the simulation tier's episodes, each unit of the
+# program's pass inside a span of the driver's own
+DUMMY_DRIVER = '''"""Traffic driver dummy_episodes (a test's)."""
+from sustaingym_tpu_torch.core import trace
+
+from h100_bench.traffic import sim_episodes
+
+FAULTS = STAND_IN_FAULTS = sim_episodes.FAULTS
+
+
+class Driver(sim_episodes.Driver):
+    def unit(self):
+        with trace.span("dummy.unit"):
+            super().unit()
+'''
+# its reader: the span's mean host time over the program's pass
+DUMMY_READER = '''from h100_bench.lib import program
+
+
+def read(ctx):
+    p = program.of(ctx)
+    if p is None:
+        return None
+    return program.mean([s["host_ms"] for s in
+                         program.spans(p["light"], "dummy.unit")])
+'''
+
+
 def test_a_new_cell_and_metric_are_new_files_only(tmp_path):
-    """A dummy configuration, cell, traffic mix, limits file and
-    per-layer metric added to a copy as new files and new entries, and
-    run there."""
+    """A dummy configuration, cell, traffic mix with a new driver, limits
+    file, CPU sizes and a per-layer metric that reads the driver's own
+    program span, added to a copy as new files and new entries: the cell
+    runs traced there and the metric reads a number, and the copy's own
+    tests, parametrised by cell and metric, take the dummy with no edit."""
     base, bench = copy_of_the_benchmark(tmp_path)
-    mix = dict(spec.traffic("sim-32768x288"), batch=8, check_episodes=1,
-               trace_episodes=2)
-    (base / "traffic" / "sim-8x288.json").write_text(json.dumps(mix))
-    (base / "configs" / "dummy-ev.json").write_text(
-        (base / "configs" / "ev-caltech.json").read_text())
-    (base / "limits" / "dummy-sim.json").write_text(
+    (base / "traffic" / "dummy_episodes.py").write_text(DUMMY_DRIVER)
+    mix = dict(spec.traffic("sim-32768x288"), driver="dummy_episodes")
+    (base / "traffic" / "dummy-32768x288.json").write_text(json.dumps(mix))
+    config = spec.config("ev-caltech")
+    config["controls"]["dummy_episodes"] = config["controls"]["sim_episodes"]
+    (base / "configs" / "dummy-ev.json").write_text(json.dumps(config))
+    (base / "limits" / "dummy-cell.json").write_text(
         (base / "limits" / "ev-sim.json").read_text())
-    (base / "metrics" / "dummy.episodes.py").write_text(
-        "def read(ctx):\n    return float(ctx['attempted'])\n")
+    sizes = dict(spec.small("ev-sim"), cpu_reads={})
+    (base / "small" / "dummy-cell.json").write_text(json.dumps(sizes))
+    (base / "metrics" / "dummy.unit_ms.py").write_text(DUMMY_READER)
     bench["configs"].append(dict(bench["configs"][0], name="dummy-ev",
                                  file="h100_bench/configs/dummy-ev.json"))
-    bench["workloads"].append({"name": "dummy-sim", "config": "dummy-ev",
-                               "traffic": "sim-8x288", "chips": 1,
+    bench["workloads"].append({"name": "dummy-cell", "config": "dummy-ev",
+                               "traffic": "dummy-32768x288", "chips": 1,
                                "why": "a test"})
-    bench["per_layer"].append({"name": "dummy.episodes", "unit": "1",
-                               "better": "higher", "source": "host_clock",
+    bench["per_layer"].append({"name": "dummy.unit_ms", "unit": "ms",
+                               "better": "lower", "source": "program_span",
                                "layer": "test", "moves": "setup_s",
-                               "workloads": ["dummy-sim"]})
-    loaded, line = run_in_copy(tmp_path, bench, "dummy-sim")
+                               "workloads": ["dummy-cell"]})
+    loaded, line = run_in_copy(tmp_path, bench, "dummy-cell", sizes["tiny"])
     assert loaded == []
-    assert line["correct"] and line["metrics"]["dummy.episodes"]["value"] > 0
+    assert line["correct"] and line["metrics"]["dummy.unit_ms"]["value"] > 0
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "h100_bench/tests", "-v",
+         "-p", "no:cacheprovider", "-m", "not gpu",
+         "-k", "dummy and not new_files_only"],
+        capture_output=True, text=True, timeout=600, cwd=tmp_path)
+    assert out.returncode == 0, out.stdout[-3000:]
+    passed = {ln.split("::")[-1].split(" ")[0]
+              for ln in out.stdout.splitlines() if " PASSED" in ln}
+    faults = [f"test_each_fault_in_the_program_is_caught[dummy-cell-{f}]"
+              for f in spec.module("traffic", "sim_episodes").FAULTS]
+    assert passed >= {
+        "test_discovery_by_name[dummy-cell]",
+        "test_metric_readers_found[dummy.unit_ms]",
+        "test_each_cell_reports_what_its_metrics_move[dummy-cell]",
+        "test_reference_agrees_with_the_programs_cpu_path[dummy-cell]",
+        "test_windows_run_untraced_and_the_program_pass_after[dummy-cell]",
+        *faults}, out.stdout[-3000:]
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["end_to_end"]])

@@ -1,8 +1,9 @@
 """CPU tests of the per-layer metrics that read the program's own spans
 and counters (``lib/program.py``): each reader's number from a fixture
-``ctx``, None where the run has no ``program``; the cells' own traced
-window and untraced window run with tracing off, and the program's pass
-after them, while a program without a tracer gives None and no error.
+``ctx``, None where the run has no ``program``; each cell's untraced
+window and its driver's profiled window run with tracing off, and the
+program's pass inside the driver's ``traced()`` after its profiled
+window, while a program without a tracer gives None and no error.
 
     python -m pytest h100_bench/tests -q
 """
@@ -22,10 +23,8 @@ sys.path.insert(0, ROOT)
 from h100_bench.lib import cell, program, spec  # noqa: E402
 
 BENCH = spec.benchmark(ROOT)
+CELLS = [w["name"] for w in BENCH["workloads"]]
 CPU = torch.device("cpu")
-TINY = {"ev-ppo-train": dict(num_envs=8, minibatches=2, epochs=1,
-                             check_steps=1, trace_steps=1),
-        "ev-sim": dict(batch=8, check_episodes=1, trace_episodes=1)}
 
 
 def _span(name, parent, host_ms, device_ms=None):
@@ -95,43 +94,84 @@ def test_each_new_reader_has_its_entry():
                                   else ["ev-ppo-train"])
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", CELLS)
 def test_windows_run_untraced_and_the_program_pass_after(name, monkeypatch):
-    """The driver's traced pass and its measured window see tracing off;
-    the program's pass comes after them and reads the counters the CPU
-    path has (one kernel seed read a step or an episode: the range check
-    is the card's)."""
+    """The driver's measured window and its profiled window see tracing
+    off; the program's pass runs inside ``traced()`` after that profiled
+    window, over the mix's count of units, and the traced line reads what
+    the cell's ``small/<cell>.json`` says the CPU path reads (None: no
+    number off a card)."""
+    import torch.profiler
     from sustaingym_tpu_torch.core import trace
-    mix = spec.traffic(spec.workload(BENCH, name)["traffic"])
+    sizes = spec.small(name)
+    mix = dict(spec.traffic(spec.workload(BENCH, name)["traffic"]),
+               **sizes["tiny"])
     Driver = spec.module("traffic", mix["driver"]).Driver
-    seen = []
-    for method in ("window", "traced"):
-        real = getattr(Driver, method)
+    seen, passes = [], []
 
-        def checked(self, seconds, real=real, method=method):
-            seen.append((method, trace.active()))
-            return real(self, seconds)
-        monkeypatch.setattr(Driver, method, checked)
+    def wrap(owner, attr, out=None):
+        real = getattr(owner, attr)
+
+        def called(*args, **kwargs):
+            seen.append((attr, trace.active()))
+            got = real(*args, **kwargs)
+            seen.append(("/" + attr, None))
+            if out is not None:
+                out.append(got)
+            return got
+        monkeypatch.setattr(owner, attr, called)
+    for method in ("window", "traced"):
+        wrap(Driver, method)
+    wrap(program, "run", passes)
+    wrap(torch.profiler, "profile")
     for traced in (False, True):
         line = cell.run_cell(BENCH, name, 2 ** 31 + 3, 0.1, traced, CPU,
-                             time.perf_counter(), overrides=TINY[name],
+                             time.perf_counter(), overrides=sizes["tiny"],
                              log=lambda m: None)
-    assert seen == [("window", None), ("traced", None)]
-    syncs = ("sim.host_syncs_per_episode" if name == "ev-sim"
-             else "learner.host_syncs_per_step")
-    assert line["metrics"][syncs]["value"] == 1.0
-    # CPU runs give no device number
-    assert "learner.update_idle_ms" not in line["metrics"]
-    assert "learner.update_device_ms" not in line["metrics"]
+    calls = [tag for tag, _ in seen if tag != "/profile"]
+    assert calls == ["window", "/window", "traced", "profile", "run",
+                     "profile", "/run", "/traced"], calls
+    assert all(rec is None for _, rec in seen), seen
+    assert passes[0]["units"] == mix[Driver.UNITS]
+    for metric, want in sizes["cpu_reads"].items():
+        if want is None:
+            assert metric not in line["metrics"], metric
+        else:
+            assert line["metrics"][metric]["value"] == want, metric
 
 
-def test_a_program_without_the_tracer_gives_none(monkeypatch):
+@pytest.fixture
+def no_tracer(monkeypatch):
+    """The program as a checkout without ``core/trace.py`` has it."""
     import sustaingym_tpu_torch.core as core
+    from sustaingym_tpu_torch.core import trace  # noqa: F401
     monkeypatch.delattr(core, "trace")
     monkeypatch.setitem(sys.modules, "sustaingym_tpu_torch.core.trace",
                         None)
+
+
+def test_a_driver_without_the_tracer_gives_no_program(no_tracer):
+    """A driver whose program has no tracer: its pass is None, so its
+    traced run returns ``"program": None``, and every reader of the
+    program's pass returns None."""
+
+    class Stub:
+        UNITS, mix, device, graphs = "n", {"n": 2}, CPU, None
+
+        def unit(self):
+            raise AssertionError("a unit ran without a tracer")
+    assert program.run(Stub()) is None
+    readers = [spec.module("metrics", m["name"]) for m in BENCH["per_layer"]]
+    readers = [r for r in readers if getattr(r, "program", None) is program]
+    assert readers
+    for reader in readers:
+        assert reader.read({"extras": {}, "program": None}) is None
+
+
+def test_a_program_without_the_tracer_gives_none(no_tracer):
     line = cell.run_cell(BENCH, "ev-sim", 5, 0.1, True, CPU,
-                         time.perf_counter(), overrides=TINY["ev-sim"],
+                         time.perf_counter(),
+                         overrides=spec.small("ev-sim")["tiny"],
                          log=lambda m: None)
     assert line["correct"]
     assert not set(line["metrics"]) & {"sim.host_syncs_per_episode",

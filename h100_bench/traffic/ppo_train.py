@@ -10,7 +10,8 @@ synchronised, and counts ``num_envs x rollout_len`` env-steps a step.
 
 The traced run drives the step's three phases apart, each synchronised
 (``train_step.rollout``, ``.score``, ``.update``, as the program exposes
-them), under ``torch.profiler``.
+them), under ``torch.profiler``; then the program's pass
+(``lib/program.py``) of whole train steps on the same trainer.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import time
 
 import torch
 
-from h100_bench.lib import compare, devtime
+from h100_bench.lib import compare, devtime, program
 from h100_bench.reference import ppo as ref_ppo
 
 FAULTS = ("frozen_state", "half_batch", "altered_reward")
@@ -29,6 +30,8 @@ LAUNCH = ("ev_policy_segment", "ev_policy_segment_launch")
 
 
 class Driver:
+    UNITS = "trace_steps"       # the mix's count of train steps a pass
+
     def __init__(self, config: dict, mix: dict, seed: int, device,
                  faults=()):
         self.config, self.mix, self.seed = config, mix, seed
@@ -133,8 +136,20 @@ class Driver:
         return {"attempted": len(times), "step_s": times,
                 "metrics": {"train_env_steps_per_s": rate}}
 
+    def unit(self) -> None:
+        """One train step, synchronised as the window calls it (the
+        program's pass)."""
+        self.step(self.carry, self.gen)
+        _sync(self.device)
+
+    @property
+    def graphs(self):
+        """The train step's ``Graphs`` (None where it captures none)."""
+        return self.step.graphs
+
     def traced(self, seconds: float) -> dict:
-        """``trace_steps`` steps, phase by phase, under the profiler."""
+        """``trace_steps`` steps, phase by phase, under the profiler; then
+        the program's pass of as many whole steps."""
         from torch.profiler import profile, record_function
         carry, gen, step, dev = self.carry, self.gen, self.step, self.device
         policy, opt = carry["policy"], carry["opt"]
@@ -167,7 +182,8 @@ class Driver:
                 "graphs": None if graphs is None else {
                     "warmup_s": graphs.warmup_s,
                     "capture_s": graphs.capture_s},
-                "kernel_ms": {LAUNCH[0]: self.kernel_ms}}
+                "kernel_ms": {LAUNCH[0]: self.kernel_ms},
+                "program": program.run(self)}
 
     def release(self) -> None:
         """Drops the program's state before the reference runs."""

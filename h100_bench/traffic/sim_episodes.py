@@ -12,7 +12,8 @@ comparison.
 
 The traced run profiles ``trace_episodes`` episodes, then times as many
 with CUDA events around the kernel's C entry point, and the reservoir
-draws from those.
+draws from those; then the program's pass (``lib/program.py``) of as
+many episodes, which the reservoir does not draw from.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from h100_bench.lib import compare, devtime
+from h100_bench.lib import compare, devtime, program
 
 FAULTS = ("frozen_state", "half_batch", "altered_output")
 STAND_IN_FAULTS = FAULTS
@@ -30,6 +31,9 @@ LAUNCH = ("ev_segment", "ev_segment_launch")
 
 
 class Driver:
+    UNITS = "trace_episodes"    # the mix's count of episodes a pass
+    graphs = None               # the tier captures no CUDA graph
+
     def __init__(self, config: dict, mix: dict, seed: int, device,
                  faults=()):
         self.config, self.mix, self.seed = config, mix, seed
@@ -114,6 +118,12 @@ class Driver:
                             "sim_episode_p95_ms": float(np.percentile(
                                 np.asarray(times) * 1e3, 95))}}
 
+    def unit(self) -> None:
+        """One episode, synchronised as the window calls it (the
+        program's pass)."""
+        self._episode()
+        _sync(self.device)
+
     def traced(self, seconds: float) -> dict:
         from torch.profiler import profile, record_function
         dev, n = self.device, self.mix["trace_episodes"]
@@ -132,7 +142,8 @@ class Driver:
                 state = self.gen.get_state()
                 self._keep(i, state, self._episode())
         return {"attempted": 2 * n, "trace": trace,
-                "kernel_ms": {LAUNCH[0]: devtime.span_ms(spans)}}
+                "kernel_ms": {LAUNCH[0]: devtime.span_ms(spans)},
+                "program": program.run(self)}
 
     def release(self) -> None:
         getattr(self, "restore", lambda: None)()
