@@ -1,5 +1,6 @@
 """Spans and counters inside the port's hot paths: the PPO train step, its
-CUDA graph replays and the EV episode kernels' callers.
+CUDA graph replays, the EV episode kernels' callers and the market's
+lockstep rollout.
 
 Tracing is off unless code turns it on, and nothing else (no option, no
 environment variable) does::
@@ -22,8 +23,12 @@ of its name, so that under the profiler the device trace's host ranges
 are the program's spans.
 
 Counters are dotted names: ``graphs.replays.<slot>`` (the replays of each
-:class:`core.graph.Graphs` slot) and ``host_syncs.<site>`` (each read of
-a device value by the host on the traced paths). The snapshot also holds
+:class:`core.graph.Graphs` slot), ``host_syncs.<site>`` (each read of
+a device value by the host on the traced paths; the market's lockstep
+rollout has none) and ``market.solves``, ``market.pdhg_iters`` (the SCED
+solves of the market's lockstep episodes and their PDHG iterations,
+counted on the host from the lockstep budgets: 288 and 200 + 287 x 40 =
+11,680 an episode at the defaults). The snapshot also holds
 the ``launches`` that each kernel wrapper registered with
 :func:`core.graph.count_launches` added while the recording was open.
 
@@ -34,7 +39,10 @@ update's permutations, run eagerly); ``graphs.replay`` (a
 ``ev.fused_rollout`` (device, one EV episode of a fused kernel) and its
 child ``ev.prelaunch``, from the episode's entry to its kernel's launch
 (the reset day draws, the seed read, the range check), closed by the
-kernel wrapper (:func:`end`).
+kernel wrapper (:func:`end`); ``market.start`` (host: an eager episode
+start of the market's ``batch_unroll``, the reset draws, state and obs)
+and ``market.episode`` (device: one episode's step loop, a graph replay
+with its input copies where the rollout has graphs).
 """
 from __future__ import annotations
 

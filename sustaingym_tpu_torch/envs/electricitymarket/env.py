@@ -38,6 +38,7 @@ import torch
 from ...core import (Box, DictSpace, Discrete, FunctionalEnv, TimeStep,
                      dataclass, draw_env_rows, replace, resolve_device,
                      tree_stack)
+from ...core import trace
 from ...core.graph import device_const
 from ...core.rollout import episode_loop, join_episodes
 from ...ops import lp
@@ -428,28 +429,42 @@ class ElectricityMarketEnv(FunctionalEnv[MarketParams, MarketState]):
         operands); its step loop (:meth:`_episode_steps`) is one replay of
         a CUDA graph in ``graphs`` when given
         (:func:`core.rollout.episode_loop`), solve launches included,
-        which the result then holds until the graph's next replay."""
+        which the result then holds until the graph's next replay.
+
+        Traced (:mod:`core.trace`): each start is a ``market.start`` host
+        span, each episode's step loop a ``market.episode`` device span,
+        and each episode adds its solves and their PDHG iterations to
+        ``market.solves`` and ``market.pdhg_iters``. Nothing on this path
+        reads the card."""
         from ...ops.cuda.lp_solve import pack_pdhg_operands
 
         L = T_STEPS
-        kops = params.kops
-        if kops is None and uses_solve_kernel(params):
-            kops = pack_pdhg_operands(params.op)
-        state, ts = self._episode_start(params, 0, batch, generator, days)
+        with trace.span("market.start"):
+            kops = params.kops
+            if kops is None and uses_solve_kernel(params):
+                kops = pack_pdhg_operands(params.op)
+            state, ts = self._episode_start(params, 0, batch, generator,
+                                            days)
         obs, parts = ts.obs, []
         for ep, t0 in enumerate(range(0, num_steps, L)):
             seg = min(L, num_steps - t0)
-            traj = episode_loop(
-                graphs, partial(self._episode_steps, params, policy,
-                                policy_params, seg, generator),
-                state, obs, kops, generator=generator,
-                clone=t0 + seg < num_steps)
+            with trace.span("market.episode", params.device):
+                traj = episode_loop(
+                    graphs, partial(self._episode_steps, params, policy,
+                                    policy_params, seg, generator),
+                    state, obs, kops, generator=generator,
+                    clone=t0 + seg < num_steps)
+            # the lockstep budgets, known on the host: one solve a step
+            trace.count("market.solves", seg)
+            trace.count("market.pdhg_iters",
+                        params.op.iters + (seg - 1) * params.lp_warm_iters)
             if seg == L:
-                state, ts_r = self._episode_start(params, ep + 1, batch,
-                                                  generator, days)
-                obs = ts_r.obs
-                for k, v in obs.items():
-                    traj.obs[k][-1] = v
+                with trace.span("market.start"):
+                    state, ts_r = self._episode_start(params, ep + 1, batch,
+                                                      generator, days)
+                    obs = ts_r.obs
+                    for k, v in obs.items():
+                        traj.obs[k][-1] = v
             parts.append(traj)
         return join_episodes(parts)
 
