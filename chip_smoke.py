@@ -44,13 +44,21 @@ Slice 1, PPO on EVChargingEnv with the action projection on:
    trainer's minibatch (24576 x 54, ``mu`` and ``value`` the strided
    parts of one (24576, 55) head product, ratios across both sides of
    the clip, both signs of the advantage): each output within
-   ``LOSS_GATE`` of its scale (``check_ppo_loss``);
+   ``LOSS_GATE`` of its scale (``check_ppo_loss``); then ``ppo_trunk``,
+   the trunk's glue passes, vs their plain versions on the same card
+   tensors at the trainer's minibatch (24576 x 256, the second pass of
+   the backward with the 146-wide obs copy): y, h, d, hf and the copy
+   bit-equal, the bias sums within ``TRUNK_GATE`` of each column's sum
+   of |d|, two calls bit-equal (``check_ppo_trunk``);
 5. simulation tier: ``EVChargingEnv.fused_rollout`` at 32768 x 288,
    projection on;
 6. trainer: two PPO train steps at 8192 envs x 288 steps, H = 256, bf16
    obs, 96 minibatches, 4 epochs; then the lr=0 exact-ratio check;
    ``ppo_gauss_loss``'s launches over both must be one a minibatch plus
    one warm-up for each trainer's captured update (2 x 384 + 1 and 4 + 1);
+   ``ppo_trunk``'s four a minibatch and two a scoring, with each
+   trainer's warm-ups of its captured update and scoring (2 x 1538 + 6
+   and 18 + 6);
    then the kernels' device time (CUDA events around the kernel's C
    entry point, ``device_ms``; the loss head's at the check's inputs),
    the whole
@@ -385,6 +393,10 @@ DP_GATE = (1e-3, 1e-5)
 # the sum of its absolute terms), as tests/test_torch_gpu_kernels.py holds
 # it against float64
 LOSS_GATE = 1e-5
+# the trunk's bias sums against the plain version's ``sum(0)`` on the same
+# float32 gradient: |d| within TRUNK_GATE of the column's sum of |d| (the
+# two sum in other orders; the elementwise outputs are held bit-equal)
+TRUNK_GATE = 1e-5
 COGEN_STEPS, COGEN_CHECK = 96, 4096
 DC_STEPS, DC_CHECK = 672, 4096
 MKT_STEPS = 288
@@ -878,6 +890,97 @@ def check_ppo_loss(args: tuple, tag: str) -> float:
         fail(f"ppo_gauss_loss differs from its plain version: {gap}, "
              f"gradient whole {whole}, bit-equal {equal}")
     return err
+
+
+def trunk_inputs(rows: int, H: int, D: int, gen) -> tuple:
+    """The trunk passes' operands at ``rows`` x ``H`` on the card: a GEMM
+    output ``a`` and bias for the forward; for the backward a product
+    ``p`` over three decades of magnitude, a saved activation ``y`` in
+    (-1, 1) and a bf16 obs block ``x`` (rows, D) to copy."""
+    import torch
+    dev = gen.device
+    a = 2.0 * torch.randn((rows, H), generator=gen, device=dev)
+    bias = torch.randn((H,), generator=gen, device=dev)
+    p = torch.randn((rows, H), generator=gen, device=dev) * torch.exp(
+        3.0 * torch.randn((rows, H), generator=gen, device=dev))
+    y = torch.tanh(2.0 * torch.randn((rows, H), generator=gen, device=dev))
+    x = torch.randn((rows, D), generator=gen, device=dev).bfloat16()
+    return a, bias, p, y, x
+
+
+def check_ppo_trunk(args: tuple, tag: str) -> float:
+    """``ppo_trunk``'s passes against their plain versions on the same
+    card tensors: the forward pass with and without the kept ``y`` (y and
+    h bit-equal), the backward pass with the obs copy (d, hf and the copy
+    bit-equal, the bias sums within ``TRUNK_GATE`` of each column's sum
+    of |d|), two calls bit-equal. Returns the bias sums' largest |d|."""
+    import torch
+    from sustaingym_tpu_torch.ops.cuda import ppo_trunk as KT
+    a, bias, p, y, x = args
+    equal, same = {}, True
+    for keep in (True, False):
+        got = KT.trunk_forward(a.clone(), bias, keep)
+        again = KT.trunk_forward(a.clone(), bias, keep)
+        want = KT.trunk_forward_ref(a.clone(), bias, keep)
+        equal["h" if keep else "h (no y)"] = torch.equal(got[1], want[1])
+        if keep:
+            equal["y"] = torch.equal(got[0], want[0])
+        else:
+            equal["no y"] = got[0] is None
+        same = same and all(u is v or torch.equal(u, v)
+                            for u, v in zip(got, again))
+    got = KT.trunk_backward(p.clone(), y.clone(), x)
+    again = KT.trunk_backward(p.clone(), y.clone(), x)
+    want = KT.trunk_backward_ref(p.clone(), y.clone(), x)
+    for i, name in ((0, "d"), (2, "hf"), (3, "x copy")):
+        equal[name] = torch.equal(got[i], want[i])
+    same = same and all(torch.equal(u, v) for u, v in zip(got, again))
+    gap = (got[1] - want[1]).abs()
+    rel = float((gap / want[0].abs().sum(0)).max())
+    err = float(gap.max())
+    rows, H = p.shape
+    print(f"ppo_trunk vs plain {rows}x{H} (obs copy {tuple(x.shape)}): "
+          f"bit-equal {json.dumps(equal)}; bias sums max |d| {err:.3e}, "
+          f"over the column's sum of |d| {rel:.3e} (gate {TRUNK_GATE}); "
+          f"two calls bit-equal {same} {tag}", flush=True)
+    if not all(equal.values()) or rel > TRUNK_GATE or not same:
+        fail(f"ppo_trunk differs from its plain version: {equal}, bias "
+             f"sums {rel:.3e}, bit-equal {same}")
+    return err
+
+
+# a minibatch's trunk passes: two forward passes that keep y, the second
+# layer's backward pass and the first layer's with the obs copy
+TRUNK_MINIBATCH = {"forward_keep": 2, "backward": 1, "backward_obs": 1}
+
+
+def trunk_times(args: tuple) -> dict:
+    """Each trunk pass at ``args``' shapes (``trunk_inputs``): its device
+    time (``device_ms`` of its C entry point), its plain version's (CUDA
+    events) and its bytes' least time (each operand read once, each
+    output written once), and the forward pass without y (the
+    scoring's)."""
+    from sustaingym_tpu_torch.ops.cuda import ppo_trunk as KT
+    a, bias, p, y, x = args
+    f32, bf = nbytes(a), nbytes(a) // 2
+    cases = {
+        "forward_keep": (lambda: KT.trunk_forward(a, bias, True),
+                         lambda: KT.trunk_forward_ref(a, bias, True),
+                         "ppo_trunk_forward_launch", 2 * f32 + bf),
+        "forward": (lambda: KT.trunk_forward(a, bias, False),
+                    lambda: KT.trunk_forward_ref(a, bias, False),
+                    "ppo_trunk_forward_launch", f32 + bf),
+        "backward": (lambda: KT.trunk_backward(p, y),
+                     lambda: KT.trunk_backward_ref(p, y),
+                     "ppo_trunk_backward_launch", 4 * f32),
+        "backward_obs": (lambda: KT.trunk_backward(p, y, x),
+                         lambda: KT.trunk_backward_ref(p, y, x),
+                         "ppo_trunk_backward_launch",
+                         4 * f32 + 3 * nbytes(x))}
+    return {name: {"ms": device_ms(kernel, launch, 50),
+                   "plain_ms": cuda_ms(plain, 20),
+                   "bound_ms": bound(n_bytes)[0]}
+            for name, (kernel, plain, launch, n_bytes) in cases.items()}
 
 
 def run_trainer(label: str, env, p, cfg, cfg0, seed: int, tag: str,
@@ -2571,13 +2674,13 @@ def profile_off_policy(tag: str):
 def bf16_gemm_gate(tag: str):
     """Phase 37: the PPO learner's three bf16-valued products at the EV
     trainer's minibatch rows (8192 x 288 / 96), H = 256: the bf16 GEMM
-    with float32 output (``ppo.bf16_matmul``) and the float32 route of the
-    same bf16 values, each against the float64 product, gated by
+    with float32 output (``ppo_trunk.bf16_matmul``) and the float32 route
+    of the same bf16 values, each against the float64 product, gated by
     ``GEMM_GATE`` per output; both routes' largest error over its bound
     printed, and their times (CUDA events)."""
     import torch
     from sustaingym_tpu_torch.bench import TRAINERS
-    from sustaingym_tpu_torch.parallel.ppo import bf16_matmul
+    from sustaingym_tpu_torch.ops.cuda.ppo_trunk import bf16_matmul
     cfg = TRAINERS["EV"][3]
     rows = cfg["num_envs"] * STEPS // cfg["minibatches"]
     dev = torch.device("cuda")
@@ -3242,6 +3345,7 @@ def main() -> int:
     from sustaingym_tpu_torch.ops.cuda import build
     from sustaingym_tpu_torch.ops.cuda import ev_rollout as K
     from sustaingym_tpu_torch.ops.cuda import ppo_loss as KL
+    from sustaingym_tpu_torch.ops.cuda import ppo_trunk as KT
     from sustaingym_tpu_torch.parallel import init_policy
 
     # plain versions are the oracle: full-f32 matmuls
@@ -3260,7 +3364,7 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("ev_rollout", "exog_gather", "cogen_rollout", "dc_rollout",
-               "lp_solve", "building_rollout", "ppo_loss")
+               "lp_solve", "building_rollout", "ppo_loss", "ppo_trunk")
     build.load_libraries(sources, verbose=True)
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.3f} s {tag}", flush=True)
@@ -3383,11 +3487,15 @@ def main() -> int:
     loss_args = ppo_loss_inputs(cfg.num_envs * STEPS // cfg.minibatches, n,
                                 gen)
     err["ppo_gauss_loss"] = check_ppo_loss(loss_args, tag)
+    # the trunk's passes at the same rows, hidden 256, the EV obs to copy
+    trunk_args = trunk_inputs(loss_args[0].shape[0], HIDDEN, D, gen)
+    err["ppo_trunk"] = check_ppo_trunk(trunk_args, tag)
 
     # ---- main path: counts from 0 -----------------------------------------
     K.ev_segment.launches = 0
     K.ev_policy_segment.launches = 0
     KL.ppo_gauss_loss.launches = 0
+    KT.ppo_trunk.launches = 0
 
     # ---- 5. simulation tier -----------------------------------------------
     sim_gen = torch.Generator(device=dev).manual_seed(11)
@@ -3403,19 +3511,31 @@ def main() -> int:
 
     launches = {"ev_segment": K.ev_segment.launches,
                 "ev_policy_segment": K.ev_policy_segment.launches,
-                "ppo_gauss_loss": KL.ppo_gauss_loss.launches}
+                "ppo_gauss_loss": KL.ppo_gauss_loss.launches,
+                "ppo_trunk": KT.ppo_trunk.launches}
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
     # one a minibatch (epochs x minibatches a step) and each trainer's one
     # warm-up of its captured update: the two steps, then the lr=0 step
     want_loss = (2 * cfg.epochs * cfg.minibatches + 1
                  + cfg0.epochs * cfg0.minibatches + 1)
+    # the trunk's passes: four a minibatch (two forward, two backward) and
+    # two a scoring, each step's, plus each trainer's warm-ups of its
+    # captured update (one minibatch) and scoring
+    def trunk_step(c):
+        return 4 * c.epochs * c.minibatches + 2
+    want_trunk = 2 * trunk_step(cfg) + trunk_step(cfg0) + 2 * (4 + 2)
     print(f"EV main path: ppo_gauss_loss launches {launches['ppo_gauss_loss']}"
           f" over two train steps and the lr=0 step (required {want_loss}: "
-          f"{cfg.epochs * cfg.minibatches} a step) {tag}", flush=True)
+          f"{cfg.epochs * cfg.minibatches} a step); ppo_trunk launches "
+          f"{launches['ppo_trunk']} (required {want_trunk}: "
+          f"{trunk_step(cfg)} a step) {tag}", flush=True)
     if launches["ppo_gauss_loss"] != want_loss:
         fail(f"ppo_gauss_loss launches {launches['ppo_gauss_loss']} on the "
              f"EV main path, required {want_loss}")
+    if launches["ppo_trunk"] != want_trunk:
+        fail(f"ppo_trunk launches {launches['ppo_trunk']} on the EV main "
+             f"path, required {want_trunk}")
     finish_trainer("EV", env, p, cfg, 21, tag, want_profile)
 
     # simulation-tier times, after the counts were read
@@ -3462,6 +3582,11 @@ def main() -> int:
           f"{loss_ms:.4f} ms (device, its three launches); plain "
           f"{loss_plain_ms:.4f} ms; bound {loss_bound[0]:.4f} ms "
           f"({loss_bound[1]}) {tag}", flush=True)
+    trunk = trunk_times(trunk_args)
+    print(f"ppo_trunk {trunk_args[2].shape[0]}x{trunk_args[2].shape[1]}: "
+          f"{json.dumps(trunk)} (device ms of each pass's C entry point; a "
+          f"minibatch runs forward_keep twice, backward and backward_obs "
+          f"once) {tag}", flush=True)
 
     # bounds at the main path's shapes (caltech, projection on)
     # mat-vecs with C, each 2 m2 n operations: ev_segment counts those it
@@ -3511,6 +3636,15 @@ def main() -> int:
          "max_abs_err": err["ppo_gauss_loss"], "ms": loss_ms,
          "plain_ms": loss_plain_ms, "bound_ms": loss_bound[0],
          "bound_by": loss_bound[1], "library_ms": None})
+    # the trunk's four passes of one minibatch
+    mb = {k: sum(trunk[c][k] * n for c, n in TRUNK_MINIBATCH.items())
+          for k in ("ms", "plain_ms", "bound_ms")}
+    kernels.append(
+        {"name": "ppo_trunk", "route": "cuda",
+         "source": "sustaingym_tpu_torch/ops/cuda/csrc/ppo_trunk.cu",
+         "replaces": None, "launches": launches["ppo_trunk"],
+         "max_abs_err": err["ppo_trunk"], **mb, "bound_by": "bytes",
+         "library_ms": None})
     ma_slice(tag, want_profile)
     pdhg = next(k for k in kernels if k["name"] == "pdhg_solve_paired")
     pdhg["launches"] += off_policy_slice(tag, want_profile)

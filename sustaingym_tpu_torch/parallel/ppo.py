@@ -90,11 +90,12 @@ from ..core import (Discrete, MultiDiscrete, ScheduleGuard, dataclass,
 from ..core import trace
 from ..core.graph import Graphs, device_const, tree_leaves
 from ..ops.cuda.ppo_loss import fused_ppo_loss
+from ..ops.cuda.ppo_trunk import ppo_trunk
 from .mesh import Mesh, mp_all_reduce
 
 __all__ = ["PPOConfig", "ActorCritic", "StackedActorCritic", "init_policy",
            "init_stacked_policy", "policy_apply", "policy_apply_bf16",
-           "policy_apply_bf16_ref", "bf16_matmul",
+           "policy_apply_bf16_ref",
            "per_agent_apply", "default_act_transform", "gae", "fused_head",
            "loss_fn",
            "clip_by_global_norm", "make_train_step"]
@@ -108,6 +109,9 @@ class PPOConfig:
     ``episode_steps``, a whole episode per env."""
     num_envs: int = 256
     rollout_len: int | None = None
+    # the trunk's width; where the bf16 trunk runs on the card
+    # (``obs_bf16``'s fused path) a multiple of 8 from 8 to 2048, the
+    # widths ``ops/cuda/ppo_trunk.py``'s passes take (others raise there)
     hidden: int = 256
     epochs: int = 4
     minibatches: int = 8
@@ -290,44 +294,6 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-class _Bf16Matmul(torch.autograd.Function):
-    """x (..., K) bf16 @ w (N, K).T bf16 -> (..., N) float32: one bf16
-    tensor-core GEMM with float32 output (``aten::mm.dtype``), the JAX
-    package's bf16 ``einsum(..., preferred_element_type=float32)``.
-    Products of bf16 values are exact in float32, so it equals the float32
-    product of the same values up to the order of the sums. The backward
-    keeps float32 products (each has a float32 cotangent operand) and
-    returns bf16 gradients, as a bf16 cast's backward rounds them."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
-                       out_dtype=torch.float32)
-        return out.reshape(x.shape[:-1] + (w.shape[0],))
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
-        gx = gw = None
-        if ctx.needs_input_grad[0]:
-            gx = (g2 @ w.float()).reshape(x.shape).to(torch.bfloat16)
-        if ctx.needs_input_grad[1]:
-            gw = (g2.t() @ x.reshape(-1, x.shape[-1]).float()
-                  ).to(torch.bfloat16)
-        return gx, gw
-
-
-def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w.T of bf16 tensors with float32 output: the bf16 GEMM on a
-    CUDA tensor (:class:`_Bf16Matmul`), on the CPU the float32 product of
-    the same values (its plain version)."""
-    if x.device.type == "cuda":
-        return _Bf16Matmul.apply(x, w)
-    return x.float() @ w.float().t()
-
-
 def policy_apply_bf16_ref(policy: ActorCritic, obs: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
@@ -350,22 +316,32 @@ def policy_apply_bf16(policy: ActorCritic, obs: torch.Tensor
     activations and f32 accumulation — the kernel actor's numerics, used
     for both the rollout's scoring and every update. On a CUDA device the
     three products (obs x trunk1, h1 x trunk2, h2 x [mu; value]) are bf16
-    GEMMs with float32 output (:func:`bf16_matmul`), each weight cast to
-    bf16 once, and ``mu`` and ``value`` are the two parts of the last
-    product plus its biases (views); elsewhere
+    GEMMs with float32 output, each weight cast to bf16 once, and the
+    elementwise glue between them (bias, tanh, bf16 rounding and, in the
+    backward, tanh's gradient, the bias gradients and the float32 copies
+    of the bf16 operands) is one hand-written pass a hidden layer and
+    direction (``ops/cuda/ppo_trunk.py``, :func:`ppo_trunk`, which raises
+    for a width it cannot take); ``mu`` and ``value`` are the two parts of
+    the last product plus its biases (views). Elsewhere
     :func:`policy_apply_bf16_ref`."""
     if obs.device.type != "cuda":
         return policy_apply_bf16_ref(policy, obs)
+    return _apply_trunk(policy, obs)
+
+
+def _apply_trunk(policy: ActorCritic, obs: torch.Tensor):
+    """:func:`policy_apply_bf16`'s card route on any device (on the CPU
+    :func:`ppo_trunk` runs its passes' plain versions)."""
     bf = torch.bfloat16
-    h = torch.tanh(bf16_matmul(obs.to(bf), policy.trunk1.weight.to(bf))
-                   + policy.trunk1.bias)
-    h = torch.tanh(bf16_matmul(h.to(bf), policy.trunk2.weight.to(bf))
-                   + policy.trunk2.bias)
+    x = obs.to(bf)
     # both heads in one product: the hidden gradient is summed in float32
-    # before its bf16 cast, as the plain version sums it
+    # before its bf16 rounding, as the plain version sums it
     heads = torch.cat([policy.mu.weight, policy.value.weight]).to(bf)
-    out = bf16_matmul(h.to(bf), heads) + torch.cat([policy.mu.bias,
-                                                    policy.value.bias])
+    out = ppo_trunk(x.reshape(-1, x.shape[-1]),
+                    policy.trunk1.weight.to(bf), policy.trunk1.bias,
+                    policy.trunk2.weight.to(bf), policy.trunk2.bias, heads)
+    out = out.reshape(x.shape[:-1] + out.shape[-1:]) + torch.cat(
+        [policy.mu.bias, policy.value.bias])
     # mu and value stay views of the one product: the fused loss head
     # (:func:`loss_fn`) reads them in place and returns its gradient whole
     act_dim = policy.mu.weight.shape[0]

@@ -1187,10 +1187,12 @@ def test_policy_kernels_env_offset_slices_bit_equal(cuda, tmp_path, kernel):
 def test_bf16_gemm_float64_gate(cuda, m, k, n):
     """The PPO learner's bf16 products (obs x trunk1, h1 x trunk2, h2 x
     heads at the EV trainer's minibatch rows) as bf16 GEMMs with float32
-    output, and the float32 route of the same bf16 values, each within
-    64 * 2^-24 * sum_k |a_k b_k| of the float64 product; the backward's
-    float32 products equal the float32 route's to float32 rounding."""
-    from sustaingym_tpu_torch.parallel.ppo import bf16_matmul
+    output (``ppo_trunk.bf16_matmul``), and the float32 route of the same
+    bf16 values, each within 64 * 2^-24 * sum_k |a_k b_k| of the float64
+    product. (The trunk's backward products, float32 on float32
+    cotangents, are held to the autograd chain they replaced in
+    ``tests/test_torch_ppo_trunk.py``.)"""
+    from sustaingym_tpu_torch.ops.cuda.ppo_trunk import bf16_matmul
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     a = torch.randn((m, k), generator=g, device=cuda).bfloat16()
     w = torch.randn((n, k), generator=g, device=cuda).bfloat16()
@@ -1199,16 +1201,6 @@ def test_bf16_gemm_float64_gate(cuda, m, k, n):
     for out in (bf16_matmul(a, w), a.float() @ w.float().t()):
         assert out.dtype == torch.float32
         assert bool(((out.double() - ref).abs() <= bound).all())
-    a1, w1 = a.clone().requires_grad_(), w.clone().requires_grad_()
-    a2, w2 = a.clone().requires_grad_(), w.clone().requires_grad_()
-    cot = torch.randn((m, n), generator=g, device=cuda)
-    (bf16_matmul(a1, w1) * cot).sum().backward()
-    (a2.float() @ w2.float().t() * cot).sum().backward()
-    assert a1.grad.dtype == w1.grad.dtype == torch.bfloat16
-    torch.testing.assert_close(a1.grad.float(), a2.grad.float(),
-                               rtol=2 ** -7, atol=1e-5)
-    torch.testing.assert_close(w1.grad.float(), w2.grad.float(),
-                               rtol=2 ** -7, atol=1e-3)
 
 
 @pytest.mark.parametrize("algo", ["ppo", "sac"])
